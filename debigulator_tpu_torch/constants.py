@@ -1,0 +1,71 @@
+"""RFC 1951 / 1952 constants the decode path needs.
+
+The port's own copy of the DEFLATE and gzip parts of
+debigulator_tpu/constants.py (RFC 1951 §3.2.5-§3.2.7, RFC 1952 §2.3.1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+#: Maximum bits in any Huffman code (RFC 1951 §3.2.1).
+MAX_BITS = 15
+
+#: Length codes 257..285 -> (extra bits, base length) (RFC 1951 §3.2.5).
+LENGTH_EXTRA_BITS = np.array(
+    [0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2,
+     3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0],
+    dtype=np.int32,
+)
+LENGTH_BASE = np.array(
+    [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31,
+     35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195, 227, 258],
+    dtype=np.int32,
+)
+
+#: Distance codes 0..29 -> (extra bits, base distance) (RFC 1951 §3.2.5).
+DIST_EXTRA_BITS = np.array(
+    [0, 0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6,
+     7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12, 13, 13],
+    dtype=np.int32,
+)
+DIST_BASE = np.array(
+    [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193,
+     257, 385, 513, 769, 1025, 1537, 2049, 3073, 4097, 6145, 8193,
+     12289, 16385, 24577],
+    dtype=np.int32,
+)
+
+#: LZ77 window (RFC 1951 §2).
+WINDOW_SIZE = 32768
+
+
+def fixed_litlen_lengths() -> np.ndarray:
+    """Fixed-Huffman literal/length code lengths (RFC 1951 §3.2.6)."""
+    lengths = np.empty(288, dtype=np.int32)
+    lengths[0:144] = 8
+    lengths[144:256] = 9
+    lengths[256:280] = 7
+    lengths[280:288] = 8
+    return lengths
+
+
+def fixed_dist_lengths() -> np.ndarray:
+    """Fixed-Huffman distance code lengths: 32 five-bit codes (RFC 1951 §3.2.6)."""
+    return np.full(32, 5, dtype=np.int32)
+
+
+# Block types (BTYPE field, RFC 1951 §3.2.3).
+BTYPE_STORED = 0
+BTYPE_FIXED = 1
+BTYPE_DYNAMIC = 2
+
+# gzip (RFC 1952).
+GZIP_MAGIC = b"\x1f\x8b"
+GZIP_CM_DEFLATE = 8
+# FLG bits (RFC 1952 §2.3.1).
+GZIP_FTEXT = 1
+GZIP_FHCRC = 2
+GZIP_FEXTRA = 4
+GZIP_FNAME = 8
+GZIP_FCOMMENT = 16

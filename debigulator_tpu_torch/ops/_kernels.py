@@ -1,0 +1,88 @@
+"""Build, load and launch the port's CUDA kernels.
+
+Each source under ``csrc/`` is compiled by its own ``nvcc`` process (all
+started together) for ``sm_90a`` into a shared library with a plain C
+interface, in the package's git-ignored build directory, at first use.
+The libraries are loaded with ctypes.  Every C entry launches on the
+stream it is given (PyTorch's current stream), allocates nothing, does not
+synchronise, and returns ``cudaGetLastError()``; ``launch`` raises when it
+is not 0.  Nothing here runs at import: the CPU tests import every module.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import pathlib
+import shutil
+import threading
+import time
+
+import torch
+
+from debigulator_tpu_torch._build import build_libraries
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = {"phase_a": "phase_a.cu", "compact": "compact.cu", "walk": "walk.cu"}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+#: C entry -> (library, argument types; the stream argument comes last).
+_ENTRIES = {
+    "dbg_phase_a": ("phase_a", [_P, _P, _P, _I32, _I32,
+                                _P, _P, _P, _P, _P, _P, _P]),
+    "dbg_compact": ("compact", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I32, _I32, _P, _P, _P, _P]),
+    "dbg_walk": ("walk", [_P, _I64, _I64, _P, _P, _P, _P, _I32,
+                          _P, _P, _I64, _P, _I64]),
+}
+
+_FNS: dict = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def build() -> float:
+    """Build (if needed) and load every kernel library; returns seconds."""
+    t0 = time.perf_counter()
+    with _LOCK:
+        if not _FNS:
+            nvcc = _nvcc()
+            specs = {name: ([CSRC / src], [nvcc, *NVCC_FLAGS, str(CSRC / src)])
+                     for name, src in SOURCES.items()}
+            libs = {name: ctypes.CDLL(str(path))
+                    for name, path in build_libraries(specs).items()}
+            for entry, (lib, argtypes) in _ENTRIES.items():
+                fn = getattr(libs[lib], entry)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [*argtypes, ctypes.c_void_p]
+                _FNS[entry] = fn
+    return time.perf_counter() - t0
+
+
+def launch(entry: str, *args) -> None:
+    """Call a C entry with tensors passed as device pointers and the
+    current CUDA stream appended; raise on a launch error."""
+    conv = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if a.device.type != "cuda" or not a.is_contiguous():
+                raise ValueError(f"{entry}: tensors must be contiguous CUDA tensors")
+            conv.append(a.data_ptr())
+        else:
+            conv.append(int(a))
+    if not _FNS:
+        build()
+    err = _FNS[entry](*conv, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA launch failed (cudaError {err})")

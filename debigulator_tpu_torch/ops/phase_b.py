@@ -1,0 +1,315 @@
+"""Phase B: Phase A tapes -> decoded bytes (the port of
+debigulator_tpu/ops/phase_b_v15.py's flagship path).
+
+* ``prep_records`` is the glue twin of ``resolve_segmented_v15``
+  (phase_b_v15.py:864-903): per-cell output bases (``cbase`` cumsum),
+  per-record dst/meta in cell-major order, and the 128-row-aligned chunk
+  row bases.
+* ``compact`` (kernel csrc/compact.cu, replacing ``_compact_kernel``)
+  turns the padded tapes into dense dst-sorted record lists, padding
+  included exactly as the reference lays it out.
+* ``size8`` is the frontier-batch rule (phase_b_v15.py:931-953).
+* ``walk`` (kernel csrc/walk.cu, replacing ``_walk_kernel_v16``) places
+  the literal runs and resolves the matches over one flat output buffer
+  with the 32 KiB window prologue just before the body.
+
+``resolve`` chains them; its output is the reference's body: n_seg *
+seg_bytes int32 values, one byte each.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from debigulator_tpu_torch import constants as C
+from debigulator_tpu_torch.ops import _kernels
+from debigulator_tpu_torch.ops.plan import SEG_BYTES, TC
+
+WINDOW = C.WINDOW_SIZE
+BIG = 1 << 30
+GROUP = 8
+#: Cells per compact chunk (phase_b_v15.CHUNK_CELLS).
+CHUNK_CELLS = TC
+#: Slack rows of the dense arrays past the tapes (phase_b_v15.SUB_ROWS + 16).
+DENSE_SLACK_ROWS = 256 + 16
+#: Run meta keeps the literal-tape row in bits 14..31.
+LIT_ROW_LIMIT = 1 << 18
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wrap (the reference's int32
+    arithmetic, made explicit)."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+@dataclasses.dataclass
+class Records:
+    """Cell-major record arrays and chunk bases for ``compact``."""
+
+    dm: torch.Tensor  # (cells_pad*slots,) match dst (0 where invalid)
+    mm: torch.Tensor  # match meta len << 16 | dist (0 = padding)
+    dr: torch.Tensor  # run dst
+    mr: torch.Tensor  # run meta litrow << 14 | lane0 << 7 | len
+    mbase: torch.Tensor  # (n_chunks,) dense row base of each chunk
+    rbase: torch.Tensor
+    lit: torch.Tensor  # (cells_pad*slots,) literal tape, cell-major
+
+
+def prep_records(ma, mb, ra, rb, lit, cnt, outlen, bob_cell,
+                 slots: int) -> Records:
+    """Glue between Phase A and compact (phase_b_v15.py:864-903)."""
+    cells_pad = ma.shape[1]
+    if cells_pad % CHUNK_CELLS:
+        raise ValueError("cells_pad must be a multiple of the chunk size")
+    if cells_pad * slots // 128 > LIT_ROW_LIMIT:
+        raise ValueError(
+            f"lit tape {cells_pad * slots // 128} rows exceeds the run-meta "
+            "field (2^18); split the batch")
+    dev = ma.device
+    n_chunks = cells_pad // CHUNK_CELLS
+    cpr = 128 // slots
+    mc = (cnt >> 16) & 0xFF
+    rc = (cnt >> 8) & 0xFF
+    cl = outlen.long()
+    bob = bob_cell.long()
+    cbase = (bob + torch.cumsum(cl, 0) - cl)
+    slot = torch.arange(slots, device=dev)[:, None]
+    vm = slot < mc[None, :]
+    vr = slot < rc[None, :]
+    dstm = torch.where(vm, _wrap32(ma.long() + cbase[None, :]), 0)
+    metam = torch.where(vm, mb, 0)
+    dstr = torch.where(vr, _wrap32(ra.long() + cbase[None, :]), 0)
+    cell = torch.arange(cells_pad, device=dev)[None, :]
+    litrow = cell // cpr
+    lane0 = (cell % cpr) * slots + (rb.long() >> 16)
+    metar = torch.where(
+        vr, _wrap32((litrow << 14) | (lane0 << 7) | (rb.long() & 0xFFFF)), 0)
+
+    def cell_major(t):
+        return t.T.contiguous().view(-1)
+
+    mrows = -(-mc.view(n_chunks, CHUNK_CELLS).sum(1) // 128)
+    rrows = -(-rc.view(n_chunks, CHUNK_CELLS).sum(1) // 128)
+    return Records(
+        dm=cell_major(dstm), mm=cell_major(metam),
+        dr=cell_major(dstr), mr=cell_major(metar),
+        mbase=(torch.cumsum(mrows, 0) - mrows).to(torch.int32),
+        rbase=(torch.cumsum(rrows, 0) - rrows).to(torch.int32),
+        lit=cell_major(lit))
+
+
+# ---------------------------------------------------------------------------
+# Compact
+# ---------------------------------------------------------------------------
+
+
+def _chunk_layout(d, m, base, per_chunk: int, cap_rows: int):
+    """Per-chunk fill value (prefix max of valid dst through the chunk)
+    and region end row (the next chunk's base; base + cap_rows for the
+    last chunk, the reference's tail fill)."""
+    n_chunks = base.shape[0]
+    cmax = torch.where(m != 0, d, 0).view(n_chunks, per_chunk).amax(1)
+    fill = torch.cummax(cmax.clamp(min=0), 0).values.to(torch.int32)
+    end = torch.empty_like(base)
+    end[:-1] = base[1:]
+    end[-1:] = base[-1:] + cap_rows
+    return fill, end
+
+
+def _compact_layout(rec: Records, slots: int):
+    """(per_chunk, dense_rows, (mfill, mend), (rfill, rend)) of a compact
+    call on ``rec``."""
+    per_chunk = CHUNK_CELLS * slots
+    cap_rows = per_chunk // 128 + 2
+    n_rec = rec.dm.numel()
+    if n_rec % per_chunk:
+        raise ValueError("record count is not a whole number of chunks")
+    dense_rows = n_rec // 128 + cap_rows + DENSE_SLACK_ROWS
+    return (per_chunk, dense_rows,
+            _chunk_layout(rec.dm, rec.mm, rec.mbase, per_chunk, cap_rows),
+            _chunk_layout(rec.dr, rec.mr, rec.rbase, per_chunk, cap_rows))
+
+
+def _compact_list_plain(d, m, base, fill, end, per_chunk: int,
+                        dense_rows: int):
+    """Plain PyTorch compaction of one list: valid records (meta != 0) to
+    base*128 + rank within their chunk; the rest of each chunk's region
+    [base, end) gets (fill, 0); everything past is (BIG, 0)."""
+    dev = d.device
+    n_chunks = base.shape[0]
+    valid = (m != 0).view(n_chunks, per_chunk)
+    rank = torch.cumsum(valid.long(), 1) - 1
+    at = (base.long()[:, None] * 128 + rank)[valid]
+    odst = torch.full((dense_rows * 128,), BIG, dtype=torch.int32, device=dev)
+    ometa = torch.zeros(dense_rows * 128, dtype=torch.int32, device=dev)
+    pos = torch.arange(int(end[-1]) * 128, device=dev)
+    owner = torch.searchsorted(base.long() * 128, pos, right=True) - 1
+    odst[: pos.numel()] = fill[owner]
+    odst[at] = d.view(n_chunks, per_chunk)[valid]
+    ometa[at] = m.view(n_chunks, per_chunk)[valid]
+    return odst, ometa
+
+
+def compact_plain(rec: Records, slots: int):
+    """Plain PyTorch version of ``compact``, on any device."""
+    per_chunk, dense_rows, (mfill, mend), (rfill, rend) = \
+        _compact_layout(rec, slots)
+    return (*_compact_list_plain(rec.dm, rec.mm, rec.mbase, mfill, mend,
+                                 per_chunk, dense_rows),
+            *_compact_list_plain(rec.dr, rec.mr, rec.rbase, rfill, rend,
+                                 per_chunk, dense_rows))
+
+
+def compact(rec: Records, slots: int):
+    """Dense dst-sorted match and run lists, each (dense_rows*128,) int32:
+    (mdst, mmeta, rdst, rmeta), equal to the reference's compact_v15 on
+    the same records.  Plain version for CPU tensors, CUDA kernel for CUDA
+    tensors."""
+    if rec.dm.device.type == "cpu":
+        return compact_plain(rec, slots)
+    per_chunk, dense_rows, (mfill, mend), (rfill, rend) = \
+        _compact_layout(rec, slots)
+    n_chunks = rec.dm.numel() // per_chunk
+    dev = rec.dm.device
+    out = torch.empty((4, dense_rows * 128), dtype=torch.int32, device=dev)
+    # Past the last region the reference keeps its inits (dst BIG, meta 0);
+    # the kernel writes every region itself.
+    out[0].fill_(BIG)
+    out[1].zero_()
+    out[2].fill_(BIG)
+    out[3].zero_()
+    _kernels.launch(
+        "dbg_compact", rec.dm, rec.mm, rec.dr, rec.mr, rec.mbase, rec.rbase,
+        mend, rend, mfill, rfill, n_chunks, per_chunk,
+        out[0], out[1], out[2], out[3])
+    compact.launches += 1
+    return out[0], out[1], out[2], out[3]
+
+
+compact.launches = 0
+
+
+def size8(mdst: torch.Tensor, mmeta: torch.Tensor) -> torch.Tensor:
+    """Frontier batch sizes: size8[s] = the largest t <= 8 such that every
+    record j in [s, s+t) is narrow and has src_j + len_j <= dst_s; 0 marks
+    an overlapping (dist < len) or wide record (phase_b_v15.py:931-953)."""
+    mlen = mmeta >> 16
+    dist = mmeta & 0xFFFF
+    req = mdst - dist + mlen
+    rp = mdst & 127
+    qr = (mdst - dist - rp) & 127
+    narrow = (rp + (mlen & 0x1FF) + qr) <= 2 * 128
+    n = mdst.numel()
+    reqp = torch.cat([req, torch.full((GROUP,), BIG, dtype=req.dtype,
+                                      device=req.device)])
+    nrwp = torch.cat([narrow, torch.ones(GROUP, dtype=torch.bool,
+                                         device=req.device)])
+    acc = torch.ones(n, dtype=torch.bool, device=req.device)
+    out = torch.zeros(n, dtype=torch.int32, device=req.device)
+    for t in range(GROUP):
+        acc &= (reqp[t : t + n] <= mdst) & nrwp[t : t + n]
+        out += acc.to(torch.int32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Walk
+# ---------------------------------------------------------------------------
+
+
+def _expand(lens: torch.Tensor):
+    """(record index, offset in record) for every byte of the records."""
+    rec = torch.repeat_interleave(torch.arange(lens.numel(), device=lens.device),
+                                  lens)
+    first = torch.cumsum(lens, 0) - lens
+    off = torch.arange(rec.numel(), device=lens.device) - first[rec]
+    return rec, off
+
+
+def walk_plain(out, mdst, mmeta, rdst, rmeta, lit):
+    """Plain PyTorch walk, in place on ``out`` (flat int32, the window
+    prologue in out[:WINDOW]).  Literal runs are a gather from the literal
+    tape; matches resolve by pointer jumping: every match byte points at
+    its source byte, and ptr = ptr[ptr] until nothing changes, which
+    follows each byte's chain of copies back to a literal, stored or
+    window byte in O(log chain) passes."""
+    n = out.numel()
+    live = rmeta != 0
+    rm = rmeta[live].long()
+    rlen = rm & 0x7F
+    rsrc = ((rm & 0xFFFFFFFF) >> 14) * 128 + ((rm >> 7) & 0x7F)
+    rec, off = _expand(rlen)
+    pos = rdst[live].long()[rec] + WINDOW + off
+    out[pos] = lit[rsrc[rec] + off]
+
+    mlen = (mmeta >> 16).long()
+    live = (mdst < BIG) & (mlen > 0)
+    md = mdst[live].long() + WINDOW
+    mdist = (mmeta[live] & 0xFFFF).long()
+    rec, off = _expand(mlen[live])
+    pos = md[rec] + off
+    ptr = torch.arange(n, device=out.device)
+    ptr[pos] = (pos - mdist[rec]).clamp(min=0)
+    while True:
+        nxt = ptr[ptr]
+        if torch.equal(nxt, ptr):
+            break
+        ptr = nxt
+    out.copy_(out[ptr])
+    return out
+
+
+def walk(out, mdst, mmeta, s8, rdst, rmeta, lit, stream_starts=None):
+    """Literal runs + matches into ``out`` in place; plain version for CPU
+    tensors, the CUDA kernel pair for CUDA tensors.  ``s8`` is
+    size8(mdst, mmeta) (the plain version does not need it).
+    ``stream_starts``: sorted output offsets of the independent streams of
+    a merged batch (default: one stream); the kernel walks each stream's
+    slice of the match list on its own CTA."""
+    for t in (out, mdst, mmeta, s8, rdst, rmeta, lit):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("walk inputs must be contiguous int32")
+    if out.device.type == "cpu":
+        return walk_plain(out, mdst, mmeta, rdst, rmeta, lit)
+    if stream_starts is None:
+        stream_starts = torch.zeros(1, dtype=torch.int32, device=out.device)
+    bounds = torch.cat([
+        torch.searchsorted(mdst, stream_starts.to(torch.int32)),
+        torch.full((1,), mdst.numel(), dtype=torch.int64, device=out.device)])
+    _kernels.launch("dbg_walk", out, out.numel(), WINDOW, mdst, mmeta, s8,
+                    bounds, stream_starts.numel(), rdst, rmeta, rdst.numel(),
+                    lit, lit.numel())
+    walk.launches += 1
+    return out
+
+
+walk.launches = 0
+
+
+def init_body(n_seg: int, stored_pos, stored_val, tail0=None,
+              device=None) -> torch.Tensor:
+    """Flat output buffer: window prologue (tail0, zeros for a stream
+    head) then n_seg*SEG_BYTES body values with the stored bytes placed."""
+    out = torch.zeros(WINDOW + n_seg * SEG_BYTES, dtype=torch.int32,
+                      device=device)
+    if tail0 is not None:
+        out[:WINDOW] = tail0.reshape(-1)
+    if stored_val.numel():
+        out[WINDOW + stored_pos.long()] = stored_val.to(torch.int32)
+    return out
+
+
+def resolve(ma, mb, ra, rb, lit, cnt, outlen, bob_cell, n_seg: int,
+            stored_pos, stored_val, slots: int, tail0=None,
+            stream_starts=None) -> torch.Tensor:
+    """Phase B: the reference's resolve_segmented_v15 contract.  Returns
+    the body (n_seg*SEG_BYTES,) int32, one byte per element."""
+    rec = prep_records(ma, mb, ra, rb, lit, cnt, outlen, bob_cell, slots)
+    mdst, mmeta, rdst, rmeta = compact(rec, slots)
+    out = init_body(n_seg, stored_pos, stored_val, tail0, device=ma.device)
+    walk(out, mdst, mmeta, size8(mdst, mmeta), rdst, rmeta, rec.lit,
+         stream_starts=stream_starts)
+    return out[WINDOW:]

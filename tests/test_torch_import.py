@@ -1,0 +1,116 @@
+"""The PyTorch port stands alone: importing any of its modules pulls in
+neither JAX nor the JAX package, and its entry points default to the card
+(they raise on a host without CUDA instead of running on the CPU)."""
+
+import subprocess
+import sys
+import zlib
+
+import pytest
+import torch
+
+MODULES = [
+    "debigulator_tpu_torch",
+    "debigulator_tpu_torch.constants",
+    "debigulator_tpu_torch.device",
+    "debigulator_tpu_torch.native",
+    "debigulator_tpu_torch.native.scanner",
+    "debigulator_tpu_torch.ops.checksum",
+    "debigulator_tpu_torch.ops.inflate",
+    "debigulator_tpu_torch.ops.inflate_ref",
+    "debigulator_tpu_torch.ops.phase_a",
+    "debigulator_tpu_torch.ops.phase_b",
+    "debigulator_tpu_torch.ops.plan",
+    "debigulator_tpu_torch.ops.scanner",
+    "debigulator_tpu_torch.ops._kernels",
+    "debigulator_tpu_torch.models.gzip_codec",
+    "debigulator_tpu_torch.models.pipeline",
+    "debigulator_tpu_torch.parallel.merged",
+    "debigulator_tpu_torch.utils.logging",
+]
+
+_CHECK = """
+import sys, zlib
+for m in {mods!r}:
+    __import__(m)
+from debigulator_tpu_torch.ops.inflate import inflate_device
+data = b"standalone " * 500
+c = zlib.compressobj(6, zlib.DEFLATED, -15)
+assert inflate_device(c.compress(data) + c.flush(), device="cpu") == data
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "jaxlib"
+             or k == "debigulator_tpu" or k.startswith("debigulator_tpu."))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax():
+    r = subprocess.run([sys.executable, "-c", _CHECK.format(mods=MODULES)],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+
+
+@pytest.mark.parametrize("entry", ["decode_merged", "decode_gzip_device",
+                                   "inflate_device"])
+def test_entry_points_default_to_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    import gzip
+
+    from debigulator_tpu_torch.models.pipeline import decode_gzip_device
+    from debigulator_tpu_torch.ops.inflate import inflate_device
+    from debigulator_tpu_torch.parallel.merged import decode_merged
+
+    data = b"default device " * 100
+    c = zlib.compressobj(6, zlib.DEFLATED, -15)
+    raw = c.compress(data) + c.flush()
+    call = {"decode_merged": lambda: decode_merged([raw]),
+            "decode_gzip_device": lambda: decode_gzip_device(gzip.compress(data)),
+            "inflate_device": lambda: inflate_device(raw)}[entry]
+    with pytest.raises(RuntimeError, match="cuda"):
+        call()
+
+
+def test_kernel_wrappers_raise_without_card():
+    """A CUDA-only wrapper path must never fall back: asking the launcher
+    for a kernel with CPU tensors is refused."""
+    from debigulator_tpu_torch.ops import _kernels
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch("dbg_walk", torch.zeros(4, dtype=torch.int32))
+
+
+def _c_params(entry: str) -> list[str]:
+    """Parameter declarations of an extern "C" entry in csrc/*.cu."""
+    import re
+
+    from debigulator_tpu_torch.ops import _kernels
+
+    lib = _kernels._ENTRIES[entry][0]
+    src = (_kernels.CSRC / _kernels.SOURCES[lib]).read_text()
+    m = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src)
+    assert m, f"{entry} not found in {lib}"
+    return [p.strip() for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("entry", ["dbg_phase_a", "dbg_compact", "dbg_walk"])
+def test_ctypes_declarations_match_c_entries(entry):
+    """ctypes cannot check a call against the C prototype: a missing or
+    mistyped argument shifts every later one (and the stream).  Hold the
+    Python declarations against the sources."""
+    import ctypes
+
+    from debigulator_tpu_torch.ops import _kernels
+
+    params = _c_params(entry)
+    argtypes = _kernels._ENTRIES[entry][1]
+    assert params[-1].startswith("cudaStream_t")
+    assert len(params) == len(argtypes) + 1
+    for decl, at in zip(params, argtypes):
+        if "*" in decl:
+            assert at is ctypes.c_void_p, decl
+        elif decl.startswith("int64_t"):
+            assert at is ctypes.c_int64, decl
+        else:
+            assert decl.startswith("int ") and at is ctypes.c_int, decl
