@@ -3,23 +3,43 @@
 
     python3 chip_smoke.py
 
-Builds the host library and the CUDA kernels from this checkout, holds
-every kernel bit-exact against its plain PyTorch version on the card, then
-runs the main path at full size: 29 distinct raw DEFLATE streams of about
-562 KB each (the shape of bench.py's workload, synthetic OBJ-like text
-made from a fixed seed) through build_merged_plan -> prepare_merged -> run
-on "cuda", every stream checked against zlib.  It then decodes a
-two-member gzip file, a long stream through the chunked decode and a
-stored/dynamic mix.  Each phase prints one JSON line; the line before the
-last is the card's name and power limit as nvidia-smi reports them, and
-the last line is {"ok": true, "device": {...}}.  Any mismatch or launch
-error raises and the script exits non-zero without that line.
+Builds the host library and the five CUDA kernels from this checkout and
+holds every kernel bit-exact against its plain PyTorch version on the card.
+Each phase prints one JSON line:
+
+* card, build;
+* kernels_vs_plain: Phase A, compact and the walk at ~1.1 MB of output;
+* main_path: 29 distinct raw DEFLATE streams of about 562 KB each (the
+  shape of bench.py's workload, synthetic OBJ-like text made from a fixed
+  seed) through build_merged_plan -> prepare_merged -> run on "cuda", every
+  stream checked against zlib; profile (device busy share and top kernels);
+* unfilter_vs_plain, greedy_walk_vs_plain: the PNG unfilter at a small
+  size with every filter type, on batches, on 1024x1024 and 4096x4096 RGBA;
+  the encoder's greedy walk at edge shapes and on a 4 MB filtered image;
+* png_path: a corpus of 16 PNGs made here from numpy seed 0 with zlib and
+  struct (about 64 MB of RGBA: RGBA, RGB, gray+alpha, palette with tRNS,
+  gray, and one image cycling through all five filters) through
+  decode_png_corpus_device, decode_png_device and decode_png_batch, every
+  image equal to its source pixels, then one 4096x4096 RGBA image through
+  decode_png_device;
+* encode_path: deflate_fixed_device on the filtered rows of a 1024x1024
+  RGBA image (checked with zlib), then encode_png on the card and
+  decode_png_device of the result equal to the image;
+* kernel_times, entry_points (two-member gzip, the chunked long-stream
+  decode, a stored/dynamic mix);
+* kernels: per kernel its launches on its path, times and bound.
+
+The line before the last is the card's name and power limit as nvidia-smi
+reports them, and the last line is {"ok": true, "device": {...}}.  Any
+mismatch, build failure or launch error raises and the script exits
+non-zero without that line.
 """
 
 from __future__ import annotations
 
 import gzip
 import json
+import struct
 import subprocess
 import sys
 import time
@@ -117,6 +137,164 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+# ---------------------------------------------------------------------------
+# PNG corpus, made here: numpy pixels, a small filter writer, zlib, struct
+# ---------------------------------------------------------------------------
+
+PNG_SIGNATURE = bytes([137, 80, 78, 71, 13, 10, 26, 10])
+PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+#: (name, color type, height, width) of the corpus images; 713 x 1040 RGB
+#: is the shape of the reference corpus's most common images.
+CORPUS_SPECS = ([("rgba", 6, 1024, 1024)] * 6 + [("rgb", 2, 713, 1040)] * 5
+                + [("graya", 4, 351, 387)] * 2 + [("pal", 3, 480, 640),
+                                                 ("gray", 0, 2048, 2048),
+                                                 ("cycle", 6, 1024, 1024)])
+#: Side of the one large RGBA image decoded on its own.
+BIG_SIDE = 4096
+
+
+def smooth_pixels(rng, h: int, w: int, ch: int, noisy: bool = False) -> np.ndarray:
+    """(h, w, ch) uint8: stepped gradients, a band of low noise (every row
+    when `noisy`, which makes the zlib stream several times longer) and flat
+    rectangles, so the streams hold real matches of many lengths."""
+    y, x = np.mgrid[0:h, 0:w]
+    planes = []
+    for _ in range(ch):
+        kx, ky = (int(v) for v in rng.integers(1, 4, 2))
+        planes.append(((x * kx + y * ky) // int(rng.integers(3, 9))) & 0xFF)
+    img = np.stack(planes, -1).astype(np.uint8)
+    band = slice(0, h) if noisy else slice(h // 4, h // 2)
+    img[band] += rng.integers(0, 3, img[band].shape, dtype=np.uint8)
+    img[h // 2 : h // 2 + h // 4, w // 3 : 2 * w // 3] = \
+        rng.integers(0, 256, ch, dtype=np.uint8)
+    img[-(h // 8 + 1) :, : w // 2] = rng.integers(0, 256, ch, dtype=np.uint8)
+    return img
+
+
+def filter_scanlines(pix: np.ndarray, ftypes=None) -> bytes:
+    """PNG filtering of (h, w, ch) samples: per row the filter type given,
+    or the one with the least sum of absolute signed residuals."""
+    h, w, ch = pix.shape
+    stride = w * ch
+    raw = pix.reshape(h, stride).astype(np.int16)
+    left = np.zeros_like(raw)
+    left[:, ch:] = raw[:, :-ch]
+    up = np.zeros_like(raw)
+    up[1:] = raw[:-1]
+    upleft = np.zeros_like(raw)
+    upleft[1:, ch:] = raw[:-1, :-ch]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    del p, pa, pb, pc, upleft
+    out = np.empty((h, 1 + stride), np.uint8)
+    best = np.full(h, np.iinfo(np.int64).max)
+    for f, pred in enumerate((0, left, up, (left + up) >> 1, paeth)):
+        cand = ((raw - pred) & 0xFF).astype(np.uint8)
+        if ftypes is None:
+            score = np.abs(cand.view(np.int8).astype(np.int16)).sum(
+                1, dtype=np.int64)
+            rows = score < best
+            best = np.where(rows, score, best)
+        else:
+            rows = np.asarray(ftypes) == f
+        out[rows, 0] = f
+        out[rows, 1:] = cand[rows]
+    return out.tobytes()
+
+
+def png_chunk(ctype: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + ctype + payload
+            + struct.pack(">I", zlib.crc32(ctype + payload)))
+
+
+def make_png(pix: np.ndarray, color_type: int, level: int, palette=None,
+             trns=None, ftypes=None) -> tuple[bytes, bytes]:
+    """(PNG file, its filtered scanlines) for (h, w, ch) samples."""
+    h, w, _ = pix.shape
+    filtered = filter_scanlines(pix, ftypes)
+    out = PNG_SIGNATURE + png_chunk(
+        b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+    if palette is not None:
+        out += png_chunk(b"PLTE", palette.tobytes())
+    if trns is not None:
+        out += png_chunk(b"tRNS", trns.tobytes())
+    out += png_chunk(b"IDAT", zlib.compress(filtered, level))
+    return out + png_chunk(b"IEND", b""), filtered
+
+
+def to_rgba(pix: np.ndarray, color_type: int, palette=None, trns=None):
+    """The (h, w, 4) RGBA a decoder must give for these samples."""
+    h, w, _ = pix.shape
+    rgba = np.full((h, w, 4), 255, np.uint8)
+    if color_type == 6:
+        rgba[:] = pix
+    elif color_type == 2:
+        rgba[..., :3] = pix
+    elif color_type == 0:
+        rgba[..., :3] = pix
+    elif color_type == 4:
+        rgba[..., :3], rgba[..., 3] = pix[..., :1], pix[..., 1]
+    else:
+        alpha = np.full(len(palette), 255, np.uint8)
+        alpha[: len(trns)] = trns
+        rgba[..., :3], rgba[..., 3] = palette[pix[..., 0]], alpha[pix[..., 0]]
+    return rgba
+
+
+def make_corpus(seed: int = 0):
+    """The 16-image corpus: [(name, png, expected RGBA, filtered scanlines,
+    (h, w, bpp))]."""
+    rng = np.random.default_rng(seed)
+    corpus = []
+    for k, (name, ct, h, w) in enumerate(CORPUS_SPECS):
+        ch = PNG_CHANNELS[ct]
+        palette = trns = ftypes = None
+        pix = smooth_pixels(rng, h, w, ch)
+        if ct == 3:
+            palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+            trns = rng.integers(0, 256, 64, dtype=np.uint8)
+        if name == "cycle":
+            ftypes = np.arange(h) % 5
+        png, filtered = make_png(pix, ct, 6 + k % 4, palette, trns, ftypes)
+        corpus.append((f"{name}{k}", png, to_rgba(pix, ct, palette, trns),
+                       filtered, (h, w, ch)))
+    return corpus
+
+
+def gpu_filtered(filtered: bytes, dev) -> torch.Tensor:
+    return torch.from_numpy(np.frombuffer(filtered, np.uint8).copy()).to(dev)
+
+
+def check_unfilter(name, filt: torch.Tensor, h, w, bpp, uf, reps=3):
+    """One shape of the unfilter kernel against its plain version; returns
+    the JSON record with the times and the byte bound."""
+    got = uf.unfilter(filt, h, w, bpp)
+    torch.cuda.synchronize()
+    want = uf.unfilter_plain(filt, h, w, bpp)
+    err = max_abs_err((got,), (want,))
+    if err:
+        raise AssertionError(f"unfilter disagrees with its plain version at {name}")
+    t0 = time.perf_counter()
+    uf.unfilter_plain(filt, h, w, bpp)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    return {"shape": name, "batch": filt.shape[0] if filt.dim() == 2 else 1,
+            "h": h, "w": w, "bpp": bpp, "max_abs_err": err,
+            "ms": time_ms(lambda: uf.unfilter(filt, h, w, bpp), reps),
+            "plain_ms": plain_ms,
+            "bound_ms": (filt.numel() + got.numel()) / HBM_BYTES_PER_S * 1e3}
+
+
+def require_launches(path: str, launches: dict, names) -> None:
+    """Fail unless every named kernel was launched on this path's run."""
+    missing = [k for k in names if launches[k] <= 0]
+    if missing:
+        raise AssertionError(
+            f"{path}: kernels never launched: {missing} (counts {launches})")
+
+
 def stages(st, slots):
     """The flagship body's stages on a staged plan, kernels and plain
     versions on the same inputs.  Returns a dict of inputs and outputs."""
@@ -138,6 +316,274 @@ def stages(st, slots):
     torch.cuda.synchronize()
     return {"a_k": a_k, "a_p": a_p, "rec": rec, "c_k": c_k, "c_p": c_p,
             "s8": s8, "init": init, "w_k": w_k, "w_p": w_p}
+
+
+def png_and_encode_phases(dev):
+    """The second slice: the unfilter and greedy-walk kernels against their
+    plain versions, the PNG decode path and the encode path.  Returns the
+    two kernels' entries for the `kernels` line and extra `kernel_times`
+    fields."""
+    from debigulator_tpu_torch.models import pipeline as pl
+    from debigulator_tpu_torch.models import png_codec
+    from debigulator_tpu_torch.ops import deflate_encode_device as enc
+    from debigulator_tpu_torch.ops import phase_a as pa
+    from debigulator_tpu_torch.ops import phase_b as pb
+    from debigulator_tpu_torch.ops import unfilter as uf
+
+    counted = {"phase_a": pa.phase_a, "compact": pb.compact, "walk": pb.walk,
+               "unfilter": uf.unfilter, "greedy_walk": enc.greedy_walk}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    t0 = time.perf_counter()
+    corpus = make_corpus(0)
+    big_pix = smooth_pixels(np.random.default_rng(1), BIG_SIDE, BIG_SIDE, 4,
+                            noisy=True)
+    big_png, big_filtered = make_png(big_pix, 6, 6)
+    make_s = time.perf_counter() - t0
+    pngs = [c[1] for c in corpus]
+    rgba_bytes = sum(c[2].nbytes for c in corpus)
+
+    # --- unfilter kernel vs plain -------------------------------------
+    rng = np.random.default_rng(2)
+    shapes = []
+    for h, w, bpp in ((16, 16, 4), (8, 24, 3), (33, 17, 1), (12, 5, 2),
+                      (1, 7, 4), (9, 1, 3)):
+        raw = rng.integers(0, 256, (3, h, 1 + w * bpp), dtype=np.uint8)
+        raw[:, :, 0] = rng.integers(0, 5, (3, h))
+        raw[0, 0, 0] = 9  # an out-of-range filter byte predicts None
+        filt = torch.from_numpy(raw.reshape(3, -1)).to(dev)
+        shapes.append(check_unfilter(f"small{h}x{w}x{bpp}", filt, h, w, bpp, uf))
+        # One image of the batch alone, and all five filter types by hand.
+        check_unfilter("single", filt[1], h, w, bpp, uf)
+        host = uf.unfilter_image(raw[1].reshape(-1), h, w, bpp)
+        if not np.array_equal(uf.unfilter(filt[1], h, w, bpp).cpu().numpy(), host):
+            raise AssertionError("unfilter disagrees with the host oracle")
+    by_shape: dict = {}
+    for name, _, _, filtered, shape in corpus:
+        by_shape.setdefault((name.rstrip("0123456789"), shape), []).append(filtered)
+    for (name, (h, w, bpp)), members in by_shape.items():
+        filt = torch.stack([gpu_filtered(f, dev) for f in members])
+        shapes.append(check_unfilter(f"{name}x{len(members)}", filt, h, w, bpp, uf))
+    one_rgba = gpu_filtered(corpus[0][3], dev)
+    shapes.append(check_unfilter("rgba_one", one_rgba, *corpus[0][4], uf))
+    big_filt = gpu_filtered(big_filtered, dev)
+    shapes.append(check_unfilter("rgba_big", big_filt, BIG_SIDE, BIG_SIDE, 4,
+                                 uf, reps=2))
+    try:
+        uf.unfilter(torch.zeros(20_000 * 5, dtype=torch.uint8, device=dev),
+                    20_000, 1, 4)
+    except ValueError as e:
+        too_tall = str(e)
+    else:
+        raise AssertionError("an image too tall for one CTA must raise")
+    emit({"phase": "unfilter_vs_plain", "max_abs_err": 0, "shapes": shapes,
+          "too_tall_raises": too_tall[:60]})
+    del big_filt
+
+    # --- greedy walk kernel vs plain ----------------------------------
+    walks = []
+
+    def check_walk(name, bl, bd, reps=3):
+        got = enc.greedy_walk(bl, bd)
+        torch.cuda.synchronize()
+        want = enc.greedy_walk_plain(bl, bd)
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"greedy walk disagrees with its plain version at {name}")
+        mlen = (got[1].long() >> 16).sum().item()
+        visits = got[0].numel() + max(0, bl.numel() - mlen)
+        rec = {"shape": name, "n": bl.numel(), "records": got[0].numel(),
+               "visits": visits, "max_abs_err": err,
+               "ms": time_ms(lambda: enc.greedy_walk(bl, bd), reps),
+               "plain_ms": time_ms(lambda: enc.greedy_walk_plain(bl, bd), reps),
+               # visited lengths, taken distances, records (pos, meta), count
+               "bound_ms": 4 * (visits + 3 * got[0].numel() + 1)
+               / HBM_BYTES_PER_S * 1e3}
+        walks.append(rec)
+        return rec
+
+    n = 10_000
+    edge = {"none": np.zeros(n, np.int32), "cap258": np.full(n, 258, np.int32),
+            "to_the_end": np.zeros(n, np.int32),
+            "mixed": rng.choice([0, 1, 2, 3, 4, 6, 17, 40, 258], n).astype(np.int32)}
+    edge["to_the_end"][[5, n - 10]] = [3, 10]
+    for name, bl in edge.items():
+        bd = rng.integers(1, 32768, n).astype(np.int32)
+        check_walk(name, torch.from_numpy(bl).to(dev), torch.from_numpy(bd).to(dev))
+    enc_filtered = np.frombuffer(corpus[0][3], np.uint8)  # 1024x1024 RGBA
+    enc_h, enc_w, enc_ch = corpus[0][4]
+    stride = 1 + enc_w * enc_ch
+    dists = sorted({*enc.BASE_DISTANCES, stride, *enc.mine_distances(enc_filtered)})
+    dev_data = gpu_filtered(corpus[0][3], dev)
+    bl, bd = enc.best_matches(dev_data, dists)
+    walk_main = check_walk("rgba1024_filtered", bl, bd)
+    lengths_ms = time_ms(lambda: enc.best_matches(dev_data, dists), 2)
+    emit({"phase": "greedy_walk_vs_plain", "max_abs_err": 0, "shapes": walks,
+          "distances": dists, "lengths_ms": lengths_ms})
+    del bl, bd
+
+    # --- png_path ------------------------------------------------------
+    def corpus_call(as_numpy=True):
+        out = pl.decode_png_corpus_device(pngs, as_numpy=as_numpy, device=dev)
+        torch.cuda.synchronize()
+        return out
+
+    reset()
+    t0 = time.perf_counter()
+    images = corpus_call()
+    first_s = time.perf_counter() - t0
+    for (name, _, want, _, _), got in zip(corpus, images, strict=True):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"corpus image {name} differs from its source")
+    one = pl.decode_png_device(pngs[5], device=dev)
+    batch = pl.decode_png_batch([pngs[6], pngs[11], pngs[13]], device=dev)
+    for got, k in zip([one, *batch], (5, 6, 11, 13), strict=True):
+        if not np.array_equal(got, corpus[k][2]):
+            raise AssertionError(f"image {corpus[k][0]} differs from its source")
+    png_launches = counts()
+    require_launches("png_path", png_launches,
+                     ("phase_a", "compact", "walk", "unfilter"))
+    del images, one, batch
+    e2e_ms = host_ms(corpus_call, 3)
+    resident_ms = host_ms(lambda: corpus_call(as_numpy=False), 3)
+    # A wrong Adler word must be caught by the device check.
+    bad = bytearray(pngs[11])
+    at = bad.index(b"IDAT")
+    (length,) = struct.unpack_from(">I", bad, at - 4)
+    bad[at + 4 + length - 1] ^= 0xFF
+    bad[at + 4 + length : at + 8 + length] = struct.pack(
+        ">I", zlib.crc32(bytes(bad[at : at + 4 + length])))
+    try:
+        pl.decode_png_device(bytes(bad), device=dev)
+    except png_codec.PngError as e:
+        adler_caught = str(e)
+    else:
+        raise AssertionError("a wrong Adler-32 word went unnoticed")
+    # Host steps of the corpus call, each the median of 3 calls.
+    from debigulator_tpu_torch.ops.plan import CELL_BITS
+    from debigulator_tpu_torch.ops.scanner import scan_stream_cells
+
+    from debigulator_tpu_torch.ops import inflate as inf
+    from debigulator_tpu_torch.parallel.merged import build_merged_plan
+
+    parsed = [png_codec.parse_chunks(d) for d in pngs]
+    streams = [ch.idat[2:] for ch in parsed]
+    scans = [scan_stream_cells(s, CELL_BITS) for s in streams]
+    mp = build_merged_plan(streams, scanned=scans)
+    host = {
+        "parse_crc_ms": host_ms(lambda: [png_codec.parse_chunks(d) for d in pngs]),
+        "scan_serial_ms": host_ms(
+            lambda: [scan_stream_cells(s, CELL_BITS) for s in streams]),
+        "merged_plan_scanned_ms": host_ms(
+            lambda: build_merged_plan(streams, scanned=scans)),
+        "stage_ms": host_ms(lambda: (inf.stage_plan(mp.plan, dev, mp.out_offsets),
+                                     torch.cuda.synchronize())),
+    }
+    del mp, scans
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        corpus_call(as_numpy=False)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
+    reset()
+    t0 = time.perf_counter()
+    big = pl.decode_png_device(big_png, device=dev)
+    big_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(big, big_pix):
+        raise AssertionError("the large image differs from its source")
+    big_launches = counts()
+    require_launches("png_path, large image", big_launches,
+                     ("phase_a", "compact", "walk", "unfilter"))
+    del big
+    emit({"phase": "png_path", "images": len(pngs), "make_inputs_s": make_s,
+          "compressed_bytes": sum(map(len, pngs)),
+          "filtered_bytes": sum(len(c[3]) for c in corpus),
+          "rgba_bytes": rgba_bytes, "exact": True, "first_call_s": first_s,
+          "e2e_ms": e2e_ms, "e2e_mbps": rgba_bytes / e2e_ms / 1e3,
+          "device_resident_ms": resident_ms,
+          "device_resident_mbps": rgba_bytes / resident_ms / 1e3, **host,
+          "profile_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+          "busy_share": busy_ms / wall_ms,
+          "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                  for e in top],
+          "adler": "ok", "bad_adler_raises": adler_caught,
+          "launches": png_launches,
+          "big_image": {"side": BIG_SIDE, "png_bytes": len(big_png), "rgba_bytes": big_pix.nbytes,
+                       "ms": big_ms, "mbps": big_pix.nbytes / big_ms / 1e3,
+                       "exact": True, "launches": big_launches}})
+    del big_pix
+
+    # --- encode_path ---------------------------------------------------
+    src = corpus[0][2]  # 1024 x 1024 RGBA
+    filtered = corpus[0][3]
+    reset()
+    t0 = time.perf_counter()
+    stream = enc.deflate_fixed_device(filtered, stride=stride, device=dev)
+    deflate_first_ms = (time.perf_counter() - t0) * 1e3
+    if zlib.decompress(stream, -15) != filtered:
+        raise AssertionError("the encoder's stream does not decode to its input")
+    sel, _, _ = enc.lz77_select_device(enc_filtered, stride=stride, device=dev)
+    png = png_codec.encode_png(src, device=dev)
+    if not np.array_equal(pl.decode_png_device(png, device=dev), src):
+        raise AssertionError("encode_png -> decode_png_device is not the image")
+    enc_launches = counts()
+    require_launches("encode_path", enc_launches, ("greedy_walk", "unfilter"))
+    deflate_ms = host_ms(lambda: enc.deflate_fixed_device(
+        filtered, stride=stride, device=dev), 3)
+    select_ms = host_ms(lambda: enc.lz77_select_device(
+        enc_filtered, stride=stride, device=dev), 3)
+    mine_ms = host_ms(lambda: enc.mine_distances(enc_filtered), 3)
+    encode_png_ms = host_ms(lambda: png_codec.encode_png(src, device=dev), 3)
+    filt_dev = torch.from_numpy(src.reshape(enc_h, -1).copy()).to(dev)
+    filter_ms = time_ms(lambda: uf.filter_image_best_device(
+        filt_dev, enc_h, enc_w, enc_ch), 3)
+    emit({"phase": "encode_path", "input_bytes": len(filtered),
+          "stride": stride, "output_bytes": len(stream),
+          "zlib6_bytes": len(zlib.compress(filtered, 6)) - 6,
+          "matches": len(sel), "zlib_decodes": True, "round_trip_exact": True,
+          "png_bytes": len(png), "first_call_ms": deflate_first_ms,
+          "deflate_ms": deflate_ms, "deflate_mbps": len(filtered) / deflate_ms / 1e3,
+          "select_ms": select_ms, "mine_ms": mine_ms, "lengths_ms": lengths_ms,
+          "walk_ms": walk_main["ms"], "filter_search_ms": filter_ms,
+          "encode_png_ms": encode_png_ms,
+          "encode_png_mbps": src.nbytes / encode_png_ms / 1e3,
+          "launches": enc_launches})
+
+    bucket = next(r for r in shapes if r["shape"] == "rgbax6")
+    kernels = [
+        {"name": "unfilter", "route": "cuda",
+         "source": "debigulator_tpu_torch/csrc/unfilter.cu",
+         "replaces": "debigulator_tpu/ops/unfilter_pallas.py:49",
+         "launches": png_launches["unfilter"], "max_abs_err": 0,
+         "ms": bucket["ms"], "plain_ms": bucket["plain_ms"],
+         "bound_ms": bucket["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "greedy_walk", "route": "cuda",
+         "source": "debigulator_tpu_torch/csrc/greedy_walk.cu",
+         "replaces": "debigulator_tpu/ops/deflate_encode_jnp.py:44",
+         "launches": enc_launches["greedy_walk"], "max_abs_err": 0,
+         "ms": walk_main["ms"], "plain_ms": walk_main["plain_ms"],
+         "bound_ms": walk_main["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+    ]
+    times = {"unfilter_shape": "6 RGBA corpus images (one bucket of png_path)",
+             "unfilter_shapes": [r for r in shapes
+                                 if not r["shape"].startswith("small")],
+             "greedy_walk_shape": f"best matches of {len(filtered)} filtered bytes",
+             "greedy_walk_visits": walk_main["visits"],
+             "greedy_walk_records": walk_main["records"]}
+    return kernels, times
 
 
 def main() -> int:
@@ -256,8 +702,7 @@ def main() -> int:
           "e2e_gbps": out_bytes / e2e_s / 1e9, **host,
           "device_ms": dev_s * 1e3, "device_gbps": out_bytes / dev_s / 1e9,
           "launches": launches})
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    require_launches("main_path", launches, launches)
 
     # --- profile: device busy share and time by kernel -----------------
     run()
@@ -351,11 +796,18 @@ def main() -> int:
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": lib_ms,
         })
+    del s, st, rec, out_k, body, run, mdst, mmeta, rdst, rmeta, valid_m
+    torch.cuda.empty_cache()
+
+    # --- the second slice: PNG decode and the encoder -------------------
+    kernels2, times2 = png_and_encode_phases(dev)
+    kernels += kernels2
     emit({"phase": "kernel_times", "cells_pad": cells_pad, "slots": slots,
           "matches": n_match, "runs": n_run, "literals": n_lit,
           "match_bytes": mlen_total, "bytes_moved": bytes_,
-          "library_call": {"compact": "torch.masked_select(dst, meta != 0)"}})
-    del s, st, rec, out_k, body, run
+          "library_call": {"compact": "torch.masked_select(dst, meta != 0)",
+                           "unfilter": None, "greedy_walk": None},
+          **times2})
 
     # --- other entry points -------------------------------------------
     m1, m2 = base[:300_000], base[200_000:] + base[:50_000]

@@ -1,7 +1,7 @@
-"""RFC 1951 / 1952 constants the decode path needs.
+"""RFC 1951 / 1950 / 1952 / PNG constants.
 
-The port's own copy of the DEFLATE and gzip parts of
-debigulator_tpu/constants.py (RFC 1951 §3.2.5-§3.2.7, RFC 1952 §2.3.1).
+The port's own copy of debigulator_tpu/constants.py (RFC 1951
+§3.2.5-§3.2.7, RFC 1950, RFC 1952 §2.3.1, PNG spec §9 and §11.2.2).
 """
 
 from __future__ import annotations
@@ -36,7 +36,9 @@ DIST_BASE = np.array(
     dtype=np.int32,
 )
 
-#: LZ77 window (RFC 1951 §2).
+#: LZ77 match lengths and window (RFC 1951 §2, §3.2.5).
+MAX_MATCH_LENGTH = 258
+MIN_MATCH_LENGTH = 3
 WINDOW_SIZE = 32768
 
 
@@ -69,3 +71,36 @@ GZIP_FHCRC = 2
 GZIP_FEXTRA = 4
 GZIP_FNAME = 8
 GZIP_FCOMMENT = 16
+
+# zlib (RFC 1950).
+ZLIB_CM_DEFLATE = 8
+ADLER_MOD = 65521
+
+# PNG.
+PNG_SIGNATURE = bytes([137, 80, 78, 71, 13, 10, 26, 10])
+
+# Color types (PNG spec §11.2.2).
+PNG_COLOR_GRAY = 0
+PNG_COLOR_RGB = 2
+PNG_COLOR_PALETTE = 3
+PNG_COLOR_GRAY_ALPHA = 4
+PNG_COLOR_RGBA = 6
+
+#: Channels per pixel for each supported color type.
+PNG_CHANNELS = {
+    PNG_COLOR_GRAY: 1,
+    PNG_COLOR_RGB: 3,
+    PNG_COLOR_PALETTE: 1,
+    PNG_COLOR_GRAY_ALPHA: 2,
+    PNG_COLOR_RGBA: 4,
+}
+
+# Filter types (PNG spec §9).
+PNG_FILTER_NONE = 0
+PNG_FILTER_SUB = 1
+PNG_FILTER_UP = 2
+PNG_FILTER_AVERAGE = 3
+PNG_FILTER_PAETH = 4
+
+#: CRC-32 polynomial (reflected), shared by gzip and PNG.
+CRC32_POLY = 0xEDB88320

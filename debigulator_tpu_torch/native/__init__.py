@@ -1,4 +1,5 @@
-"""Native (C++) host runtime: the block/cell scanner and CRC-32.
+"""Native (C++) host runtime: the block/cell scanner, the serial inflate
+(the scanner with an output buffer), CRC-32 and Adler-32.
 
 Built with g++ from native/dbg_native.cpp (a source at the repo root) into
 the port's own build directory; the JAX package's copy of the library is
@@ -55,4 +56,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.dbg_crc32.restype = ctypes.c_uint32
     lib.dbg_crc32.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint32]
+    lib.dbg_adler32.restype = ctypes.c_uint32
+    lib.dbg_adler32.argtypes = [ctypes.c_char_p, ctypes.c_uint64,
+                                ctypes.c_uint32]
     return lib

@@ -23,7 +23,8 @@ import torch
 from debigulator_tpu_torch._build import build_libraries
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = {"phase_a": "phase_a.cu", "compact": "compact.cu", "walk": "walk.cu"}
+SOURCES = {"phase_a": "phase_a.cu", "compact": "compact.cu", "walk": "walk.cu",
+           "unfilter": "unfilter.cu", "greedy_walk": "greedy_walk.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -36,6 +37,8 @@ _ENTRIES = {
                                 _I32, _I32, _P, _P, _P, _P]),
     "dbg_walk": ("walk", [_P, _I64, _I64, _P, _P, _P, _P, _I32,
                           _P, _P, _I64, _P, _I64]),
+    "dbg_unfilter": ("unfilter", [_P, _P, _I32, _I32, _I32, _I32]),
+    "dbg_greedy_walk": ("greedy_walk", [_P, _P, _I64, _P, _P, _P]),
 }
 
 _FNS: dict = {}

@@ -16,7 +16,9 @@ import torch
 
 from debigulator_tpu_torch import constants as C
 from debigulator_tpu_torch.device import resolve as resolve_device
+from debigulator_tpu_torch.native.scanner import inflate_native
 from debigulator_tpu_torch.ops import phase_b
+from debigulator_tpu_torch.ops import plan as _plan
 from debigulator_tpu_torch.ops.phase_a import (
     PhaseAInputs,
     build_phase_a_inputs,
@@ -109,8 +111,14 @@ def inflate_device_dev(data: bytes, scanned=None, device="cuda"):
         out[plan.stored_pos] = plan.stored_val
         return torch.from_numpy(out).to(dev), plan.out_size
     if v15_stream_too_large(plan):
-        return inflate_device_long_stream(data, blocks, lengths, cells,
-                                          device=dev)
+        try:
+            return inflate_device_long_stream(data, blocks, lengths, cells,
+                                              device=dev)
+        except SingleBlockTooLarge:
+            # One unsplittable block over the cap (a single-block encode of
+            # 16 MB and more): native serial inflate, staged to the device.
+            out = np.frombuffer(inflate_native(data)[0], np.uint8)
+            return torch.from_numpy(out.astype(np.int32)).to(dev), len(out)
     return flagship_body(stage_plan(plan, dev)), plan.out_size
 
 
@@ -121,14 +129,17 @@ def inflate_device(data: bytes, scanned=None, device="cuda") -> bytes:
 
 
 def inflate_device_long_stream(data: bytes, blocks, lengths, cells,
-                               cap_rows: int = 1 << 18, device="cuda"):
+                               cap_rows: int | None = None, device="cuda"):
     """Decode one stream larger than the per-call run-meta cap: block-
     aligned sub-plans of bounded cell count run the flagship pipeline in
     sequence with the 32 KiB window carried on the device between calls.
-    Returns (device body int32 (out_size,), out_size)."""
+    cap_rows defaults to plan.LIT_ROW_CAP.  Returns (device body int32
+    (out_size,), out_size)."""
     dev = resolve_device(device)
+    if cap_rows is None:
+        cap_rows = _plan.LIT_ROW_CAP
     states, pends, mct = cells
-    slots_bound = next(s for s in (8, 16, 32, 64, 128) if s >= max(mct, 1))
+    _, slots_bound = _plan.scan_extent(blocks, cells)
     cap_cells = (cap_rows * 128 // slots_bound) // (2 * TC) * TC
 
     # Block-aligned chunks: every block is cell-aligned on the virtual

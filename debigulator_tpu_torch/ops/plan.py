@@ -151,6 +151,17 @@ def _block_cells(info: BlockInfo) -> int:
     return max(1, -(-(info.end_bit - info.data_start_bit) // CELL_BITS))
 
 
+def scan_extent(blocks: list[BlockInfo], cells) -> tuple[int, int]:
+    """(cells, slots) that build_plan_v3 will give a scanned stream: its
+    used virtual extent in cells, rounded up to whole TC-cell tiles, and
+    the tape slot count for the scanner's per-cell token bound.  Lets a
+    batcher size its chunks before any plan is built."""
+    used = sum(_block_cells(b) for b in blocks if b.btype != C.BTYPE_STORED)
+    mct = cells[2]
+    slots = next(s for s in (8, 16, 32, 64, 128) if s >= max(mct, 1))
+    return -(-max(used, 1) // TC) * TC, slots
+
+
 def build_plan_v3(data: bytes, blocks: list[BlockInfo], block_lengths,
                   slots: int = DEFAULT_SLOTS, cells=None) -> PlanV3:
     buf = np.frombuffer(memoryview(data), np.uint8)
@@ -299,8 +310,14 @@ def build_plan_v3(data: bytes, blocks: list[BlockInfo], block_lengths,
     )
 
 
+#: Most literal-tape rows one device call may hold: the run meta keeps the
+#: row in an 18-bit field.
+LIT_ROW_CAP = 1 << 18
+
+
 def v15_stream_too_large(plan: PlanV3) -> bool:
     """True when one call's lit tape exceeds the run-meta lit-row field
-    (2^18 rows): such streams run through the long-stream chunked decode."""
+    (LIT_ROW_CAP rows): such streams run through the long-stream chunked
+    decode."""
     cells_pad = -(-plan.num_cells // TC) * TC
-    return cells_pad * plan.slots // 128 > (1 << 18)
+    return cells_pad * plan.slots // 128 > LIT_ROW_CAP

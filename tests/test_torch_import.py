@@ -16,27 +16,40 @@ MODULES = [
     "debigulator_tpu_torch.native",
     "debigulator_tpu_torch.native.scanner",
     "debigulator_tpu_torch.ops.checksum",
+    "debigulator_tpu_torch.ops.deflate_encode",
+    "debigulator_tpu_torch.ops.deflate_encode_device",
     "debigulator_tpu_torch.ops.inflate",
     "debigulator_tpu_torch.ops.inflate_ref",
     "debigulator_tpu_torch.ops.phase_a",
     "debigulator_tpu_torch.ops.phase_b",
     "debigulator_tpu_torch.ops.plan",
     "debigulator_tpu_torch.ops.scanner",
+    "debigulator_tpu_torch.ops.unfilter",
     "debigulator_tpu_torch.ops._kernels",
+    "debigulator_tpu_torch.models.bmp_codec",
     "debigulator_tpu_torch.models.gzip_codec",
     "debigulator_tpu_torch.models.pipeline",
+    "debigulator_tpu_torch.models.png_codec",
+    "debigulator_tpu_torch.models.zlib_codec",
     "debigulator_tpu_torch.parallel.merged",
+    "debigulator_tpu_torch.tools.first_call",
     "debigulator_tpu_torch.utils.logging",
+    "debigulator_tpu_torch.utils.manifest",
 ]
 
 _CHECK = """
 import sys, zlib
 for m in {mods!r}:
     __import__(m)
+import numpy as np
 from debigulator_tpu_torch.ops.inflate import inflate_device
+from debigulator_tpu_torch.models.pipeline import decode_png_device
+from debigulator_tpu_torch.models.png_codec import encode_png
 data = b"standalone " * 500
 c = zlib.compressobj(6, zlib.DEFLATED, -15)
 assert inflate_device(c.compress(data) + c.flush(), device="cpu") == data
+img = np.arange(9 * 7 * 4, dtype=np.uint8).reshape(9, 7, 4) // 8
+assert (decode_png_device(encode_png(img, device="cpu"), device="cpu") == img).all()
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
              or k == "debigulator_tpu" or k.startswith("debigulator_tpu."))
@@ -51,25 +64,55 @@ def test_port_imports_no_jax():
     assert "BAD []" in r.stdout, r.stdout
 
 
-@pytest.mark.parametrize("entry", ["decode_merged", "decode_gzip_device",
-                                   "inflate_device"])
-def test_entry_points_default_to_cuda(entry):
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present: the default device is valid")
+def _entry_calls():
+    """Every public entry point of the port, called with its default
+    device."""
     import gzip
 
-    from debigulator_tpu_torch.models.pipeline import decode_gzip_device
-    from debigulator_tpu_torch.ops.inflate import inflate_device
+    import numpy as np
+
+    from debigulator_tpu_torch.models import pipeline as pl
+    from debigulator_tpu_torch.models.png_codec import encode_png
+    from debigulator_tpu_torch.models.zlib_codec import encode_zlib
+    from debigulator_tpu_torch.ops import deflate_encode_device as dev
+    from debigulator_tpu_torch.ops import inflate as inf
     from debigulator_tpu_torch.parallel.merged import decode_merged
 
     data = b"default device " * 100
+    arr = np.frombuffer(data, np.uint8)
     c = zlib.compressobj(6, zlib.DEFLATED, -15)
     raw = c.compress(data) + c.flush()
-    call = {"decode_merged": lambda: decode_merged([raw]),
-            "decode_gzip_device": lambda: decode_gzip_device(gzip.compress(data)),
-            "inflate_device": lambda: inflate_device(raw)}[entry]
+    img = np.zeros((4, 4, 4), np.uint8)
+    png = encode_png(img, device="cpu")
+    return {
+        "decode_merged": lambda: decode_merged([raw]),
+        "decode_gzip_device": lambda: pl.decode_gzip_device(gzip.compress(data)),
+        "inflate_device": lambda: inf.inflate_device(raw),
+        "inflate_device_dev": lambda: inf.inflate_device_dev(raw),
+        "decode_png_device": lambda: pl.decode_png_device(png),
+        "decode_png_corpus_device": lambda: pl.decode_png_corpus_device([png]),
+        "decode_png_batch": lambda: pl.decode_png_batch([png]),
+        "decode_corpus": lambda: pl.decode_corpus([]),
+        "encode_png": lambda: encode_png(img),
+        "encode_zlib": lambda: encode_zlib(data),
+        "deflate_fixed_device": lambda: dev.deflate_fixed_device(data),
+        "lz77_parse_device": lambda: dev.lz77_parse_device(arr),
+        "lz77_parse_device_short": lambda: dev.lz77_parse_device(arr[:5]),
+        "lz77_select_device": lambda: dev.lz77_select_device(arr),
+    }
+
+
+@pytest.mark.parametrize("entry", [
+    "decode_merged", "decode_gzip_device", "inflate_device",
+    "inflate_device_dev", "decode_png_device", "decode_png_corpus_device",
+    "decode_png_batch", "decode_corpus", "encode_png", "encode_zlib",
+    "deflate_fixed_device", "lz77_parse_device", "lz77_parse_device_short",
+    "lz77_select_device"])
+def test_entry_points_default_to_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="cuda"):
-        call()
+        _entry_calls()[entry]()
 
 
 def test_kernel_wrappers_raise_without_card():
@@ -79,6 +122,21 @@ def test_kernel_wrappers_raise_without_card():
 
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.launch("dbg_walk", torch.zeros(4, dtype=torch.int32))
+
+
+def test_new_kernel_wrappers_refuse_cpu_pointers():
+    """The two wrappers of this slice take the plain version only for CPU
+    tensors; the launcher itself never accepts one."""
+    from debigulator_tpu_torch.ops import _kernels
+
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch("dbg_unfilter", torch.zeros(4, dtype=torch.uint8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch("dbg_greedy_walk", torch.zeros(4, dtype=torch.int32))
+    assert set(_kernels.SOURCES) == {
+        lib for lib, _ in _kernels._ENTRIES.values()}
+    for src in _kernels.SOURCES.values():
+        assert (_kernels.CSRC / src).is_file()
 
 
 def _c_params(entry: str) -> list[str]:
@@ -94,7 +152,8 @@ def _c_params(entry: str) -> list[str]:
     return [p.strip() for p in m.group(1).split(",")]
 
 
-@pytest.mark.parametrize("entry", ["dbg_phase_a", "dbg_compact", "dbg_walk"])
+@pytest.mark.parametrize("entry", ["dbg_phase_a", "dbg_compact", "dbg_walk",
+                                   "dbg_unfilter", "dbg_greedy_walk"])
 def test_ctypes_declarations_match_c_entries(entry):
     """ctypes cannot check a call against the C prototype: a missing or
     mistyped argument shifts every later one (and the stream).  Hold the

@@ -79,6 +79,37 @@ def test_single_block_over_cap_raises():
                                        cap_rows=16, device="cpu")
 
 
+def test_single_block_over_cap_takes_the_native_fallback(monkeypatch):
+    """With the per-call cap shrunk, a one-block stream is too large for
+    one call and cannot be split at a block boundary: the entry point
+    decodes it with the native serial inflate and stages the result."""
+    data = _words(40_000, seed=8)
+    stream = _deflate(data)
+    assert len(scan_stream_cells(stream, tp.CELL_BITS)[0]) == 1
+    monkeypatch.setattr(tp, "LIT_ROW_CAP", 16)
+    calls = []
+    real = inf.inflate_native
+    monkeypatch.setattr(inf, "inflate_native",
+                        lambda d: calls.append(len(d)) or real(d))
+    body, n = inf.inflate_device_dev(stream, device="cpu")
+    assert calls == [len(stream)]
+    assert body.dtype.is_floating_point is False and n == len(data)
+    assert body[:n].numpy().astype(np.uint8).tobytes() == data
+    assert inf.inflate_device(stream, device="cpu") == zlib.decompress(stream, -15)
+
+
+def test_native_inflate_matches_zlib_and_the_scan():
+    from debigulator_tpu_torch.native.scanner import inflate_native
+
+    data = _words(30_000, seed=9) + bytes(
+        np.random.default_rng(2).integers(0, 256, 70_000, dtype=np.uint8))
+    stream = _deflate(data, 6)
+    out, blocks = inflate_native(stream)
+    assert out == data
+    scanned = scan_stream_cells(stream, tp.CELL_BITS)[0]
+    assert [vars(b) for b in blocks] == [vars(b) for b in scanned]
+
+
 def test_decode_merged_three_streams():
     datas = [_words(8000 + 500 * i, seed=10 + i) for i in range(3)]
     streams = [_deflate(d, level=1 + 3 * i) for i, d in enumerate(datas)]
