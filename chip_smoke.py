@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the host library and the five CUDA kernels from this checkout and
+Builds the host library and the nine CUDA kernels from this checkout and
 holds every kernel bit-exact against its plain PyTorch version on the card.
 Each phase prints one JSON line:
 
@@ -27,6 +27,17 @@ Each phase prints one JSON line:
   decode_png_device of the result equal to the image;
 * kernel_times, entry_points (two-member gzip, the chunked long-stream
   decode, a stored/dynamic mix);
+* phase_a_tape_vs_plain, lz77_tape_vs_plain, lz77_ops_vs_plain,
+  lz77_match_vs_plain: the token-tape Phase A and the three LZ77 resolvers
+  of the other decode drivers, at two streams, on a segment cut from the
+  middle of a body (window tail, head and tail clip) and at the main path's
+  29 streams; the match-list resolver on one stream and on a hand-made list;
+* fallback_paths: the same 29 streams through the speculative drivers
+  (Python scans, no cell entries: the merged plan through prepare_merged ->
+  v5, one stream through inflate_device under DBG_NO_NATIVE=1 -> v4), the
+  v13 driver (DBG_PHASE_B=v13), the v7 driver and one stream through the
+  all-tensor-op v3, every stream checked against zlib; sweeps of the entry
+  fixpoint, graph / chase / resolve ms, peak memory;
 * kernels: per kernel its launches on its path, times and bound.
 
 The line before the last is the card's name and power limit as nvidia-smi
@@ -586,6 +597,358 @@ def png_and_encode_phases(dev):
     return kernels, times
 
 
+def fallback_phases(dev, base, streams):
+    """The third slice: the token-tape Phase A and the three lz77 resolvers
+    against their plain versions, then the speculative, v13, v7 and v3
+    decode drivers over the main path's 29 streams.  Returns the four
+    kernels' entries for the `kernels` line."""
+    import os
+
+    from debigulator_tpu_torch.ops import graph as tg
+    from debigulator_tpu_torch.ops import inflate as inf
+    from debigulator_tpu_torch.ops import lz77 as lz
+    from debigulator_tpu_torch.ops import phase_a as pa
+    from debigulator_tpu_torch.ops import plan as tp
+    from debigulator_tpu_torch.ops.scanner import _scan_stream_py
+    from debigulator_tpu_torch.parallel.merged import (
+        build_merged_plan,
+        prepare_merged,
+    )
+
+    counted = {"phase_a": pa.phase_a, "phase_a_tape": pa.phase_a_tape,
+               "lz77_match": lz.resolve_matches_v4,
+               "lz77_tape": lz.resolve_tape_v6, "lz77_ops": lz.resolve_ops_v13}
+
+    def counts():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in counts().items()}
+
+    datas = [zlib.decompress(s, -15) for s in streams]
+
+    def check_streams(body, mp, what):
+        got = body[: mp.plan.out_size].to(torch.uint8).cpu().numpy()
+        for off, size, want in zip(mp.out_offsets, mp.out_sizes, datas):
+            if got[off : off + size].tobytes() != want:
+                raise AssertionError(f"{what}: decode is not bit-exact")
+
+    def same(name, got, want):
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        return err
+
+    def stored_of(st):
+        return {"stored_pos": st.stored_pos, "stored_val": st.stored_val}
+
+    # --- inputs at two shapes: two streams, and the main path's batch ----
+    shapes = {}
+    for label, k in (("small", 2), ("path", len(streams))):
+        mp = build_merged_plan(streams[:k])
+        st = inf.stage_plan(mp.plan, dev, mp.out_offsets)
+        shapes[label] = (mp, st, inf.n_segments(mp.plan.out_size))
+    vs = {n: [] for n in ("phase_a_tape", "lz77_tape", "lz77_ops", "lz77_match")}
+    timed = {}
+    for label, (mp, st, n_seg) in shapes.items():
+        slots, cells = st.slots, mp.plan.num_cells
+        reps = 3 if label == "path" else 1
+        # Row 6: the token tape.
+        tape, cnts = pa.phase_a_tape(st.pa, slots)
+        torch.cuda.synchronize()
+        want = pa.phase_a_tape_plain(st.pa.cellw, st.pa.cell_block,
+                                     st.pa.tables, slots)
+        rec = {"shape": label, "cells_pad": int(tape.shape[0]), "slots": slots,
+               "max_abs_err": same("phase_a_tape", (tape, cnts), want)}
+        if label == "path":
+            rec["ms"] = time_ms(lambda: pa.phase_a_tape(st.pa, slots), 10)
+            rec["plain_ms"] = time_ms(lambda: pa.phase_a_tape_plain(
+                st.pa.cellw, st.pa.cell_block, st.pa.tables, slots), 1)
+            rec["bytes"] = 4 * (st.pa.cellw.numel() + tape.shape[0]
+                                + st.pa.tables.numel() + tape.numel()
+                                + cnts.numel())
+            is_m = tape >= lz.TOK_MATCH_BIT
+            rec["tokens"] = int((tape >= 0).sum())
+            rec["matches"] = int(is_m.sum())
+            timed["phase_a_tape"] = rec
+        vs["phase_a_tape"].append(rec)
+        del want
+
+        # Row 7: the tape resolver over the whole body.
+        args7 = inf.tape_v6_inputs(tape[:cells], cnts[:cells],
+                                   st.pa.bob_cell[:cells], n_seg,
+                                   st.stored_pos, st.stored_val)
+        got7 = lz.resolve_tape_v6(*args7)
+        torch.cuda.synchronize()
+        rec = {"shape": label, "cells": cells, "out_rows": int(got7.shape[0]),
+               "max_abs_err": same("lz77_tape", (got7,),
+                                   (lz.resolve_tape_v6_plain(*args7),))}
+        check_streams(inf._body_of(got7), mp, f"lz77_tape {label}")
+        if label == "path":
+            rec["ms"] = time_ms(lambda: lz.resolve_tape_v6(*args7), reps)
+            rec["plain_ms"] = time_ms(
+                lambda: lz.resolve_tape_v6_plain(*args7), 1)
+            rec["bytes"] = 4 * (2 * got7.numel() + args7[1].numel()
+                                + 2 * args7[2].numel())
+            timed["lz77_tape"] = rec
+        vs["lz77_tape"].append(rec)
+
+        # Row 9: the op resolver over the whole body.
+        tapes = pa.phase_a(st.pa, slots)
+        args9 = inf.ops_v13_inputs(*tapes, st.pa.bob_cell, n_seg,
+                                   st.stored_pos, st.stored_val, slots)
+        got9 = lz.resolve_ops_v13(*args9)
+        torch.cuda.synchronize()
+        rec = {"shape": label, "cells": int(tapes[0].shape[1]),
+               "max_abs_err": same("lz77_ops", (got9,),
+                                   (lz.resolve_ops_v13_plain(*args9),))}
+        if not torch.equal(got9, got7):
+            raise AssertionError("the tape and op resolvers disagree")
+        if label == "path":
+            rec["ms"] = time_ms(lambda: lz.resolve_ops_v13(*args9), reps)
+            rec["plain_ms"] = time_ms(
+                lambda: lz.resolve_ops_v13_plain(*args9), 1)
+            rec["bytes"] = 4 * (2 * got9.numel()
+                                + sum(a.numel() for a in args9[1:8]))
+            timed["lz77_ops"] = rec
+        vs["lz77_ops"].append(rec)
+
+        if label == "small":
+            # A segment from the middle of the body: a non-zero window
+            # tail, matches clipped at the segment's head and at its end.
+            seg, off = 64 * 1024, 300_000
+            flat = np.frombuffer(b"".join(datas[:2]), np.uint8)
+            rows = (lz.BODY_START + seg) // 128 + lz.SLACK_ROWS
+            init = torch.zeros(rows * 128, dtype=torch.int32)
+            init[lz.PAD : lz.BODY_START] = torch.from_numpy(
+                flat[off - lz.WINDOW : off].astype(np.int32))
+            init = init.view(rows, 128).to(dev)
+            want_seg = torch.from_numpy(
+                flat[off : off + seg].astype(np.int32)).to(dev)
+            for name, args, fn, plain in (
+                    ("lz77_tape", args7, lz.resolve_tape_v6,
+                     lz.resolve_tape_v6_plain),
+                    ("lz77_ops", args9, lz.resolve_ops_v13,
+                     lz.resolve_ops_v13_plain)):
+                cbase = args[-5].view(-1)[: args[-3]]
+                lo = int(torch.searchsorted(cbase, off, right=True)) - 1
+                hi = int(torch.searchsorted(cbase, off + seg))
+                call = (init, *args[1:-4], max(lo, 0), hi, off, args[-1])
+                got = fn(*call)
+                torch.cuda.synchronize()
+                err = same(f"{name} segment", (got,), (plain(*call),))
+                if not torch.equal(inf._body_of(got), want_seg):
+                    raise AssertionError(f"{name}: segment is not bit-exact")
+                vs[name].append({"shape": "segment", "seg_off": off,
+                                 "seg_bytes": seg, "cell_lo": lo,
+                                 "cell_hi": hi, "max_abs_err": err})
+        del got7, got9, args7, args9, tapes, tape, cnts
+
+    # Row 8: one stream's match list (the v4 driver's shape), then a
+    # hand-made list on a random buffer: sources in the window tail, dist 1,
+    # period 3, the full length 258, a match reading the one before it.
+    one = build_merged_plan(streams[:1])
+    st1 = inf.stage_plan(one.plan, dev, one.out_offsets)
+    cells1 = one.plan.num_cells
+    tape1, _ = pa.phase_a_tape(st1.pa, st1.slots)
+    out_size = one.plan.out_size
+    out_rows = tp._round_pow2(
+        -(-(out_size + lz.BODY_START + lz.MAXLEN + 512) // 128), 64)
+    m_rows = tp._round_pow2(-(-(out_size // 3 + 130) // 128), 16)
+    args8 = inf.match_v4_inputs(
+        tape1[:cells1], torch.from_numpy(one.plan.cell_block).to(dev),
+        torch.from_numpy(one.plan.block_out_base).to(dev), out_rows, m_rows,
+        st1.stored_pos, st1.stored_val,
+        torch.zeros(lz.WINDOW, dtype=torch.int32, device=dev))
+    n8 = int(args8[3])
+    got8 = lz.resolve_matches_v4(*args8[:3], n8)
+    torch.cuda.synchronize()
+    rec = {"shape": "path", "out_rows": out_rows, "m_rows": m_rows,
+           "matches": n8, "max_abs_err": same(
+               "lz77_match", (got8,),
+               (lz.resolve_matches_v4_plain(*args8[:3], n8),))}
+    if got8.view(-1)[lz.BODY_START : lz.BODY_START + out_size].to(
+            torch.uint8).cpu().numpy().tobytes() != datas[0]:
+        raise AssertionError("lz77_match: decode is not bit-exact")
+    rec["ms"] = time_ms(lambda: lz.resolve_matches_v4(*args8[:3], n8), 3)
+    rec["plain_ms"] = time_ms(
+        lambda: lz.resolve_matches_v4_plain(*args8[:3], n8), 1)
+    rec["bytes"] = 4 * (2 * got8.numel() + 2 * n8)
+    timed["lz77_match"] = rec
+    vs["lz77_match"].append(rec)
+    rng = np.random.default_rng(0)
+    buf = torch.from_numpy(rng.integers(
+        0, 256, (lz.BODY_START // 128 + 40, 128)).astype(np.int32)).to(dev)
+    s0 = lz.BODY_START
+    recs = [(s0, 258, 32768), (s0 + 258, 100, 1), (s0 + 358, 200, 3),
+            (s0 + 600, 258, 258), (s0 + 858, 40, 20), (s0 + 900, 3, 30000),
+            (s0 + 1000, 258, 142), (s0 + 1300, 77, 300), (s0 + 1400, 0, 7)]
+    pos = torch.full((8 * 128,), s0, dtype=torch.int32)
+    meta = torch.zeros(8 * 128, dtype=torch.int32)
+    for i, (p, ln, d) in enumerate(recs):
+        pos[i], meta[i] = p, (ln << 16) | d
+    pos, meta = pos.view(8, 128).to(dev), meta.view(8, 128).to(dev)
+    for n in (None, 5):
+        vs["lz77_match"].append({
+            "shape": "hand-made", "n_matches": n, "max_abs_err": same(
+                "lz77_match hand-made",
+                (lz.resolve_matches_v4(buf, pos, meta, n),),
+                (lz.resolve_matches_v4_plain(buf, pos, meta, n),))})
+    del got8, args8, tape1, st1
+    for name, shp in vs.items():
+        emit({"phase": f"{name}_vs_plain", "max_abs_err": 0, "shapes": shp})
+
+    # --- fallback_paths: four drivers over the 29 streams ------------------
+    for fn in counted.values():
+        fn.launches = 0
+    paths = {}
+    mp, st, n_seg = shapes["path"]
+
+    # speculative: Python scans, merged speculative plan -> v5.
+    t0 = time.perf_counter()
+    scanned = [(*_scan_stream_py(s), None) for s in streams]
+    scan_s = time.perf_counter() - t0
+    before = counts()
+    t0 = time.perf_counter()
+    mp_spec = build_merged_plan(streams, scanned=scanned)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    if mp_spec.plan.exact_entries or mp_spec.plan.slots_exact:
+        raise AssertionError("the Python scan must give a speculative plan")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = prepare_merged(mp_spec, device=dev)  # stages, probes the slots
+    torch.cuda.synchronize()
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    body = run()
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    check_streams(body, mp_spec, "speculative v5")
+    d5 = delta(before)
+    require_launches("fallback_paths, speculative v5", d5, ("lz77_tape",))
+    del body, run
+    # The same decode by its stages.
+    arrays = tp.plan_arrays_v3(mp_spec.plan, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nxt, meta_g = tg.build_graph(arrays, mp_spec.plan.n_bits)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    tape, overflow, cnts, sweeps = tg.chase_cells(
+        nxt, meta_g, arrays["cell_entry"], mp_spec.plan.n_bits,
+        mp_spec.plan.slots)
+    torch.cuda.synchronize()
+    chase_ms = (time.perf_counter() - t0) * 1e3
+    del nxt, meta_g
+    t0 = time.perf_counter()
+    inf.resolve_tape_segmented_v6(tape, cnts, arrays["bob_cell"], n_seg,
+                                  arrays["stored_pos"], arrays["stored_val"])
+    torch.cuda.synchronize()
+    resolve_ms = (time.perf_counter() - t0) * 1e3
+    # The fixpoint must land on the scanner's exact tape.
+    exact_tape, _ = pa.phase_a_tape(st.pa, mp_spec.plan.slots)
+    if bool(overflow) or not torch.equal(
+            tape, exact_tape[: mp_spec.plan.num_cells]):
+        raise AssertionError("the speculative tape is not the exact tape")
+    paths["speculative_v5"] = {
+        "python_scan_s": scan_s, "merged_plan_ms": plan_ms,
+        "prepare_ms": prepare_ms, "run_ms": run_ms, "sweeps": sweeps,
+        "graph_ms": graph_ms, "chase_ms": chase_ms, "resolve_ms": resolve_ms,
+        "peak_memory_bytes": peak, "n_bits": mp_spec.plan.n_bits,
+        "slots": mp_spec.plan.slots, "launches": d5}
+    del tape, cnts, arrays, exact_tape, mp_spec, scanned
+    torch.cuda.empty_cache()
+
+    # speculative, one stream under OUT_CAP, through the entry point -> v4.
+    before = counts()
+    os.environ["DBG_NO_NATIVE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        got = inf.inflate_device(streams[0], device=dev)
+        v4_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del os.environ["DBG_NO_NATIVE"]
+    if got != datas[0] or len(got) + 512 > lz.OUT_CAP:
+        raise AssertionError("speculative v4: decode is not bit-exact")
+    d4 = delta(before)
+    require_launches("fallback_paths, speculative v4", d4, ("lz77_match",))
+    paths["speculative_v4"] = {"out_bytes": len(got), "ms_with_scan": v4_ms,
+                               "launches": d4}
+
+    # v13: the exact merged plan under DBG_PHASE_B=v13.
+    before = counts()
+    os.environ["DBG_PHASE_B"] = "v13"
+    try:
+        run = prepare_merged(mp, device=dev)
+        body = run()
+        torch.cuda.synchronize()
+        v13_ms = host_ms(lambda: (run(), torch.cuda.synchronize()), 3)
+    finally:
+        del os.environ["DBG_PHASE_B"]
+    check_streams(body, mp, "v13")
+    d13 = delta(before)
+    require_launches("fallback_paths, v13", d13, ("phase_a", "lz77_ops"))
+    paths["v13"] = {"device_ms": v13_ms, "launches": d13}
+    del body, run
+
+    # v7: the token-tape Phase A and the tape resolver.
+    before = counts()
+    body, overflow = inf.inflate_v7(st.pa, stored_of(st), st.slots, n_seg,
+                                    mp.plan.num_cells)
+    torch.cuda.synchronize()
+    if bool(overflow):
+        raise AssertionError("v7 overflowed the scanner's exact slots")
+    check_streams(body, mp, "v7")
+    v7_ms = host_ms(lambda: (inf.inflate_v7(st.pa, stored_of(st), st.slots,
+                                            n_seg, mp.plan.num_cells),
+                             torch.cuda.synchronize()), 3)
+    d7 = delta(before)
+    require_launches("fallback_paths, v7", d7, ("phase_a_tape", "lz77_tape"))
+    paths["v7"] = {"device_ms": v7_ms, "launches": d7}
+    del body
+
+    # v3: one stream, all tensor ops, no kernel of the port.
+    before = counts()
+    t0 = time.perf_counter()
+    got = inf.inflate_device(streams[1], device=dev, use_kernels=False)
+    v3_ms = (time.perf_counter() - t0) * 1e3
+    if got != datas[1] or any(delta(before).values()):
+        raise AssertionError("v3: not bit-exact, or it launched a kernel")
+    paths["v3"] = {"out_bytes": len(got), "ms_with_scan": v3_ms}
+    launches = counts()
+    emit({"phase": "fallback_paths", "streams": len(streams),
+          "out_bytes": sum(map(len, datas)), "bit_exact": True, **paths,
+          "launches": launches})
+
+    sources = {
+        "phase_a_tape": ("debigulator_tpu_torch/csrc/phase_a.cu",
+                         "debigulator_tpu/ops/phase_a_pallas.py:232"),
+        "lz77_tape": ("debigulator_tpu_torch/csrc/lz77_tape.cu",
+                      "debigulator_tpu/ops/lz77_pallas.py:317"),
+        "lz77_match": ("debigulator_tpu_torch/csrc/lz77_match.cu",
+                       "debigulator_tpu/ops/lz77_pallas.py:145"),
+        "lz77_ops": ("debigulator_tpu_torch/csrc/lz77_ops.cu",
+                     "debigulator_tpu/ops/lz77_pallas.py:581"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        rec = timed[name]
+        b_ms = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+        o_ms = 0.0
+        if name == "phase_a_tape":
+            o_ms = (OPS_PER_SYMBOL * (rec["tokens"] + rec["matches"])
+                    / ALU_OPS_PER_S * 1e3)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": 0, "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": None})
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -836,6 +1199,10 @@ def main() -> int:
         raise AssertionError("stored/dynamic mix decode is not bit-exact")
     emit({"phase": "entry_points", "gzip_two_member": True,
           "long_stream_chunks_bytes": n, "stored_mix": True})
+
+    # --- the third slice: the other decode drivers ----------------------
+    torch.cuda.empty_cache()
+    kernels += fallback_phases(dev, base, streams)
 
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -36,6 +36,12 @@ DIST_BASE = np.array(
     dtype=np.int32,
 )
 
+#: Order in which code-length code lengths are stored (RFC 1951 §3.2.7).
+CODE_LENGTH_ORDER = np.array(
+    [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15],
+    dtype=np.int32,
+)
+
 #: LZ77 match lengths and window (RFC 1951 §2, §3.2.5).
 MAX_MATCH_LENGTH = 258
 MIN_MATCH_LENGTH = 3

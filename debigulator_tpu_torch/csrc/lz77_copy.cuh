@@ -1,0 +1,125 @@
+// In-order LZ77 match application for Hopper, shared by the three
+// resolvers of ops/lz77.py (lz77_match.cu, lz77_tape.cu, lz77_ops.cu).
+//
+// A DEFLATE match copies `len` bytes from `dist` bytes back; matches must
+// take effect in stream order because a source may be bytes an earlier
+// match wrote.  The TPU kernels (debigulator_tpu/ops/lz77_pallas.py) load
+// aligned 4-row spans, rotate lanes, test groups of 8 matches pairwise for
+// hazards and double the pattern nine times for the overlapping case; all
+// of that answers Mosaic's 128-lane alignment.  Here memory is byte
+// addressable (one int32 per byte), so:
+//
+//  * one warp copies one match, lane i taking bytes i, i + 32, ...:
+//    out[dst + i] = out[dst - dist + i % dist].  Every source index lies
+//    below dst, so the bytes read were final before the match began and
+//    the overlapping (dist < len) case needs no doubling;
+//  * one CTA of 32 warps walks a list in order.  A batch is the longest
+//    run of matches (or of cells) whose sources do not reach into what the
+//    batch itself writes; the batch copies in parallel, then one
+//    __syncthreads() makes its bytes visible to the next;
+//  * the cell walk runs one CTA per independent range of cells: a range
+//    starts at a cell from which on no match reads below that cell's first
+//    output position (every stream of a merged batch starts one), so the
+//    ranges share no bytes.  The wrapper finds the starts between the two
+//    launches (a suffix minimum over the cells' lowest source positions).
+//
+// What bounds it on the H100: latency.  A range's batches are serialised,
+// each costs about two L2 round trips, and a range uses one of 132 SMs.
+
+#pragma once
+
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace lz77 {
+
+constexpr int kWalkThreads = 1024;
+constexpr int kWalkWarps = kWalkThreads / 32;
+
+// One warp copies one match.  `dist` 0 (a corrupt record) copies nothing;
+// stores are clipped to [0, limit) and sources below 0 are skipped.
+__device__ __forceinline__ void copy_match(int* out, int64_t limit, int dst,
+                                           int len, int dist, int lane) {
+  if (dist <= 0) return;
+  const int64_t src = static_cast<int64_t>(dst) - dist;
+  for (int i = lane; i < len; i += 32) {
+    const int64_t s = src + (i % dist);
+    const int64_t d = static_cast<int64_t>(dst) + i;
+    if (s >= 0 && d < limit) out[d] = out[s];
+  }
+}
+
+// Number of leading set flags among the CTA's per-warp flags.
+__device__ __forceinline__ int leading_ok(const int* s_ok) {
+  int n = 0;
+  while (n < kWalkWarps && s_ok[n]) ++n;
+  return n;
+}
+
+// CTA k walks cells [bounds[k], bounds[k + 1]) in stream order (independent
+// ranges, see above).  Cell c holds kc[c] matches at
+// mpos/mmeta[c * slots ...] (buffer position, len << 16 | dist), already
+// clipped to the body; rmax[c] is one past the highest source byte any of
+// them reads and thr[c] a lower bound of every position that cell c or a
+// later cell writes.  A warp applies its cell's matches one after another;
+// cells b+1.. join cell b's batch while rmax <= thr[b], i.e. while they
+// read nothing the batch writes.
+__global__ void __launch_bounds__(kWalkThreads)
+walk_cells_kernel(int* out, int64_t limit, const int* __restrict__ mpos,
+                  const int* __restrict__ mmeta, const int* __restrict__ kc,
+                  const int* __restrict__ rmax, const int* __restrict__ thr,
+                  const int64_t* __restrict__ bounds, int slots) {
+  __shared__ int s_ok[kWalkWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int b = static_cast<int>(bounds[blockIdx.x]);
+  const int n_cells = static_cast<int>(bounds[blockIdx.x + 1]);
+  while (b < n_cells) {
+    const int c = b + warp;
+    int k = 0;
+    bool ok = false;
+    if (c < n_cells) {
+      k = kc[c];
+      ok = warp == 0 || k == 0 || rmax[c] <= thr[b];
+    }
+    if (lane == 0) s_ok[warp] = ok;
+    __syncthreads();
+    const int n = leading_ok(s_ok);
+    if (warp < n) {
+      const int64_t at = static_cast<int64_t>(c) * slots;
+      for (int j = 0; j < k; ++j) {
+        const int meta = mmeta[at + j];
+        copy_match(out, limit, mpos[at + j], meta >> 16, meta & 0xFFFF, lane);
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    b += n;
+  }
+}
+
+// Head and tail clip of a match at buffer position dst to the body
+// [body_start, body_end): the destination moves up, the length shrinks,
+// the distance stays.  Returns the clipped length (0: nothing to copy).
+__device__ __forceinline__ int clip_match(int* dst, int len, int body_start,
+                                          int body_end) {
+  const int delta = max(body_start - *dst, 0);
+  int eff = max(len - delta, 0);
+  *dst += delta;
+  eff = min(eff, max(body_end - *dst, 0));
+  return eff;
+}
+
+inline int launch_walk_cells(int* out, int64_t limit, const int* mpos,
+                             const int* mmeta, const int* kc, const int* rmax,
+                             const int* thr, const int64_t* bounds,
+                             int n_ranges, int slots, cudaStream_t stream) {
+  if (n_ranges > 0) {
+    walk_cells_kernel<<<n_ranges, kWalkThreads, 0, stream>>>(
+        out, limit, mpos, mmeta, kc, rmax, thr, bounds, slots);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace lz77

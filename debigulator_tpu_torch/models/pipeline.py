@@ -24,7 +24,11 @@ from debigulator_tpu_torch import constants as C
 from debigulator_tpu_torch.device import resolve as resolve_device
 from debigulator_tpu_torch.models import png_codec
 from debigulator_tpu_torch.models.bmp_codec import decode_bmp
-from debigulator_tpu_torch.models.gzip_codec import GzipError, _parse_header
+from debigulator_tpu_torch.models.gzip_codec import (
+    GzipError,
+    _parse_header,
+    decode_gzip,
+)
 from debigulator_tpu_torch.models.zlib_codec import parse_zlib_header
 from debigulator_tpu_torch.native import get_lib
 from debigulator_tpu_torch.ops import checksum as ck
@@ -308,15 +312,22 @@ class DecodeResult:
 def decode_corpus(paths, device="cuda",
                   manifest_path: str | None = None) -> list[DecodeResult]:
     """Decode a mixed list of .png/.gz/.bmp files.  One bad file poisons
-    only its own entry.  PNG and gzip decode on ``device`` (the reference's
-    host-only mode, ``device=False``, has no counterpart: it needs the
-    serial Python inflate, which is not ported); BMP is a host swizzle.
+    only its own entry.  PNG and gzip decode on ``device``; BMP is a host
+    swizzle.
+
+    ``device="host"`` is the reference's host-only mode (its
+    ``device=False``): PNG through ``png_codec.decode_png`` and gzip
+    through ``gzip_codec.decode_gzip``, both on the serial Python inflate,
+    with no tensor work at all.  It has its own spelling because
+    ``device="cpu"`` already means the port's device pipeline on CPU
+    tensors.
 
     manifest_path: optional persisted completed-items manifest: items
     already recorded good are skipped (returned with data=None and
     good=True), and every completion appends a durable row, so a restarted
     job resumes at the remainder."""
-    dev = resolve_device(device)
+    host_only = isinstance(device, str) and device == "host"
+    dev = None if host_only else resolve_device(device)
     manifest = JobManifest(manifest_path) if manifest_path is not None else None
     results = []
     for path in paths:
@@ -332,9 +343,11 @@ def decode_corpus(paths, device="cuda",
             with open(path, "rb") as f:
                 blob = f.read()
             if name.endswith(".png"):
-                out = decode_png_device(blob, device=dev)
+                out = (png_codec.decode_png(blob) if host_only
+                       else decode_png_device(blob, device=dev))
             elif name.endswith(".gz"):
-                out = decode_gzip_device(blob, device=dev)
+                out = (decode_gzip(blob) if host_only
+                       else decode_gzip_device(blob, device=dev))
             elif name.endswith(".bmp"):
                 out = decode_bmp(blob)
             else:

@@ -13,7 +13,7 @@ addition to 2/3/6, IHDR must be the first chunk, all sizes bounded.
 
 This module is the host orchestration layer; the hot compute (inflate,
 unfilter, filter search, deflate) is pluggable.  ``decode_png`` defaults
-to the native serial inflate and the NumPy unfilter; ``encode_png``
+to the serial Python inflate and the NumPy unfilter; ``encode_png``
 defaults to the device filter search and the device LZ77 encoder.
 """
 
@@ -33,10 +33,10 @@ from debigulator_tpu_torch.models.zlib_codec import (
     encode_zlib,
     parse_zlib_header,
 )
-from debigulator_tpu_torch.native.scanner import inflate_native
 from debigulator_tpu_torch.ops import checksum as ck
 from debigulator_tpu_torch.ops import unfilter as uf
 from debigulator_tpu_torch.ops.deflate_encode_device import deflate_fixed_device
+from debigulator_tpu_torch.ops.inflate_ref import inflate as _inflate
 
 
 class PngError(ValueError):
@@ -199,15 +199,16 @@ def decode_png(
 ) -> np.ndarray:
     """Decode a PNG to (h, w, 4) RGBA uint8 (host path; device path pluggable).
 
-    inflate_fn(bytes) -> (out_bytes, blocks), default the native serial
-    inflate; unfilter_fn(filtered, h, w, bpp) -> (h, stride) uint8, default
-    the NumPy oracle.
+    inflate_fn(bytes) -> (out_bytes, blocks), default the serial Python
+    inflate of ops.inflate_ref (pass native.scanner.inflate_native for the
+    fast host form); unfilter_fn(filtered, h, w, bpp) -> (h, stride) uint8,
+    default the NumPy oracle.
     """
     chunks = parse_chunks(data, verify_crc=verify_crc)
     info = chunks.info
     parse_zlib_header(chunks.idat)
 
-    inflate_fn = inflate_fn or inflate_native
+    inflate_fn = inflate_fn or _inflate
     raw, blocks = inflate_fn(chunks.idat[2:])
     expected_size = info.height * (1 + info.stride)
     if len(raw) != expected_size:

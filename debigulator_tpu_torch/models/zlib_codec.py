@@ -13,9 +13,9 @@ import dataclasses
 import struct
 
 from debigulator_tpu_torch import constants as C
-from debigulator_tpu_torch.native.scanner import inflate_native
 from debigulator_tpu_torch.ops import checksum as ck
 from debigulator_tpu_torch.ops.deflate_encode_device import deflate_fixed_device
+from debigulator_tpu_torch.ops.inflate_ref import inflate as _inflate
 
 
 class ZlibError(ValueError):
@@ -52,9 +52,9 @@ def parse_zlib_header(data) -> ZlibHeader:
 def decode_zlib(data, verify: bool = True, inflate_fn=None) -> bytes:
     """Decode a full zlib stream (2-byte header + DEFLATE + 4-byte Adler).
 
-    inflate_fn(bytes) -> (out_bytes, blocks); the default is the native
-    serial inflate."""
-    inflate_fn = inflate_fn or inflate_native
+    inflate_fn(bytes) -> (out_bytes, blocks); the default is the serial
+    Python inflate of ops.inflate_ref."""
+    inflate_fn = inflate_fn or _inflate
     parse_zlib_header(data)
     out, blocks = inflate_fn(bytes(memoryview(data)[2:]))
     if verify:

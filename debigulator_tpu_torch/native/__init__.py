@@ -4,13 +4,19 @@
 Built with g++ from native/dbg_native.cpp (a source at the repo root) into
 the port's own build directory; the JAX package's copy of the library is
 never read or written.  ctypes declarations are the port's own copy of
-those in debigulator_tpu/native/__init__.py.  If the library cannot be
-built, ``get_lib`` raises: this slice has no Python-scanner fallback.
+those in debigulator_tpu/native/__init__.py.
+
+``DBG_NO_NATIVE=1`` (read at call time, ``disabled()``) switches the
+library off: the scanner then runs the Python scan of ops.scanner and the
+host checksums their NumPy forms, and ``get_lib`` raises.  Only the
+variable selects those: a library that cannot be built raises as well, so
+nothing falls back quietly.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import pathlib
 import threading
 
@@ -23,6 +29,11 @@ _LIB = None
 _LOCK = threading.Lock()
 
 
+def disabled() -> bool:
+    """True when DBG_NO_NATIVE asks for the pure-Python host paths."""
+    return bool(os.environ.get("DBG_NO_NATIVE"))
+
+
 def get_lib() -> ctypes.CDLL:
     """Load (building on first use) the native library.
 
@@ -30,6 +41,8 @@ def get_lib() -> ctypes.CDLL:
     on the lock instead of observing a half-initialized library.
     """
     global _LIB
+    if disabled():
+        raise RuntimeError("DBG_NO_NATIVE is set: the native library is off")
     if _LIB is not None:
         return _LIB
     with _LOCK:

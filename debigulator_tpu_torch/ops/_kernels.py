@@ -24,7 +24,12 @@ from debigulator_tpu_torch._build import build_libraries
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"phase_a": "phase_a.cu", "compact": "compact.cu", "walk": "walk.cu",
-           "unfilter": "unfilter.cu", "greedy_walk": "greedy_walk.cu"}
+           "unfilter": "unfilter.cu", "greedy_walk": "greedy_walk.cu",
+           "lz77_match": "lz77_match.cu", "lz77_tape": "lz77_tape.cu",
+           "lz77_ops": "lz77_ops.cu"}
+#: Headers a source includes: hashed with it, so an edit rebuilds it.
+HEADERS = {"lz77_match": ["lz77_copy.cuh"], "lz77_tape": ["lz77_copy.cuh"],
+           "lz77_ops": ["lz77_copy.cuh"]}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -33,12 +38,23 @@ _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ENTRIES = {
     "dbg_phase_a": ("phase_a", [_P, _P, _P, _I32, _I32,
                                 _P, _P, _P, _P, _P, _P, _P]),
+    "dbg_phase_a_tape": ("phase_a", [_P, _P, _P, _I32, _I32, _P, _P]),
     "dbg_compact": ("compact", [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I32, _I32, _P, _P, _P, _P]),
     "dbg_walk": ("walk", [_P, _I64, _I64, _P, _P, _P, _P, _I32,
                           _P, _P, _I64, _P, _I64]),
     "dbg_unfilter": ("unfilter", [_P, _P, _I32, _I32, _I32, _I32]),
     "dbg_greedy_walk": ("greedy_walk", [_P, _P, _I64, _P, _P, _P]),
+    "dbg_lz77_match": ("lz77_match", [_P, _I64, _P, _P, _I32]),
+    "dbg_lz77_tape_place": ("lz77_tape", [_P, _I32, _P, _P, _P, _I32, _I32,
+                                          _I32, _I32, _P, _P, _P, _P, _P, _P]),
+    "dbg_lz77_tape_walk": ("lz77_tape", [_P, _I32, _P, _P, _P, _P, _P, _P,
+                                         _I32, _I32]),
+    "dbg_lz77_ops_place": ("lz77_ops", [_P, _I32, _P, _P, _P, _P, _P, _I64, _P,
+                                        _P, _I32, _I32, _I32, _I32, _P, _P, _P,
+                                        _P, _P, _P]),
+    "dbg_lz77_ops_walk": ("lz77_ops", [_P, _I32, _P, _P, _P, _P, _P, _P,
+                                       _I32, _I32]),
 }
 
 _FNS: dict = {}
@@ -61,7 +77,8 @@ def build() -> float:
     with _LOCK:
         if not _FNS:
             nvcc = _nvcc()
-            specs = {name: ([CSRC / src], [nvcc, *NVCC_FLAGS, str(CSRC / src)])
+            specs = {name: ([CSRC / f for f in (src, *HEADERS.get(name, []))],
+                            [nvcc, *NVCC_FLAGS, str(CSRC / src)])
                      for name, src in SOURCES.items()}
             libs = {name: ctypes.CDLL(str(path))
                     for name, path in build_libraries(specs).items()}

@@ -1,7 +1,9 @@
 """CRC-32 and Adler-32: host forms and lane-parallel tensor forms (the
 port of debigulator_tpu/ops/checksum.py).
 
-* Host ``crc32``/``adler32`` go through the native library.
+* Host ``crc32``/``adler32`` go through the native library, or through
+  their NumPy forms (lane-parallel CRC, weighted-sum Adler) when
+  ``DBG_NO_NATIVE`` switches the library off.
 * CRC-32 is linear over GF(2): ``raw(A xor B) = raw(A) xor raw(B)`` and
   leading zero bytes are free.  ``crc_shift``/``crc32_combine`` stitch
   CRCs of adjacent pieces with precomputed "append 2^k zero bytes"
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from debigulator_tpu_torch.constants import ADLER_MOD, CRC32_POLY
+from debigulator_tpu_torch import native as _native_lib
 from debigulator_tpu_torch.native import scanner as _native
 
 
@@ -103,17 +106,66 @@ def crc32_combine(crc_a: int, crc_b: int, len_b: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Host checksums (native)
+# Host checksums
 # ---------------------------------------------------------------------------
 
 
+def _crc32_numpy(data, crc: int = 0) -> int:
+    """Lane-parallel CRC-32: the byte recurrence runs across lanes and the
+    lane CRCs tree-combine with the "append zero bytes" matrices."""
+    buf = np.frombuffer(memoryview(data), dtype=np.uint8)
+    n = buf.size
+    if n == 0:
+        return crc
+    state = np.uint32(crc) ^ np.uint32(0xFFFFFFFF)
+    # Leading zeros are free in raw-linear space, so lead with zeros to
+    # give every lane the same length.
+    lanes = max(1, min(4096, n // 64))
+    chunk = -(-n // lanes)
+    padded = np.zeros(lanes * chunk, dtype=np.uint8)
+    padded[lanes * chunk - n:] = buf
+    cols = padded.reshape(lanes, chunk)
+    s = np.zeros(lanes, dtype=np.uint32)
+    for i in range(chunk):
+        s = (s >> np.uint32(8)) ^ CRC_TABLE[(s ^ cols[:, i]) & np.uint32(0xFF)]
+    m, width = lanes, chunk
+    while m > 1:
+        if m % 2:
+            s = np.concatenate([np.zeros(1, dtype=np.uint32), s])
+            m += 1
+        s = crc_shift(s[0::2], width) ^ s[1::2]
+        m //= 2
+        width *= 2
+    # That was F(0, M); F(init, M) adds the shifted initial state.
+    raw = s[0] ^ crc_shift(state, n)
+    return int(raw ^ np.uint32(0xFFFFFFFF))
+
+
+def _adler32_numpy(data, adler: int = 1) -> int:
+    buf = np.frombuffer(memoryview(data), dtype=np.uint8).astype(np.uint64)
+    n = buf.size
+    s1 = adler & 0xFFFF
+    s2 = (adler >> 16) & 0xFFFF
+    if n:
+        weights = np.arange(n, 0, -1, dtype=np.uint64)
+        s2 = (s2 + n * s1 + int((buf * weights).sum())) % ADLER_MOD
+        s1 = (s1 + int(buf.sum())) % ADLER_MOD
+    return (s2 << 16) | s1
+
+
 def crc32(data, crc: int = 0) -> int:
-    """CRC-32 of a bytes-like object (native slice-by-8)."""
+    """CRC-32 of a bytes-like object (native slice-by-8; NumPy under
+    DBG_NO_NATIVE)."""
+    if _native_lib.disabled():
+        return _crc32_numpy(data, crc)
     return _native.crc32(data, crc)
 
 
 def adler32(data, adler: int = 1) -> int:
-    """Adler-32 (zlib flavour) of a bytes-like object (native)."""
+    """Adler-32 (zlib flavour) of a bytes-like object (native; NumPy under
+    DBG_NO_NATIVE)."""
+    if _native_lib.disabled():
+        return _adler32_numpy(data, adler)
     return _native.adler32(data, adler)
 
 

@@ -49,6 +49,8 @@ INACTIVE = 127
 TAB_LL, TAB_D, TAB_W = 96, 384, 416
 META_KIND_SHIFT = 25
 K_NONE, K_LIT, K_DIST = 0, 1, 2
+#: A match token: TOK_MATCH_BIT | len << 16 | dist (a literal is its byte).
+TOK_MATCH_BIT = 1 << 30
 
 
 @dataclasses.dataclass
@@ -164,14 +166,14 @@ def _lookup(tab_flat, cb, col0, width, offset, unmatched):
     return torch.where(ok, tab_flat[idx], 0)
 
 
-def phase_a_plain(cellw: torch.Tensor, cell_block: torch.Tensor,
-                  tables: torch.Tensor, slots: int):
-    """Plain PyTorch Phase A: the decode graph at all 64 positions of
-    every cell (cells on the last axis), then a 64-step chase.  Window and
-    bit-reversal arithmetic is uint32 in the reference; here int64 with
-    masks."""
+def _cell_graph(cellw: torch.Tensor, cell_block: torch.Tensor,
+                tables: torch.Tensor):
+    """The decode graph at all 64 positions of every cell (cells on the
+    last axis) and each cell's start: (nxt_lit, meta_lit, nxt_dist,
+    meta_dist) of shape (64, cells) and (s_pos, s_mode, pend) of shape
+    (cells,), all int64.  Window and bit-reversal arithmetic is uint32 in
+    the reference; here int64 with masks."""
     dev = cellw.device
-    ncell = cellw.shape[1]
     w = cellw[:3].long() & 0xFFFFFFFF
     p = torch.arange(CELL_BITS, device=dev, dtype=torch.long)[:, None]
     lo = p < 32
@@ -213,6 +215,18 @@ def phase_a_plain(cellw: torch.Tensor, cell_block: torch.Tensor,
     s_pos = torch.where(el >= 0, el >> 1, INACTIVE)
     s_mode = torch.where(el >= 0, el & 1, 0)
     pend = (row3 >> 9) & 0x1FF
+    return (nxt_lit, meta_lit, nxt_dist, meta_dist), (s_pos, s_mode, pend)
+
+
+def phase_a_plain(cellw: torch.Tensor, cell_block: torch.Tensor,
+                  tables: torch.Tensor, slots: int):
+    """Plain PyTorch Phase A: the decode graph at all 64 positions of
+    every cell, then a 64-step chase into the match, run and literal
+    tapes."""
+    dev = cellw.device
+    ncell = cellw.shape[1]
+    (nxt_lit, meta_lit, nxt_dist, meta_dist), (s_pos, s_mode, pend) = \
+        _cell_graph(cellw, cell_block, tables)
     zero = torch.zeros(ncell, dtype=torch.long, device=dev)
     mc, rc, litc, cur = zero.clone(), zero.clone(), zero.clone(), zero.clone()
     run_dst, run_lit0, run_len = zero.clone(), zero.clone(), zero.clone()
@@ -274,10 +288,7 @@ def phase_a_plain(cellw: torch.Tensor, cell_block: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def phase_a(inputs: PhaseAInputs, slots: int):
-    """Phase A on the device of ``inputs``: the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors.  Returns (ma, mb, ra, rb,
-    lit, cnt, outlen) as the reference's phase_a13_pallas does."""
+def _check_inputs(inputs: PhaseAInputs, slots: int):
     cellw, cell_block, tables = inputs.cellw, inputs.cell_block, inputs.tables
     if slots not in (8, 16, 32, 64, 128):
         raise ValueError(f"slots must be a power of two in [8, 128], got {slots}")
@@ -288,6 +299,14 @@ def phase_a(inputs: PhaseAInputs, slots: int):
     if (cellw.shape[0] != 4 or cell_block.shape != (cells_pad,)
             or tables.shape[1] != TAB_W or cells_pad % TC):
         raise ValueError("Phase A input shapes do not match")
+    return cellw, cell_block, tables, cells_pad
+
+
+def phase_a(inputs: PhaseAInputs, slots: int):
+    """Phase A on the device of ``inputs``: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors.  Returns (ma, mb, ra, rb,
+    lit, cnt, outlen) as the reference's phase_a13_pallas does."""
+    cellw, cell_block, tables, cells_pad = _check_inputs(inputs, slots)
     if cellw.device.type == "cpu":
         return phase_a_plain(cellw, cell_block, tables, slots)
     dev = cellw.device
@@ -302,3 +321,76 @@ def phase_a(inputs: PhaseAInputs, slots: int):
 
 
 phase_a.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Token-tape Phase A (the v7 driver)
+# ---------------------------------------------------------------------------
+
+
+def phase_a_tape_plain(cellw: torch.Tensor, cell_block: torch.Tensor,
+                       tables: torch.Tensor, slots: int):
+    """Plain PyTorch token-tape Phase A: the same decode graph, then a
+    64-position chase that writes one token per slot."""
+    ncell = cellw.shape[1]
+    dev = cellw.device
+    (nxt_lit, meta_lit, nxt_dist, meta_dist), (s_pos, s_mode, pend) = \
+        _cell_graph(cellw, cell_block, tables)
+    cnt = torch.zeros(ncell, dtype=torch.long, device=dev)
+    # One spare column takes the writes that must not land.
+    tape = torch.full((ncell, slots + 1), -1, dtype=torch.long, device=dev)
+    for pp in range(CELL_BITS):
+        here = s_pos == pp
+        if not bool(here.any()):
+            continue
+        mode_b = s_mode == 1
+        nx = torch.where(mode_b, nxt_dist[pp], nxt_lit[pp])
+        mt = torch.where(mode_b, meta_dist[pp], meta_lit[pp])
+        kind = mt >> META_KIND_SHIFT
+        payload = mt & 0xFFFF
+        pd = (mt >> 16) & 0x1FF
+        is_dist = kind == K_DIST
+        em = torch.where(is_dist, TOK_MATCH_BIT | (pend << 16) | payload,
+                         torch.where(kind == K_LIT, payload, -1))
+        do_emit = here & (em >= 0)
+        col = torch.where(do_emit & (cnt < slots), cnt, slots)
+        tape.scatter_(1, col[:, None], em[:, None])
+        cnt = cnt + do_emit.long()
+        new_pend = torch.where(is_dist, 0, torch.where(pd > 0, pd, pend))
+        # The next mode after a litlen symbol is "dist" iff it was a length.
+        mo = ((kind == K_NONE) & (pd > 0)).long()
+        s_pos = torch.where(here, nx, s_pos)
+        s_mode = torch.where(here, torch.where(mode_b, 0, mo), s_mode)
+        pend = torch.where(here, new_pend, pend)
+    return tape[:, :slots].to(torch.int32).contiguous(), cnt.to(torch.int32)
+
+
+def phase_a_tape(inputs: PhaseAInputs, slots: int):
+    """Token-tape Phase A, replacing the TPU kernel ``_phase_a_kernel``
+    (debigulator_tpu/ops/phase_a_pallas.py:232): (tape (cells_pad, slots)
+    int32, counts (cells_pad,) int32) as the reference's phase_a_pallas
+    returns them.  A token is a literal byte, or TOK_MATCH_BIT | len << 16
+    | dist; slots past a cell's count are -1.  ``counts`` may exceed
+    ``slots`` (the caller's overflow flag); the row then holds the first
+    ``slots`` tokens.
+
+    CUDA kernel (csrc/phase_a.cu, ``phase_a_tape_kernel``): one thread per
+    cell with the decode it shares with ``phase_a_kernel``.  Bound on the
+    H100 by bytes: 20 bytes read and ``4 * slots + 4`` written per cell.
+    The tape is cell-major as the resolvers want it, so a warp's stores of
+    one slot are ``slots * 4`` bytes apart; the rows are written through a
+    per-thread loop all the same, and the time is in PERF.md.
+    """
+    cellw, cell_block, tables, cells_pad = _check_inputs(inputs, slots)
+    if cellw.device.type == "cpu":
+        return phase_a_tape_plain(cellw, cell_block, tables, slots)
+    dev = cellw.device
+    tape = torch.empty((cells_pad, slots), dtype=torch.int32, device=dev)
+    counts = torch.empty(cells_pad, dtype=torch.int32, device=dev)
+    _kernels.launch("dbg_phase_a_tape", cellw, cell_block, tables, cells_pad,
+                    slots, tape, counts)
+    phase_a_tape.launches += 1
+    return tape, counts
+
+
+phase_a_tape.launches = 0

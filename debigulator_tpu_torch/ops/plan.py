@@ -5,8 +5,9 @@ The native scanner indexes blocks; the host bit-shifts every compressed
 block's payload onto a 64-bit-aligned *virtual stream*, so every 64-bit
 cell belongs to one block and starts at a scanner-exact decoder entry.
 Per-block canonical decode tables (count/first/base, RFC 1951 §3.2.2) and
-packed per-symbol info ("aug" tables) go with it.  The plan is numpy; the
-device stages of ops.inflate consume it.
+packed per-symbol info ("aug" tables) go with it.  The plan is numpy;
+``plan_arrays_v3``/``plan_arrays_v7`` and ops.phase_a stage it for the
+device stages of ops.inflate.
 """
 
 from __future__ import annotations
@@ -14,9 +15,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from debigulator_tpu_torch import constants as C
-from debigulator_tpu_torch.ops.inflate_ref import BlockInfo, HuffmanError
+from debigulator_tpu_torch.ops.huffman import HuffmanError
+from debigulator_tpu_torch.ops.inflate_ref import BlockInfo
 
 #: Cell size in bits.
 CELL_BITS = 64
@@ -308,6 +311,54 @@ def build_plan_v3(data: bytes, blocks: list[BlockInfo], block_lengths,
         slots_exact=slots_exact,
         used_bits=n_bits_used,
     )
+
+
+def plan_arrays_v3(plan: PlanV3, device) -> dict:
+    """Staged inputs of the tensor-op Phase A (ops.graph) and of the
+    resolvers that follow it: the counterpart of the reference's
+    ``plan_arrays_v3``, as tensors on ``device``.  ``first_state`` stays a
+    Python int.  The reference's ``tile_page`` (its table-page map for the
+    paged matmul lookup) has no counterpart: the port's lookup is a gather
+    over all blocks' tables."""
+    cell_pend = (plan.cell_pend if plan.cell_pend is not None
+                 else np.zeros(plan.num_cells, np.int32))
+    host = {
+        "vbytes": plan.vbytes,
+        "cell_block": plan.cell_block,
+        "cell_entry": plan.cell_entry,
+        "cell_pend": cell_pend,
+        "ll_count": plan.ll_count,
+        "ll_first": plan.ll_first,
+        "ll_base": plan.ll_base,
+        "ll_aug_flat": plan.ll_aug.reshape(-1),
+        "d_count": plan.d_count,
+        "d_first": plan.d_first,
+        "d_base": plan.d_base,
+        "d_aug_flat": plan.d_aug.reshape(-1),
+        "block_next_entry": plan.block_next_entry,
+        # Per-cell EOB successor and stored-bytes offset, expanded on the
+        # host: (cells,) is cheap to stage.
+        "bne_cell": plan.block_next_entry[plan.cell_block].astype(np.int32),
+        "bob_cell": plan.block_out_base[plan.cell_block].astype(np.int32),
+        "block_out_base": plan.block_out_base,
+        "stored_pos": np.asarray(plan.stored_pos, np.int32),
+        "stored_val": np.asarray(plan.stored_val, np.uint8),
+    }
+    arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+              for k, v in host.items()}
+    arrays["first_state"] = int(plan.first_state)
+    return arrays
+
+
+def plan_arrays_v7(plan: PlanV3, device) -> dict:
+    """The stored-block bytes alone: what the kernel-fed drivers (v7, v13)
+    stage beside Phase A's own inputs."""
+    return {
+        "stored_pos": torch.from_numpy(
+            np.asarray(plan.stored_pos, np.int32)).to(device),
+        "stored_val": torch.from_numpy(
+            np.asarray(plan.stored_val, np.uint8)).to(device),
+    }
 
 
 #: Most literal-tape rows one device call may hold: the run meta keeps the

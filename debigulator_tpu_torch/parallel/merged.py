@@ -2,8 +2,9 @@
 (the port of debigulator_tpu/parallel/merged.py, record-free form).
 
 Streams concatenate on the virtual bitstream: each stream's blocks keep
-their own EOB chain (ending in TERMINAL), cells carry exact entries, and
-output positions are offset per stream.  DEFLATE distances only reference
+their own EOB chain (ending in TERMINAL), cells carry exact entries (or,
+from the Python scan, only the pinned block starts), and output positions
+are offset per stream.  DEFLATE distances only reference
 a stream's own output, so the concatenated output regions stay
 independent and one Phase A + Phase B pass decodes the whole batch.
 """
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from debigulator_tpu_torch.device import resolve as resolve_device
+from debigulator_tpu_torch import native
 from debigulator_tpu_torch.native import get_lib
 from debigulator_tpu_torch.ops import inflate as inf
 from debigulator_tpu_torch.ops import plan as pl
@@ -46,7 +48,7 @@ def build_merged_plan(streams: list[bytes],
         def scan(s):
             return scan_stream_cells(s, pl.CELL_BITS)
 
-        if len(streams) > 1:
+        if len(streams) > 1 and not native.disabled():
             get_lib()  # load once before the pool
             workers = min(len(streams), max(2, os.cpu_count() or 2))
             with cf.ThreadPoolExecutor(max_workers=workers) as pool:
@@ -172,12 +174,48 @@ def build_merged_plan(streams: list[bytes],
 
 def prepare_merged(mp: MergedPlan, device="cuda"):
     """Stage a merged plan's arrays on the device once; return a zero-
-    argument runner that executes the decode (device byte buffer out)."""
-    st = inf.stage_plan(mp.plan, resolve_device(device),
-                        stream_starts=mp.out_offsets)
+    argument runner that executes the decode (device byte buffer out).
+
+    Three branches, as in the reference: exact entries -> the flagship, or
+    the v13 driver under ``DBG_PHASE_B=v13``; speculative entries (streams
+    indexed by the Python scan) -> the v5 driver, whose Phase A is tensor
+    ops with the entry fixpoint.
+
+    Tape overflow is a property of the plan (slot bound against the
+    densest cell), not of a call.  With the scanner's exact slots it cannot
+    happen and nothing is probed; otherwise it is resolved once here, so
+    the runner never reads the overflow flag back."""
+    plan = mp.plan
+    dev = resolve_device(device)
+    n_seg = inf.n_segments(plan.out_size)
+    if plan.exact_entries:
+        st = inf.stage_plan(plan, dev, stream_starts=mp.out_offsets)
+        if inf.phase_b_generation() != "v13":
+            def call(slots: int):
+                return inf.flagship_body(st), False
+        else:
+            stored = {"stored_pos": st.stored_pos, "stored_val": st.stored_val}
+
+            def call(slots: int):
+                return inf.inflate_v13(st.pa, stored, slots, n_seg)
+    else:
+        arrays = pl.plan_arrays_v3(plan, dev)
+
+        def call(slots: int):
+            return inf.inflate_v5(arrays, plan.n_bits, slots, n_seg,
+                                  exact=False)
+
+    slots = plan.slots
+    if not plan.slots_exact:
+        _, overflow = call(slots)
+        if bool(overflow):
+            slots = pl.CELL_BITS
+            _, overflow = call(slots)
+            if bool(overflow):
+                raise RuntimeError("tape overflow at the exact slot bound")
 
     def run() -> torch.Tensor:
-        return inf.flagship_body(st)
+        return call(slots)[0]
 
     return run
 
@@ -191,6 +229,8 @@ def decode_merged(streams: list[bytes], device="cuda") -> list[bytes]:
     """Decode N raw DEFLATE streams in one device pass; outputs in order."""
     dev = resolve_device(device)
     mp = build_merged_plan(streams)
+    if not mp.plan.exact_entries:
+        raise RuntimeError("merged decode requires the native scanner")
     body = run_merged_plan(mp, device=dev)
     body = body[: mp.plan.out_size].to(torch.uint8).cpu().numpy()
     return [body[off : off + size].tobytes()

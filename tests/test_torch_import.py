@@ -18,8 +18,11 @@ MODULES = [
     "debigulator_tpu_torch.ops.checksum",
     "debigulator_tpu_torch.ops.deflate_encode",
     "debigulator_tpu_torch.ops.deflate_encode_device",
+    "debigulator_tpu_torch.ops.graph",
+    "debigulator_tpu_torch.ops.huffman",
     "debigulator_tpu_torch.ops.inflate",
     "debigulator_tpu_torch.ops.inflate_ref",
+    "debigulator_tpu_torch.ops.lz77",
     "debigulator_tpu_torch.ops.phase_a",
     "debigulator_tpu_torch.ops.phase_b",
     "debigulator_tpu_torch.ops.plan",
@@ -47,7 +50,9 @@ from debigulator_tpu_torch.models.pipeline import decode_png_device
 from debigulator_tpu_torch.models.png_codec import encode_png
 data = b"standalone " * 500
 c = zlib.compressobj(6, zlib.DEFLATED, -15)
-assert inflate_device(c.compress(data) + c.flush(), device="cpu") == data
+raw = c.compress(data) + c.flush()
+assert inflate_device(raw, device="cpu") == data
+assert inflate_device(raw, device="cpu", use_kernels=False) == data
 img = np.arange(9 * 7 * 4, dtype=np.uint8).reshape(9, 7, 4) // 8
 assert (decode_png_device(encode_png(img, device="cpu"), device="cpu") == img).all()
 bad = sorted(k for k in sys.modules
@@ -137,6 +142,39 @@ def test_new_kernel_wrappers_refuse_cpu_pointers():
         lib for lib, _ in _kernels._ENTRIES.values()}
     for src in _kernels.SOURCES.values():
         assert (_kernels.CSRC / src).is_file()
+    for lib, headers in _kernels.HEADERS.items():
+        text = (_kernels.CSRC / _kernels.SOURCES[lib]).read_text()
+        for h in headers:
+            assert (_kernels.CSRC / h).is_file() and f'#include "{h}"' in text
+
+
+@pytest.mark.parametrize("wrapper", ["phase_a_tape", "resolve_matches_v4",
+                                     "resolve_tape_v6", "resolve_ops_v13"])
+def test_fallback_kernel_wrappers_count_launches_only_on_the_card(wrapper):
+    """On CPU tensors a wrapper runs its plain version and its launch
+    count stays where it was."""
+    from debigulator_tpu_torch.ops import lz77, phase_a, plan
+
+    fn = getattr(phase_a if wrapper == "phase_a_tape" else lz77, wrapper)
+    before = fn.launches
+    z = torch.zeros((300, 128), dtype=torch.int32)
+    lst = torch.zeros((8, 128), dtype=torch.int32)
+    if wrapper == "phase_a_tape":
+        c = zlib.compressobj(6, zlib.DEFLATED, -15)
+        raw = c.compress(b"count " * 300) + c.flush()
+        from debigulator_tpu_torch.ops.scanner import scan_stream_cells
+        blocks, lengths, cells = scan_stream_cells(raw, plan.CELL_BITS)
+        p = plan.build_plan_v3(raw, blocks, lengths, cells=cells)
+        inp = phase_a.stage_phase_a_inputs(phase_a.build_phase_a_inputs(p),
+                                           torch.device("cpu"))
+        fn(inp, p.slots)
+    elif wrapper == "resolve_matches_v4":
+        fn(z, lst, lst)
+    elif wrapper == "resolve_tape_v6":
+        fn(z, lst, lst[:1], lst[:1], 0, 64, 0, 8)
+    else:
+        fn(z, lst, lst, lst, lst, lst, lst[:1], lst[:1], 0, 64, 0, 8)
+    assert fn.launches == before
 
 
 def _c_params(entry: str) -> list[str]:
@@ -153,7 +191,10 @@ def _c_params(entry: str) -> list[str]:
 
 
 @pytest.mark.parametrize("entry", ["dbg_phase_a", "dbg_compact", "dbg_walk",
-                                   "dbg_unfilter", "dbg_greedy_walk"])
+                                   "dbg_unfilter", "dbg_greedy_walk",
+                                   "dbg_phase_a_tape", "dbg_lz77_match",
+                                   "dbg_lz77_tape_place", "dbg_lz77_tape_walk",
+                                   "dbg_lz77_ops_place", "dbg_lz77_ops_walk"])
 def test_ctypes_declarations_match_c_entries(entry):
     """ctypes cannot check a call against the C prototype: a missing or
     mistyped argument shifts every later one (and the stream).  Hold the

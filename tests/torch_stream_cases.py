@@ -1,0 +1,124 @@
+"""Raw DEFLATE streams shared by the port's tests (tests/test_torch_*.py),
+made with zlib from numpy seeds, and the helpers that carry a JAX-package
+plan over to the port as numpy."""
+
+import dataclasses
+import zlib
+
+import numpy as np
+import torch
+
+from debigulator_tpu_torch.ops import plan as tp
+
+
+def deflate(data, level=6, strategy=zlib.Z_DEFAULT_STRATEGY):
+    c = zlib.compressobj(level, zlib.DEFLATED, -15, 9, strategy)
+    return c.compress(data) + c.flush()
+
+
+def words(n, seed=4, vocab=(b"merge ", b"batch ", b"op ", b"tape ", b"\n")):
+    rng = np.random.default_rng(seed)
+    return b"".join(vocab[int(v) % len(vocab)]
+                    for v in rng.integers(0, len(vocab), n))
+
+
+def _dynamic():
+    return deflate(words(3000, seed=7))
+
+
+def _fixed():
+    # Low-entropy bytes keep zlib on fixed Huffman instead of stored blocks.
+    rng = np.random.default_rng(2)
+    return deflate(rng.integers(0, 16, 12_000, dtype=np.uint8).tobytes(),
+                   strategy=zlib.Z_FIXED)
+
+
+def _stored():
+    rng = np.random.default_rng(1)
+    return deflate(rng.integers(0, 256, 9000, dtype=np.uint8).tobytes(), 0)
+
+
+def _mixed():
+    """Dynamic, stored and dynamic blocks; the last block's matches reach
+    back into the stored bytes."""
+    rng = np.random.default_rng(13)
+    mid = rng.integers(0, 256, 5000, dtype=np.uint8).tobytes()
+    c = zlib.compressobj(6, zlib.DEFLATED, -15)
+    st = c.compress(b"prefix text " * 400) + c.flush(zlib.Z_SYNC_FLUSH)
+    st += c.compress(mid) + c.flush(zlib.Z_SYNC_FLUSH)
+    return st + c.compress(mid[1000:3000] + b"suffix text " * 400) + c.flush()
+
+
+def _rle():
+    """dist 1 runs, a period-3 pattern and matches of the full length 258."""
+    return deflate(b"a" * 5000 + b"bcd" * 700 + b"\x00" * 9000)
+
+
+def fixed_block(tokens) -> bytes:
+    """One final fixed-Huffman block from (lit, len, dist) tokens (lit -1
+    marks a match), packed with the port's host encoder helpers: streams
+    zlib itself never writes, such as a match at distance 32768."""
+    from debigulator_tpu_torch.ops import deflate_encode as enc
+
+    vals, bits = enc._tokens_to_fields(
+        tokens, enc._FIXED_LITLEN_CODES, enc._FIXED_LITLEN_LENGTHS,
+        enc._FIXED_DIST_CODES, enc._FIXED_DIST_LENGTHS)
+    eob_bits = int(enc._FIXED_LITLEN_LENGTHS[256])
+    eob_val = int(enc._reverse_bits(
+        np.array([enc._FIXED_LITLEN_CODES[256]]), np.array([eob_bits]))[0])
+    vals = np.concatenate([vals, [np.uint64(eob_val)]])
+    bits = np.concatenate([bits, [eob_bits]])
+    return enc.pack_bits(vals, bits, prefix_bits=3, prefix_val=0b011)[0]
+
+
+def _far():
+    """Matches at distance 32768, the window's edge (zlib stops 262 short
+    of it), of length 258 and 3, then a dist 1 run of 258."""
+    rng = np.random.default_rng(3)
+    toks = [(int(v), 0, 0) for v in rng.integers(0, 256, 32768)]
+    toks += [(-1, 258, 32768), (-1, 3, 32768), (65, 0, 0), (-1, 258, 1),
+             (-1, 100, 32768 - 7), (66, 0, 0)]
+    return fixed_block(toks)
+
+
+def _flushed():
+    """Many blocks: a full flush every 700 bytes of text."""
+    c = zlib.compressobj(6, zlib.DEFLATED, -15)
+    data = words(6000, seed=11)
+    out = b""
+    for i in range(0, len(data), 700):
+        out += c.compress(data[i : i + 700]) + c.flush(zlib.Z_FULL_FLUSH)
+    return out + c.flush()
+
+
+def _dense():
+    """Four symbols, Huffman only: 2-bit codes, 32 tokens in a 64-bit cell,
+    so 16 tape slots overflow."""
+    rng = np.random.default_rng(5)
+    return deflate(rng.integers(0, 4, 6000, dtype=np.uint8).tobytes(),
+                   strategy=zlib.Z_HUFFMAN_ONLY)
+
+
+STREAMS = {"dynamic": _dynamic, "fixed": _fixed, "stored": _stored,
+           "mixed": _mixed, "rle": _rle, "far": _far, "flushed": _flushed,
+           "dense": _dense}
+
+
+def to_port_plan(ref_plan) -> tp.PlanV3:
+    """A JAX-package PlanV3 as the port's PlanV3."""
+    return tp.plan_from_numpy(dataclasses.asdict(ref_plan))
+
+
+def to_port_arrays(ref_arrays: dict) -> dict:
+    """The twin of the reference's plan_arrays_v3 dict: every jax array as
+    a CPU tensor (``tile_page`` has no counterpart and is dropped;
+    ``first_state`` becomes an int)."""
+    out = {}
+    for k, v in ref_arrays.items():
+        if k == "tile_page":
+            continue
+        if k == "first_state":
+            out[k] = int(v)
+        else:
+            out[k] = torch.from_numpy(np.array(v))
+    return out
