@@ -619,11 +619,12 @@ def fallback_phases(dev, base, streams):
                "lz77_match": lz.resolve_matches_v4,
                "lz77_tape": lz.resolve_tape_v6, "lz77_ops": lz.resolve_ops_v13}
 
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+
     def counts():
         return {k: fn.launches for k, fn in counted.items()}
-
-    def delta(before):
-        return {k: v - before[k] for k, v in counts().items()}
 
     datas = [zlib.decompress(s, -15) for s in streams]
 
@@ -688,7 +689,10 @@ def fallback_phases(dev, base, streams):
             rec["ms"] = time_ms(lambda: lz.resolve_tape_v6(*args7), reps)
             rec["plain_ms"] = time_ms(
                 lambda: lz.resolve_tape_v6_plain(*args7), 1)
-            rec["bytes"] = 4 * (2 * got7.numel() + args7[1].numel()
+            # The buffer read and written once, the valid tokens, and
+            # each cell's count and base.
+            rec["tokens"] = int(args7[2].clamp(max=slots).sum())
+            rec["bytes"] = 4 * (2 * got7.numel() + rec["tokens"]
                                 + 2 * args7[2].numel())
             timed["lz77_tape"] = rec
         vs["lz77_tape"].append(rec)
@@ -708,8 +712,14 @@ def fallback_phases(dev, base, streams):
             rec["ms"] = time_ms(lambda: lz.resolve_ops_v13(*args9), reps)
             rec["plain_ms"] = time_ms(
                 lambda: lz.resolve_ops_v13_plain(*args9), 1)
-            rec["bytes"] = 4 * (2 * got9.numel()
-                                + sum(a.numel() for a in args9[1:8]))
+            # As row 7, with the valid records of the five tapes: two
+            # words a match, two a run, one a literal.
+            cnt9 = args9[6].long()
+            rec["records"] = [int(((cnt9 >> sh) & 0xFF).sum())
+                              for sh in (16, 8, 0)]
+            n_m, n_r, n_l = rec["records"]
+            rec["bytes"] = 4 * (2 * got9.numel() + 2 * n_m + 2 * n_r + n_l
+                                + 2 * cnt9.numel())
             timed["lz77_ops"] = rec
         vs["lz77_ops"].append(rec)
 
@@ -799,8 +809,8 @@ def fallback_phases(dev, base, streams):
         emit({"phase": f"{name}_vs_plain", "max_abs_err": 0, "shapes": shp})
 
     # --- fallback_paths: four drivers over the 29 streams ------------------
-    for fn in counted.values():
-        fn.launches = 0
+    # Each path is driven once with the counts set to 0 just before it and
+    # read just after; timing repeats and stage replays come after the read.
     paths = {}
     mp, st, n_seg = shapes["path"]
 
@@ -808,7 +818,7 @@ def fallback_phases(dev, base, streams):
     t0 = time.perf_counter()
     scanned = [(*_scan_stream_py(s), None) for s in streams]
     scan_s = time.perf_counter() - t0
-    before = counts()
+    reset()
     t0 = time.perf_counter()
     mp_spec = build_merged_plan(streams, scanned=scanned)
     plan_ms = (time.perf_counter() - t0) * 1e3
@@ -823,12 +833,12 @@ def fallback_phases(dev, base, streams):
     body = run()
     torch.cuda.synchronize()
     run_ms = (time.perf_counter() - t0) * 1e3
+    d5 = counts()
     peak = torch.cuda.max_memory_allocated()
     check_streams(body, mp_spec, "speculative v5")
-    d5 = delta(before)
     require_launches("fallback_paths, speculative v5", d5, ("lz77_tape",))
     del body, run
-    # The same decode by its stages.
+    # The same decode by its stages, outside the path's counted run.
     arrays = tp.plan_arrays_v3(mp_spec.plan, dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -862,7 +872,7 @@ def fallback_phases(dev, base, streams):
     torch.cuda.empty_cache()
 
     # speculative, one stream under OUT_CAP, through the entry point -> v4.
-    before = counts()
+    reset()
     os.environ["DBG_NO_NATIVE"] = "1"
     try:
         t0 = time.perf_counter()
@@ -870,54 +880,55 @@ def fallback_phases(dev, base, streams):
         v4_ms = (time.perf_counter() - t0) * 1e3
     finally:
         del os.environ["DBG_NO_NATIVE"]
+    d4 = counts()
     if got != datas[0] or len(got) + 512 > lz.OUT_CAP:
         raise AssertionError("speculative v4: decode is not bit-exact")
-    d4 = delta(before)
     require_launches("fallback_paths, speculative v4", d4, ("lz77_match",))
     paths["speculative_v4"] = {"out_bytes": len(got), "ms_with_scan": v4_ms,
                                "launches": d4}
 
     # v13: the exact merged plan under DBG_PHASE_B=v13.
-    before = counts()
+    reset()
     os.environ["DBG_PHASE_B"] = "v13"
     try:
         run = prepare_merged(mp, device=dev)
         body = run()
         torch.cuda.synchronize()
+        d13 = counts()
         v13_ms = host_ms(lambda: (run(), torch.cuda.synchronize()), 3)
     finally:
         del os.environ["DBG_PHASE_B"]
     check_streams(body, mp, "v13")
-    d13 = delta(before)
     require_launches("fallback_paths, v13", d13, ("phase_a", "lz77_ops"))
     paths["v13"] = {"device_ms": v13_ms, "launches": d13}
     del body, run
 
     # v7: the token-tape Phase A and the tape resolver.
-    before = counts()
+    reset()
     body, overflow = inf.inflate_v7(st.pa, stored_of(st), st.slots, n_seg,
                                     mp.plan.num_cells)
     torch.cuda.synchronize()
+    d7 = counts()
     if bool(overflow):
         raise AssertionError("v7 overflowed the scanner's exact slots")
     check_streams(body, mp, "v7")
     v7_ms = host_ms(lambda: (inf.inflate_v7(st.pa, stored_of(st), st.slots,
                                             n_seg, mp.plan.num_cells),
                              torch.cuda.synchronize()), 3)
-    d7 = delta(before)
     require_launches("fallback_paths, v7", d7, ("phase_a_tape", "lz77_tape"))
     paths["v7"] = {"device_ms": v7_ms, "launches": d7}
     del body
 
     # v3: one stream, all tensor ops, no kernel of the port.
-    before = counts()
+    reset()
     t0 = time.perf_counter()
     got = inf.inflate_device(streams[1], device=dev, use_kernels=False)
     v3_ms = (time.perf_counter() - t0) * 1e3
-    if got != datas[1] or any(delta(before).values()):
+    if got != datas[1] or any(counts().values()):
         raise AssertionError("v3: not bit-exact, or it launched a kernel")
     paths["v3"] = {"out_bytes": len(got), "ms_with_scan": v3_ms}
-    launches = counts()
+    # Each kernel's launches: the sum over the paths' own counted runs.
+    launches = {k: d5[k] + d4[k] + d13[k] + d7[k] for k in counted}
     emit({"phase": "fallback_paths", "streams": len(streams),
           "out_bytes": sum(map(len, datas)), "bit_exact": True, **paths,
           "launches": launches})

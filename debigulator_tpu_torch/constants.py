@@ -108,5 +108,13 @@ PNG_FILTER_UP = 2
 PNG_FILTER_AVERAGE = 3
 PNG_FILTER_PAETH = 4
 
+# The decode graph's per-state word and the token tape it is chased into,
+# shared by ops/graph.py, ops/phase_a.py and ops/lz77.py.
+#: meta = kind << META_KIND_SHIFT | payload.
+META_KIND_SHIFT = 25
+K_NONE, K_LIT, K_DIST = 0, 1, 2
+#: A match token: TOK_MATCH_BIT | len << 16 | dist (a literal is its byte).
+TOK_MATCH_BIT = 1 << 30
+
 #: CRC-32 polynomial (reflected), shared by gzip and PNG.
 CRC32_POLY = 0xEDB88320

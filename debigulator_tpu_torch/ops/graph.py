@@ -30,14 +30,18 @@ from __future__ import annotations
 import torch
 
 from debigulator_tpu_torch import constants as C
+from debigulator_tpu_torch.constants import (
+    K_DIST,
+    K_LIT,
+    K_NONE,
+    META_KIND_SHIFT,
+    TOK_MATCH_BIT,
+)
 from debigulator_tpu_torch.ops.plan import CELL_BITS
 
 CELL_STATES = 2 * CELL_BITS
 _CELL_SHIFT = CELL_STATES.bit_length() - 1  # state >> _CELL_SHIFT = its cell
-META_KIND_SHIFT = 25
-K_NONE, K_LIT, K_DIST = 0, 1, 2
 _LIT, _DIST = 0, 1
-TOK_MATCH_BIT = 1 << 30
 
 
 def _rev15(x: torch.Tensor) -> torch.Tensor:

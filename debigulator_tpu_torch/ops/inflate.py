@@ -39,13 +39,13 @@ import numpy as np
 import torch
 
 from debigulator_tpu_torch import constants as C
+from debigulator_tpu_torch.constants import TOK_MATCH_BIT
 from debigulator_tpu_torch.device import resolve as resolve_device
 from debigulator_tpu_torch.native.scanner import inflate_native
 from debigulator_tpu_torch.ops import lz77 as lz
 from debigulator_tpu_torch.ops import phase_b
 from debigulator_tpu_torch.ops import plan as _plan
 from debigulator_tpu_torch.ops.graph import (
-    TOK_MATCH_BIT,
     build_graph,
     chase_cells,
 )

@@ -41,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from debigulator_tpu_torch import constants as C
+from debigulator_tpu_torch.constants import TOK_MATCH_BIT
 from debigulator_tpu_torch.ops import _kernels
 from debigulator_tpu_torch.ops.phase_b import _expand
 
@@ -53,7 +54,6 @@ MAXLEN = C.MAX_MATCH_LENGTH
 #: drivers keep it as the threshold between v4 and v5 so that each driver
 #: sees the inputs it sees in the JAX package.
 OUT_CAP = 1536 * 1024
-TOK_MATCH_BIT = 1 << 30
 BODY_START = PAD + WINDOW
 #: Slack rows after the body of a segment buffer.
 SLACK_ROWS = 4

@@ -39,6 +39,13 @@ import numpy as np
 import torch
 
 from debigulator_tpu_torch import constants as C
+from debigulator_tpu_torch.constants import (
+    K_DIST,
+    K_LIT,
+    K_NONE,
+    META_KIND_SHIFT,
+    TOK_MATCH_BIT,
+)
 from debigulator_tpu_torch.ops import _kernels
 from debigulator_tpu_torch.ops.plan import CELL_BITS, TC, PlanV3
 
@@ -47,10 +54,6 @@ INACTIVE = 127
 #: Per-block table row: ll count/first/base (48), d count/first/base (48),
 #: litlen aug (288), dist aug (32).
 TAB_LL, TAB_D, TAB_W = 96, 384, 416
-META_KIND_SHIFT = 25
-K_NONE, K_LIT, K_DIST = 0, 1, 2
-#: A match token: TOK_MATCH_BIT | len << 16 | dist (a literal is its byte).
-TOK_MATCH_BIT = 1 << 30
 
 
 @dataclasses.dataclass

@@ -3,7 +3,6 @@ package's build_graph_v3 and chase_cells on the same plan arrays, in exact
 and in speculative mode.  Integers: every comparison is bit-exact."""
 
 import functools
-import zlib
 
 import jax
 import numpy as np
@@ -14,7 +13,7 @@ from debigulator_tpu.ops import inflate_v3 as v3
 from debigulator_tpu.ops.scanner import scan_stream_cells
 from debigulator_tpu_torch.ops import graph as tg
 from debigulator_tpu_torch.ops import plan as tp
-from torch_stream_cases import STREAMS, deflate, to_port_arrays, to_port_plan, words
+from torch_stream_cases import STREAMS, to_port_arrays, to_port_plan
 
 CASES = sorted(set(STREAMS) - {"stored"})
 #: Speculative chases: the streams whose entries converge in a few sweeps.
@@ -132,5 +131,22 @@ def test_terminal_and_out_of_stream_states_are_inactive():
     leave every cell's window, and the chase must not index with them."""
     plan, ref_arrays, nxt, meta = _case("dynamic", True)
     assert (nxt == v3.TERMINAL).any() and (nxt >= 2 * plan.n_bits).any()
-    data = words(3000, seed=7)
-    assert zlib.decompress(deflate(data), -15) == data
+    arrays = to_port_arrays(ref_arrays)
+    want = _ref_chase(nxt, meta, ref_arrays["cell_entry"],
+                      ref_arrays["cell_pend"], plan.n_bits, plan.slots, True)
+    tape, overflow, counts, _ = tg.chase_cells(
+        torch.from_numpy(nxt), torch.from_numpy(meta), arrays["cell_entry"],
+        plan.n_bits, plan.slots, exact=True, cell_pend=arrays["cell_pend"])
+    assert np.array_equal(tape.numpy(), np.asarray(want[0]))
+    assert np.array_equal(counts.numpy(), np.asarray(want[2]))
+    # Every state leaving at once, half to TERMINAL and half past the
+    # stream: each cell emits its entry state's token at most and stops.
+    gone = np.where(np.arange(nxt.size) % 2 == 0, v3.TERMINAL,
+                    2 * plan.n_bits + 5).astype(nxt.dtype)
+    for exact in (True, False):
+        tape, overflow, counts, _ = tg.chase_cells(
+            torch.from_numpy(gone), torch.from_numpy(meta),
+            arrays["cell_entry"], plan.n_bits, plan.slots, exact=exact,
+            cell_pend=arrays["cell_pend"])
+        assert not bool(overflow) and int(counts.max()) <= 1
+        assert int((tape >= 0).sum()) == int(counts.sum())
