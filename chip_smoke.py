@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the host library and the nine CUDA kernels from this checkout and
-holds every kernel bit-exact against its plain PyTorch version on the card.
+Builds the host library and the thirteen CUDA kernels from this checkout
+and holds every kernel bit-exact against its plain PyTorch version on the
+card.
 Each phase prints one JSON line:
 
 * card, build;
@@ -38,6 +39,15 @@ Each phase prints one JSON line:
   v13 driver (DBG_PHASE_B=v13), the v7 driver and one stream through the
   all-tensor-op v3, every stream checked against zlib; sweeps of the entry
   fixpoint, graph / chase / resolve ms, peak memory;
+* groups_v11_vs_plain, compact_v14_vs_plain, walk_v14_vs_plain,
+  tape_v1_vs_plain: the archived generations' kernels at two streams, on
+  one 512 KiB segment of the host-fed packing and an 8 KiB segment of the
+  v14 walk (window tail, head and tail clip), and at the 29 streams (the
+  v1 resolver on one stream);
+* archive_paths: the 29 streams through the host-fed v10 decode (record
+  scan, group packer and piece words by tools/profile_merged's
+  host_fed_inputs, then inflate_v10) and the v14 driver, one stream through tape_v3 and the v1
+  resolver, every stream checked against zlib; host ms and device ms;
 * kernels: per kernel its launches on its path, times and bound.
 
 The line before the last is the card's name and power limit as nvidia-smi
@@ -960,6 +970,292 @@ def fallback_phases(dev, base, streams):
     return kernels
 
 
+def archive_phases(dev, streams):
+    """The fourth slice: the host-fed group resolver, the v14 compaction
+    and walk and the v1 tape resolver against their plain versions, then
+    the host-fed v10, v14 and v1 paths over the main path's streams.
+    Returns the four kernels' entries for the `kernels` line."""
+    from debigulator_tpu_torch.ops import inflate as inf
+    from debigulator_tpu_torch.ops import phase_a as pa
+    from debigulator_tpu_torch.ops import plan as tp
+    from debigulator_tpu_torch.ops.archive import inflate_generations as ig
+    from debigulator_tpu_torch.ops.archive import lz77_generations as lg
+    from debigulator_tpu_torch.parallel.merged import build_merged_plan
+    from debigulator_tpu_torch.tools import profile_merged as pm
+
+    counted = {"groups_v11": lg.resolve_groups_v11,
+               "compact_v14": lg.compact_v14,
+               "walk_v14": lg.resolve_walk_v14,
+               "tape_v1": lg.resolve_tape_v1, "phase_a": pa.phase_a}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    datas = [zlib.decompress(s, -15) for s in streams]
+
+    def same(name, got, want):
+        err = max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        return err
+
+    def body_of(out2d, n):
+        return out2d.view(-1)[lg.BODY_START : lg.BODY_START + n]
+
+    def segment_buffer(flat, off, seg):
+        """Pad row, the window before `off`, `seg` zero body bytes, slack."""
+        init = torch.zeros(lg.BODY_START + seg + lg.SLACK_ROWS * 128,
+                           dtype=torch.int32)
+        tail = flat[max(0, off - lg.WINDOW) : off].astype(np.int32)
+        init[lg.BODY_START - len(tail) : lg.BODY_START] = torch.from_numpy(tail)
+        return init.view(-1, 128).to(dev)
+
+    def spy(module, name, store):
+        """Keep the arguments of the module's calls of `name`."""
+        real = getattr(module, name)
+
+        def wrapper(*a, **k):
+            store[name] = (a, k)
+            return real(*a, **k)
+
+        wrapper.launches = 0
+        setattr(module, name, wrapper)
+        return real
+
+    # --- the four kernels vs their plain versions ----------------------
+    vs = {n: [] for n in ("groups_v11", "compact_v14", "walk_v14", "tape_v1")}
+    timed = {}
+    for label, k in (("small", 2), ("path", len(streams))):
+        reps = 3 if label == "path" else 1
+        # Row 10a on the host-fed inputs of the batch.
+        mp, v9, stored, n_seg, _ = pm.host_fed_inputs(streams[:k], dev)
+        total = n_seg * tp.SEG_BYTES
+        body0 = torch.zeros(total, dtype=torch.int32, device=dev)
+        ig._place_stored(body0, *stored)
+        args = (ig._buffer(body0), v9["lims"], v9["gpos"], v9["gmeta"],
+                v9["lpos"], v9["lmeta"], v9["lit"])
+        got = lg.resolve_groups_v11(*args)
+        torch.cuda.synchronize()
+        rec = {"shape": label, "streams": k, "n_seg": n_seg,
+               "max_abs_err": same("groups_v11", (got,),
+                                   (lg.resolve_groups_v11_plain(*args),))}
+        pm.check(body_of(got, total), mp, datas[:k])
+        if label == "path":
+            rec["ms"] = time_ms(lambda: lg.resolve_groups_v11(*args), reps)
+            rec["plain_ms"] = time_ms(
+                lambda: lg.resolve_groups_v11_plain(*args), 1)
+            n_pieces = int((((v9["gpos"].view(-1) & 255)
+                             - ((v9["gpos"].view(-1) >> 8) & 127)) > 0).sum())
+            n_lp = int((v9["lims"][:, 4] - v9["lims"][:, 3]).sum())
+            # The buffer read and written once, two words a live piece,
+            # the literal bytes, the limits.
+            rec["pieces"], rec["literal_pieces"] = n_pieces, n_lp
+            rec["bytes"] = 4 * (2 * args[0].numel() + 2 * (n_pieces + n_lp)
+                                + len(mp.recs["lit"]) + v9["lims"].numel())
+            timed["groups_v11"] = rec
+        vs["groups_v11"].append(rec)
+        if label == "small":
+            # One 512 KiB segment of the packing alone (its window the
+            # bytes before it), the reference's kernel-call shape.
+            flat = np.frombuffer(b"".join(datas[:k]), np.uint8)
+            one = (segment_buffer(flat, tp.SEG_BYTES, tp.SEG_BYTES),
+                   v9["lims"][1].contiguous(), *args[2:])
+            got1 = lg.resolve_groups_v11(*one)
+            torch.cuda.synchronize()
+            err = same("groups_v11 segment", (got1,),
+                       (lg.resolve_groups_v11_plain(*one),))
+            n1 = min(tp.SEG_BYTES, len(flat) - tp.SEG_BYTES)
+            if not np.array_equal(body_of(got1, n1).cpu().numpy(),
+                                  flat[tp.SEG_BYTES : tp.SEG_BYTES + n1]):
+                raise AssertionError("groups_v11: segment is not bit-exact")
+            vs["groups_v11"].append({"shape": "segment 1", "max_abs_err": err})
+        del got, args, v9, body0
+
+        # Rows 10b and 10c on the v14 glue's own inputs.
+        mpf = build_merged_plan(streams[:k])
+        st = inf.stage_plan(mpf.plan, dev, mpf.out_offsets)
+        arrays = tp.plan_arrays_v7(mpf.plan, dev)
+        seen = {}
+        real_c = spy(lg, "compact_v14", seen)
+        real_w = spy(lg, "resolve_walk_v14", seen)
+        real_l = spy(ig, "segment_lims", seen)
+        try:
+            ig.inflate_v14(st.pa, arrays, mpf.plan.slots, st.n_seg)
+        finally:
+            lg.compact_v14, lg.resolve_walk_v14 = real_c, real_w
+            ig.segment_lims = real_l
+        c_args = seen["compact_v14"][0]
+        got_c = lg.compact_v14(*c_args)
+        torch.cuda.synchronize()
+        rec = {"shape": label, "cells": int(c_args[5].numel()),
+               "max_abs_err": same("compact_v14", got_c,
+                                   lg.compact_v14_plain(*c_args))}
+        w_args = seen["resolve_walk_v14"][0]
+        got_w = lg.resolve_walk_v14(*w_args)
+        torch.cuda.synchronize()
+        rec_w = {"shape": label, "max_abs_err": same(
+            "walk_v14", (got_w,), (lg.resolve_walk_v14_plain(*w_args),))}
+        pm.check(body_of(got_w, mpf.plan.out_size), mpf, datas[:k])
+        if label == "path":
+            slots = c_args[-1]
+            cnt = c_args[5].view(-1).long()
+            n_m, n_r, n_l = (int(((cnt >> sh) & 0xFF).sum()) for sh in (16, 8, 0))
+            valid_m = (torch.arange(slots, device=dev)[None, :]
+                       < (cnt >> 16)[:, None]).view(-1)
+            rec["ms"] = time_ms(lambda: lg.compact_v14(*c_args), 10)
+            rec["plain_ms"] = time_ms(lambda: lg.compact_v14_plain(*c_args), 3)
+            rec["library_ms"] = time_ms(lambda: torch.masked_select(
+                c_args[0].view(-1), valid_m), 10)
+            rec["records"] = [n_m, n_r, n_l]
+            # The valid records read once with each cell's count and three
+            # offsets; the five zero-filled outputs written once.
+            rec["bytes"] = 4 * (2 * n_m + 2 * n_r + n_l + 4 * cnt.numel()
+                                + sum(t.numel() for t in got_c))
+            timed["compact_v14"] = rec
+            rec_w["ms"] = time_ms(lambda: lg.resolve_walk_v14(*w_args), reps)
+            rec_w["plain_ms"] = time_ms(
+                lambda: lg.resolve_walk_v14_plain(*w_args), 1)
+            rec_w["matches"], rec_w["runs"] = n_m, n_r
+            # The buffer read and written once, two words a match and a
+            # run, the literal bytes.
+            rec_w["bytes"] = 4 * (2 * w_args[0].numel() + 2 * n_m + 2 * n_r
+                                  + n_l)
+            timed["walk_v14"] = rec_w
+        vs["compact_v14"].append(rec)
+        vs["walk_v14"].append(rec_w)
+        if label == "small":
+            # An 8 KiB segment from the middle of the body: window tail,
+            # matches clipped at its head and end.
+            seg = 8192
+            off = 300_000 // seg * seg
+            flat = np.frombuffer(b"".join(datas[:k]), np.uint8)
+            lims = real_l(*seen["segment_lims"][0][:6],
+                          -(-len(flat) // seg), seg_bytes=seg)[off // seg]
+            call = (segment_buffer(flat, off, seg), lims.contiguous(),
+                    *w_args[2:])
+            got_s = lg.resolve_walk_v14(*call)
+            torch.cuda.synchronize()
+            err = same("walk_v14 segment", (got_s,),
+                       (lg.resolve_walk_v14_plain(*call),))
+            if not np.array_equal(body_of(got_s, seg).cpu().numpy(),
+                                  flat[off : off + seg]):
+                raise AssertionError("walk_v14: segment is not bit-exact")
+            vs["walk_v14"].append({"shape": "segment", "seg_off": off,
+                                   "seg_bytes": seg, "max_abs_err": err})
+        del got_c, got_w, c_args, w_args, seen, st, arrays
+
+    # Row 10d: one stream's token tape from the tensor-op Phase A.
+    one = build_merged_plan(streams[:1])
+    arrays1 = tp.plan_arrays_v3(one.plan, dev)
+    tape, overflow, cnt1, _ = inf.tape_v3(arrays1, one.plan.n_bits,
+                                          one.plan.slots, exact=True)
+    if bool(overflow):
+        raise AssertionError("tape_v3 overflowed the exact slots")
+    out_size = one.plan.out_size
+    got1 = lg.resolve_tape_v1(tape, cnt1, out_size)
+    torch.cuda.synchronize()
+    rec = {"shape": "path", "cells": int(tape.shape[0]),
+           "slots": int(tape.shape[1]), "max_abs_err": same(
+               "tape_v1", (got1,),
+               (lg.resolve_tape_v1_plain(tape, cnt1, out_size),))}
+    if got1.cpu().numpy().tobytes() != datas[0]:
+        raise AssertionError("tape_v1: decode is not bit-exact")
+    rec["ms"] = time_ms(lambda: lg.resolve_tape_v1(tape, cnt1, out_size), 3)
+    rec["plain_ms"] = time_ms(
+        lambda: lg.resolve_tape_v1_plain(tape, cnt1, out_size), 1)
+    rec["tokens"] = int(cnt1.clamp(max=tape.shape[1]).sum())
+    # The valid tokens and each cell's count read once, the bytes out.
+    rec["bytes"] = 4 * (rec["tokens"] + cnt1.numel()) + out_size
+    timed["tape_v1"] = rec
+    vs["tape_v1"].append(rec)
+    for name, shp in vs.items():
+        emit({"phase": f"{name}_vs_plain", "max_abs_err": 0, "shapes": shp})
+
+    # --- archive_paths: host-fed v10, v14 and v1 over the streams -----------
+    # Each path is driven once with the counts set to 0 just before it and
+    # read just after; timing repeats come after the read.
+    paths = {}
+    reset()
+    mp, v9, stored, n_seg, host = pm.host_fed_inputs(streams, dev)
+    body = ig.inflate_v10(v9, *stored, n_seg)
+    torch.cuda.synchronize()
+    d10 = counts()
+    pm.check(body, mp, datas)
+    require_launches("archive_paths, host-fed v10", d10, ("groups_v11",))
+    # The host steps again, the median of 3 calls each.
+    again = [pm.host_fed_inputs(streams, dev)[4] for _ in range(3)]
+    host = {f"first_{k}": v for k, v in host.items()} | {
+        k: float(np.median([a[k] for a in again])) for k in host}
+    paths["host_fed_v10"] = {
+        **host, "device_ms": host_ms(lambda: (ig.inflate_v10(
+            v9, *stored, n_seg), torch.cuda.synchronize())),
+        "pieces_words": int(v9["gpos"].numel()),
+        "literal_bytes": len(mp.recs["lit"]), "slots": mp.plan.slots,
+        "launches": d10}
+    del body, v9, stored
+
+    mpf = build_merged_plan(streams)
+    st = inf.stage_plan(mpf.plan, dev, mpf.out_offsets)
+    arrays = tp.plan_arrays_v7(mpf.plan, dev)
+    torch.cuda.synchronize()
+    reset()
+    body, overflow = ig.inflate_v14(st.pa, arrays, mpf.plan.slots, st.n_seg)
+    torch.cuda.synchronize()
+    d14 = counts()
+    if bool(overflow):
+        raise AssertionError("v14 overflowed the scanner's exact slots")
+    pm.check(body, mpf, datas)
+    require_launches("archive_paths, v14", d14,
+                     ("phase_a", "compact_v14", "walk_v14"))
+    paths["v14"] = {"device_ms": host_ms(lambda: (ig.inflate_v14(
+        st.pa, arrays, mpf.plan.slots, st.n_seg), torch.cuda.synchronize())),
+        "launches": d14}
+    del body, st, arrays
+
+    reset()
+    t0 = time.perf_counter()
+    tape, overflow, cnt1, _ = inf.tape_v3(arrays1, one.plan.n_bits,
+                                          one.plan.slots, exact=True)
+    got1 = lg.resolve_tape_v1(tape, cnt1, out_size)
+    torch.cuda.synchronize()
+    v1_ms = (time.perf_counter() - t0) * 1e3
+    d1 = counts()
+    if got1.cpu().numpy().tobytes() != datas[0]:
+        raise AssertionError("v1: decode is not bit-exact")
+    require_launches("archive_paths, v1", d1, ("tape_v1",))
+    paths["v1"] = {"out_bytes": out_size, "tape_v3_and_resolve_ms": v1_ms,
+                   "launches": d1}
+    launches = {k: d10[k] + d14[k] + d1[k] for k in counted}
+    emit({"phase": "archive_paths", "streams": len(streams),
+          "out_bytes": sum(map(len, datas)), "bit_exact": True, **paths,
+          "launches": launches})
+
+    sources = {
+        "groups_v11": ("debigulator_tpu_torch/csrc/groups_v11.cu",
+                       "debigulator_tpu/ops/archive/lz77_generations.py:609"),
+        "compact_v14": ("debigulator_tpu_torch/csrc/compact_v14.cu",
+                        "debigulator_tpu/ops/archive/lz77_generations.py:893"),
+        "walk_v14": ("debigulator_tpu_torch/csrc/walk_v14.cu",
+                     "debigulator_tpu/ops/archive/lz77_generations.py:1015"),
+        "tape_v1": ("debigulator_tpu_torch/csrc/lz77_tape.cu",
+                    "debigulator_tpu/ops/archive/lz77_generations.py:49"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        rec = timed[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": 0, "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": rec.get("library_ms")})
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1214,6 +1510,10 @@ def main() -> int:
     # --- the third slice: the other decode drivers ----------------------
     torch.cuda.empty_cache()
     kernels += fallback_phases(dev, base, streams)
+
+    # --- the fourth slice: the archived decode generations --------------
+    torch.cuda.empty_cache()
+    kernels += archive_phases(dev, streams)
 
     emit({"kernels": kernels})
     print(smi, flush=True)

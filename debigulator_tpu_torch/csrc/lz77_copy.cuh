@@ -1,5 +1,6 @@
 // In-order LZ77 match application for Hopper, shared by the three
-// resolvers of ops/lz77.py (lz77_match.cu, lz77_tape.cu, lz77_ops.cu).
+// resolvers of ops/lz77.py (lz77_match.cu, lz77_tape.cu, lz77_ops.cu) and
+// by the flat match-list walk of the archive resolvers (lz77_chunks.cu).
 //
 // A DEFLATE match copies `len` bytes from `dist` bytes back; matches must
 // take effect in stream order because a source may be bytes an earlier

@@ -19,6 +19,16 @@
 //
 // What bounds it on the H100: (a) bytes, 4 * slots + 8 read per cell and
 // one int32 written per literal; (b) latency (lz77_copy.cuh).
+//
+// The same file holds the first tape resolver (v1), replacing the TPU
+// kernel _lz77_kernel (debigulator_tpu/ops/archive/lz77_generations.py:49)
+// as the reference's resolve_tape_pallas drives it: a per-token walk of
+// the tape, chained launches of at most 8192 cells with a 32 KiB window
+// carried between them.  Here one pass covers the whole tape: (v1a)
+// tape_v1_len_kernel, a thread per cell, sums the cell's token lengths;
+// the wrapper's exclusive prefix sum gives each cell's first byte; then
+// (a) and (b) above run over the whole tape with a zero window before it.
+// (v1a) is bound by bytes, the tape read once.
 
 #include "lz77_copy.cuh"
 
@@ -71,7 +81,36 @@ __global__ void place_kernel(int* out, int body_end,
   rmin[c] = lo;
 }
 
+// Output bytes of each cell's first min(count, slots) tokens.
+__global__ void tape_v1_len_kernel(const int* __restrict__ tape,
+                                   const int* __restrict__ counts,
+                                   int n_cells, int slots,
+                                   int* __restrict__ cell_len) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n_cells) return;
+  const int cnt = min(counts[c], slots);
+  const int* __restrict__ row = tape + static_cast<int64_t>(c) * slots;
+  int n = 0;
+  for (int j = 0; j < cnt; ++j) {
+    const int tok = row[j];
+    n += tok >= kMatchBit ? (tok >> 16) & 0x3FFF : 1;
+  }
+  cell_len[c] = n;
+}
+
 }  // namespace
+
+extern "C" int dbg_lz77_tape_v1_len(const int* tape, const int* counts,
+                                    int n_cells, int slots, int* cell_len,
+                                    cudaStream_t stream) {
+  if (n_cells > 0) {
+    const int threads = 128;
+    const int blocks = (n_cells + threads - 1) / threads;
+    tape_v1_len_kernel<<<blocks, threads, 0, stream>>>(tape, counts, n_cells,
+                                                       slots, cell_len);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int dbg_lz77_tape_place(int* out, int body_end, const int* tape,
                                    const int* counts, const int* cbase,

@@ -1,8 +1,8 @@
-"""Python-facing wrappers over the native scanner, serial inflate, CRC-32
-and Adler-32.
+"""Python-facing wrappers over the native scanner, record scan, group
+packer, serial inflate, CRC-32 and Adler-32.
 
-The port's copy of the scan, inflate and checksum parts of
-debigulator_tpu/native/scanner.py.
+The port's copy of debigulator_tpu/native/scanner.py, all but the taint
+analysis of the split-stream decode (``dbg_taint``).
 """
 
 from __future__ import annotations
@@ -96,6 +96,13 @@ def scan_stream(data: bytes, cell_bits: int = 0):
     element: (blocks, lengths, (cell_states, cell_pend, mct)).
     """
     nb, blocks, lengths, cells, _ = _scan_raw(data, cell_bits)
+    infos, lens = _block_list(nb, blocks, lengths)
+    if cell_bits:
+        return infos, lens, cells
+    return infos, lens
+
+
+def _block_list(nb: int, blocks, lengths):
     infos, lens = [], []
     for i in range(nb):
         r = blocks[i]
@@ -103,12 +110,120 @@ def scan_stream(data: bytes, cell_bits: int = 0):
         if r.btype == C.BTYPE_STORED:
             lens.append(None)
         else:
-            ll = lengths[i * 320 : i * 320 + 288].copy()
-            dd = lengths[i * 320 + 288 : i * 320 + 320].copy()
-            lens.append((ll, dd))
-    if cell_bits:
-        return infos, lens, cells
+            lens.append((lengths[i * 320 : i * 320 + 288].copy(),
+                         lengths[i * 320 + 288 : i * 320 + 320].copy()))
     return infos, lens
+
+
+def scan_stream_records(data: bytes, cell_bits: int):
+    """Block index + exact cell entries + dense token records (the scan
+    of the host-fed decode).
+
+    Returns (blocks, lengths, cells, recs); recs holds ``m_pos``/``m_meta``
+    (match output offsets, len << 16 | dist), ``r_pos``/``r_cell``/
+    ``r_j0len`` (literal runs: output offset, virtual cell, first tape slot
+    << 8 | run length), ``lit_bytes`` (every literal in stream order),
+    ``max_cell_tokens`` and ``out_size``.  Buffers start from a guess and
+    grow: x4 blocks on -2/-4, x4 records and literals on -5.
+    """
+    lib = get_lib()
+    max_blocks = max(64, len(data) // 16 + 16)
+    # Worst case one token per compressed bit; start smaller and grow.
+    max_m = max(1024, len(data) * 2)
+    max_r = max(1024, len(data) * 2)
+    max_l = max(1024, len(data) * 8)
+    while True:
+        blocks = (_BlockRec * max_blocks)()
+        lengths = np.zeros(max_blocks * 320, np.int32)
+        max_cells = (len(data) * 8) // cell_bits + max_blocks + 16
+        cell_states = np.zeros(max_cells, np.int64)
+        cell_pend = np.zeros(max_cells, np.int32)
+        m_pos = np.zeros(max_m, np.int32)
+        m_meta = np.zeros(max_m, np.int32)
+        r_pos = np.zeros(max_r, np.int32)
+        r_cell = np.zeros(max_r, np.int32)
+        r_j0len = np.zeros(max_r, np.int32)
+        lit_bytes = np.zeros(max_l, np.uint8)
+        n_cells = ctypes.c_int64(0)
+        n_m = ctypes.c_int64(0)
+        n_r = ctypes.c_int64(0)
+        n_l = ctypes.c_int64(0)
+        mct = ctypes.c_int32(0)
+        out_size = ctypes.c_uint64(0)
+
+        def ptr(a):
+            return a.ctypes.data_as(ctypes.c_void_p)
+
+        nb = lib.dbg_scan2(
+            data, len(data),
+            ctypes.cast(blocks, ctypes.c_void_p), max_blocks, ptr(lengths),
+            cell_bits, ptr(cell_states), ptr(cell_pend),
+            max_cells, ctypes.byref(n_cells),
+            ptr(m_pos), ptr(m_meta), max_m, ctypes.byref(n_m),
+            ptr(r_pos), ptr(r_cell), ptr(r_j0len), max_r, ctypes.byref(n_r),
+            ctypes.byref(mct), ctypes.byref(out_size),
+            ptr(lit_bytes), max_l, ctypes.byref(n_l),
+        )
+        if nb == -2 or nb == -4:
+            max_blocks *= 4
+            continue
+        if nb == -5:
+            max_m *= 4
+            max_r *= 4
+            max_l *= 4
+            continue
+        if nb < 0:
+            raise InflateError(f"native scan2 failed (code {nb})")
+        break
+    infos, lens = _block_list(nb, blocks, lengths)
+    cells = (cell_states[: n_cells.value], cell_pend[: n_cells.value],
+             int(mct.value))
+    recs = {
+        "m_pos": m_pos[: n_m.value].copy(),
+        "m_meta": m_meta[: n_m.value].copy(),
+        "r_pos": r_pos[: n_r.value].copy(),
+        "r_cell": r_cell[: n_r.value].copy(),
+        "r_j0len": r_j0len[: n_r.value].copy(),
+        "lit_bytes": lit_bytes[: n_l.value].copy(),
+        "max_cell_tokens": int(mct.value),
+        "out_size": int(out_size.value),
+    }
+    return infos, lens, cells, recs
+
+
+def pack_groups(m_pos: np.ndarray, m_meta: np.ndarray, seg_bytes: int,
+                n_seg: int):
+    """Pack matches into conflict-free groups of 8 (dbg_pack_groups in
+    native/dbg_native.cpp): pieces of at most 128 bytes that never cross a
+    128-byte output row, RLE matches as pattern-doubling pieces, no group
+    across a ``seg_bytes`` boundary.
+
+    Returns (g_pos, g_meta, seg_lo, seg_hi): piece output offsets, piece
+    len << 16 | dist (padding: len 0 at the segment start) and each
+    segment's slot range.  The slot buffer grows x4 until it fits."""
+    lib = get_lib()
+    n = len(m_pos)
+    m_pos = np.ascontiguousarray(m_pos, np.int32)
+    m_meta = np.ascontiguousarray(m_meta, np.int32)
+    max_slots = 8 * (4 * max(n, 1) + 2 * n_seg + 64)
+    while True:  # RLE-chain-heavy streams can need ~9 groups per match
+        g_pos = np.zeros(max_slots, np.int32)
+        g_meta = np.zeros(max_slots, np.int32)
+        seg_lo = np.zeros(n_seg, np.int32)
+        seg_hi = np.zeros(n_seg, np.int32)
+        n_slots = lib.dbg_pack_groups(
+            m_pos.ctypes.data_as(ctypes.c_void_p),
+            m_meta.ctypes.data_as(ctypes.c_void_p),
+            n, seg_bytes, n_seg,
+            g_pos.ctypes.data_as(ctypes.c_void_p),
+            g_meta.ctypes.data_as(ctypes.c_void_p),
+            max_slots,
+            seg_lo.ctypes.data_as(ctypes.c_void_p),
+            seg_hi.ctypes.data_as(ctypes.c_void_p),
+        )
+        if n_slots >= 0:
+            return g_pos[:n_slots], g_meta[:n_slots], seg_lo, seg_hi
+        max_slots *= 4
 
 
 def inflate_native(data: bytes):

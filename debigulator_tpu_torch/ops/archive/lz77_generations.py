@@ -1,0 +1,478 @@
+"""Superseded LZ77 generations of the host-fed and v14 decodes, and the
+first tape resolver (the port of debigulator_tpu/ops/archive/
+lz77_generations.py, the kernels that its live paths reach).
+
+Four functions, each behind one wrapper with its plain PyTorch twin and a
+launch count:
+
+* ``resolve_groups_v11`` (replaces ``_group_kernel_v11`` :609): Phase B
+  of the host-fed v10 decode, from the packer's conflict-free groups of 8
+  match pieces and the literal pieces over the scanner's dense literals.
+* ``compact_v14`` (replaces ``_compact_kernel_v14`` :893): each cell's
+  match, run and literal records moved to precomputed dense offsets.
+* ``resolve_walk_v14`` (replaces ``_walk_kernel_v14`` :1015): the dense
+  lists applied: literal runs, then matches in stream order.
+* ``resolve_tape_v1`` (replaces ``_lz77_kernel`` :49, the counterpart of
+  ``resolve_tape_pallas`` :806): the whole token tape to bytes.
+
+Buffers are one int32 per byte, (rows, 128), laid out as the reference's
+and ops.lz77's: one pad row, the 32 KiB window prologue, the body, and 4
+slack rows.  The reference walks one 512 KiB segment per kernel call and
+carries the window from one call to the next because a segment must fit
+its VMEM; the card holds the whole body, so ``lim``/``lims`` may hold
+several consecutive segments of one body, and one call resolves them all.
+The wrappers return a new buffer and leave ``out_init`` as it was.
+
+On the card each resolver is a grid-wide pass for what reads no output
+(literal pieces, literal runs, literals of the tape), then a pass that
+applies the matches in order, a warp per chunk of 8 matches (or per cell
+of the tape), up to 32 a batch, one CTA per range of matches that share no
+byte with another range (csrc/lz77_chunks.cu, csrc/lz77_tape.cu).  A
+wrapper adds one to its launch count in a call that launched a kernel, and
+nowhere else.  The plain versions
+place the literals, point every match byte at its source byte and follow
+the pointers by doubling (ops.lz77._apply_copies_plain).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from debigulator_tpu_torch.constants import TOK_MATCH_BIT
+from debigulator_tpu_torch.ops import _kernels
+from debigulator_tpu_torch.ops import lz77 as lz
+from debigulator_tpu_torch.ops.phase_b import _expand
+
+PAD = lz.PAD
+WINDOW = lz.WINDOW
+BODY_START = lz.BODY_START
+SLACK_ROWS = lz.SLACK_ROWS
+#: Pieces per packed group (kGroup in native/dbg_native.cpp), matches per
+#: v14 clean-bit group, and matches per chunk of the walks.
+V9_GROUP = 8
+#: Piece-word rows per stage: the piece arrays are padded to a multiple of
+#: it plus two stages (merged._pad_rec_rows).
+V9_STAGE_ROWS = 16
+#: Dense-list rows per stage of the reference's v14 walk: the dense lists
+#: keep two stages and two rows of padding past the records.
+V14_STAGE_ROWS = 8
+
+def _lit_scratch_rows(seg_bytes: int) -> int:
+    """Rows of a segment's literal window (row 0 a pad row): the literal
+    array of the host-fed decode is padded by this many rows."""
+    return seg_bytes // 128 + 8
+
+
+def _plain_here(t: torch.Tensor) -> bool:
+    """A wrapper runs its plain version where its tensors lie on the CPU."""
+    return t.device.type == "cpu"
+
+
+def _check_i32(*tensors) -> None:
+    for t in tensors:
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("inputs must be contiguous int32")
+        if t.device != tensors[0].device:
+            raise ValueError("inputs must share a device")
+
+
+def _body_end(out_init: torch.Tensor) -> int:
+    if out_init.dim() != 2 or out_init.shape[1] != 128:
+        raise ValueError("the buffer is a (rows, 128) array")
+    body_end = (out_init.shape[0] - SLACK_ROWS) * 128
+    if body_end < BODY_START:
+        raise ValueError("the buffer has no room for pad row, window and slack")
+    return body_end
+
+
+# ---------------------------------------------------------------------------
+# v11: host-fed groups
+# ---------------------------------------------------------------------------
+
+
+def unpack_piece_words(w0: torch.Tensor, w1: torch.Tensor):
+    """(dst, len, src) of pieces packed by host_fed._pack_piece_words:
+    w0 = dst_row << 16 | rp << 8 | (rp + len), w1 = q_row << 16 | r << 8 |
+    (128 - r), with rp = dst & 127 and q = src - rp; segment-local."""
+    w0, w1 = w0.long(), w1.long()
+    rp = (w0 >> 8) & 127
+    dst = (w0 >> 16) * 128 + rp
+    return dst, (w0 & 255) - rp, (w1 >> 16) * 128 + ((w1 >> 8) & 127) + rp
+
+
+def _slot_segments(lims: torch.Tensor, lo_col: int, hi_col: int, n: int):
+    """Per slot of a piece list, the segment whose [lo, hi) holds it, and
+    whether one does (the ranges rise with the segment index)."""
+    slot = torch.arange(n, device=lims.device)
+    seg = torch.searchsorted(lims[:, lo_col].contiguous(), slot,
+                             right=True) - 1
+    segc = seg.clamp(min=0)
+    return segc, (seg >= 0) & (slot < lims[segc, hi_col])
+
+
+def resolve_groups_v11_plain(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
+    lims = lim.reshape(-1, 8).long()
+    out = out_init.reshape(-1).clone()
+    off = lims[:, 2] - lims[0, 2]
+    flat_lit = lit.reshape(-1)
+
+    seg, live = _slot_segments(lims, 3, 4, lpos.numel())
+    dst, ln, src = unpack_piece_words(lpos.reshape(-1), lmeta.reshape(-1))
+    live &= ln > 0
+    dst = dst[live] + off[seg[live]]
+    src = src[live] - 128 + lims[seg[live], 5] * 128
+    rec, o = _expand(ln[live])
+    out[dst[rec] + o] = flat_lit[src[rec] + o]
+
+    # Groups never span segments: a group is live when its first slot is.
+    seg, live = _slot_segments(lims, 0, 1, gpos.numel())
+    live = live.view(-1, V9_GROUP)[:, :1].expand(-1, V9_GROUP).reshape(-1)
+    dst, ln, src = unpack_piece_words(gpos.reshape(-1), gmeta.reshape(-1))
+    lz._apply_copies_plain(out, (dst + off[seg])[live], ln[live],
+                           (dst - src)[live])
+    return out.view_as(out_init)
+
+
+def _chunks(n: int, starts: torch.Tensor):
+    """Cut a list of n entries in a valid order into chunks of at most
+    V9_GROUP that never cross a range start.  starts: sorted first entries
+    of the independent ranges (the first is taken as 0).  Returns (first,
+    end) int32 per chunk and the (n_ranges + 1,) int64 chunk bounds of the
+    ranges (one host read-back: the chunk count)."""
+    starts = starts.long().clone()
+    starts[0] = 0
+    ends = torch.cat([starts[1:], starts.new_full((1,), n)])
+    n_ch = (ends - starts + V9_GROUP - 1).clamp(min=0) // V9_GROUP
+    bounds = torch.cat([n_ch.new_zeros(1), torch.cumsum(n_ch, 0)])
+    rng = torch.repeat_interleave(torch.arange(starts.numel(),
+                                               device=starts.device), n_ch)
+    first = starts[rng] + (torch.arange(rng.numel(), device=starts.device)
+                           - bounds[rng]) * V9_GROUP
+    end = torch.minimum(first + V9_GROUP, ends[rng])
+    return first.to(torch.int32), end.to(torch.int32), bounds
+
+
+def _independent_order(dst, length, dist):
+    """Split a match list in a valid order into ranges that share no byte.
+    Each match touches the span [dst - dist, dst + len); a range is a run
+    of spans, taken by source position, that overlap or touch, so no match
+    of one range reads or writes a byte of another (the streams of a
+    merged batch are such ranges).  Returns (order, starts): the list's
+    indices range by range, each range in its original order, and each
+    range's first place in that order."""
+    src = dst - dist
+    by_src = torch.argsort(src, stable=True)
+    reach = torch.cummax((dst + length)[by_src], 0).values
+    new = torch.ones_like(by_src, dtype=torch.bool)
+    new[1:] = src[by_src][1:] >= reach[:-1]
+    comp = torch.empty_like(by_src)
+    comp[by_src] = torch.cumsum(new, 0) - 1
+    key, order = torch.sort(comp, stable=True)
+    return order, torch.nonzero(torch.diff(key, prepend=key[:1] - 1))[:, 0]
+
+
+def _walk_chunks(out, dst, meta, base_adj: int, body_end: int) -> bool:
+    """Apply a match list in a valid order (position dst + base_adj; meta:
+    len in bits 16-24, dist in bits 0-15), clipped to [BODY_START,
+    body_end): its independent ranges (``_independent_order``) cut into
+    chunks of at most V9_GROUP (``_chunks``), each chunk's clipped matches
+    listed, then walked, one CTA per range (csrc/lz77_chunks.cu).  Returns
+    whether it launched (not for an empty list)."""
+    if dst.numel() == 0:
+        return False
+    m = meta.long()
+    order, starts = _independent_order(dst.long(), (m >> 16) & 0x1FF,
+                                       m & 0xFFFF)
+    dst, meta = dst[order].contiguous(), meta[order].contiguous()
+    first, end, bounds = _chunks(dst.numel(), starts)
+    n = first.numel()
+    mlist = torch.empty((2, n * V9_GROUP), dtype=torch.int32,
+                        device=out.device)
+    kc, rmax, dmin = torch.empty((3, n), dtype=torch.int32, device=out.device)
+    _kernels.launch("dbg_lz77_chunks_place", dst, meta, first, end, n,
+                    V9_GROUP, base_adj, BODY_START, body_end, mlist[0],
+                    mlist[1], kc, rmax, dmin)
+    # The walk batches chunks b.. while they read below every byte that
+    # chunk b or a later one writes.
+    thr = lz.suffix_min(dmin).contiguous()
+    _kernels.launch("dbg_lz77_chunks_walk", out, body_end, mlist[0], mlist[1],
+                    kc, rmax, thr, bounds, bounds.numel() - 1, V9_GROUP)
+    return True
+
+
+def resolve_groups_v11(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
+    """Resolve host-fed segments: literal pieces, then match groups.
+
+    out_init: (rows, 128) int32, pad row + window + the segments' bodies
+    one after another + 4 slack rows.  lim: (8,) or (n_seg, 8) int32 rows
+    of (match slot lo, hi, segment output offset, literal slot lo, hi,
+    literal row base, 0, 0); segment k's body starts ``lim[k, 2] -
+    lim[0, 2]`` bytes after the first's.  gpos/gmeta, lpos/lmeta: (rows,
+    128) piece words (host_fed._pack_piece_words), segment-local: a word's
+    position p lands at buffer position p + that offset.  lit: (Lr, 128)
+    dense literal bytes; a literal piece reads lit[src - 128 + base * 128].
+    Every piece satisfies (dst & 127) + len <= 128; the pieces of a match
+    group do not read what the group writes.  The reference's
+    ``seg_bytes`` argument is not taken: the offsets come from ``lim``.
+
+    CUDA kernels (csrc/groups_v11.cu): a thread per literal piece; a
+    thread per match slot unpacks its words to (dst, len, dist); the live
+    pieces, split into ranges that share no byte (each in slot order: the
+    streams of a merged batch never meet, though a packed group may hold
+    pieces of two), then run in chunks of 8, a warp per chunk, one CTA per
+    range (csrc/lz77_chunks.cu).
+    """
+    _check_i32(out_init, lim, gpos, gmeta, lpos, lmeta, lit)
+    body_end = _body_end(out_init)
+    if gpos.shape != gmeta.shape or lpos.shape != lmeta.shape:
+        raise ValueError("position and meta words must have one shape")
+    if gpos.numel() % V9_GROUP or lim.numel() % 8 or lim.numel() == 0:
+        raise ValueError("groups of 8 slots and rows of 8 limits expected")
+    if _plain_here(out_init):
+        return resolve_groups_v11_plain(out_init, lim, gpos, gmeta, lpos,
+                                        lmeta, lit)
+    out = out_init.clone()
+    lims = lim.reshape(-1, 8).contiguous()
+    n_seg = lims.shape[0]
+    if lpos.numel():
+        _kernels.launch("dbg_groups_v11_lits", out, out.numel(), lims, n_seg,
+                        lpos, lmeta, lpos.numel(), lit, lit.numel())
+    if gpos.numel():
+        pdst, pmeta = torch.empty((2, gpos.numel()), dtype=torch.int32,
+                                  device=out.device)
+        _kernels.launch("dbg_groups_v11_unpack", lims, n_seg, gpos, gmeta,
+                        gpos.numel(), pdst, pmeta)
+        live = torch.nonzero(pmeta != 0)[:, 0]
+        _walk_chunks(out, pdst[live], pmeta[live], 0, body_end)
+    if lpos.numel() or gpos.numel():
+        resolve_groups_v11.launches += 1
+    return out
+
+
+resolve_groups_v11.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# v14: compaction once, then the dense-list walk
+# ---------------------------------------------------------------------------
+
+
+def _compact_counts(cnt2d: torch.Tensor, slots: int):
+    c = cnt2d.reshape(-1).long()
+    return ((c >> 16).clamp(max=slots), ((c >> 8) & 0xFF).clamp(max=slots),
+            (c & 0xFF).clamp(max=slots))
+
+
+def compact_v14_plain(ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, moff2d, roff2d,
+                      loff2d, nrows: int, nrows_lit: int, slots: int):
+    dev = ma2d.device
+    n_cells = cnt2d.numel()
+    slot = torch.arange(slots, device=dev)[None, :]
+    outs = [torch.zeros(nrows * 128, dtype=torch.int32, device=dev)
+            for _ in range(4)]
+    lit_out = torch.zeros(nrows_lit * 128, dtype=torch.int32, device=dev)
+    mc, rc, lc = _compact_counts(cnt2d, slots)
+
+    def move(src2d, dst, count, off2d):
+        valid = slot < count[:, None]
+        at = off2d.reshape(-1).long()[:, None] + slot
+        src = src2d.reshape(-1)[: n_cells * slots].view(n_cells, slots)
+        dst[at[valid]] = src[valid]
+
+    move(ma2d, outs[0], mc, moff2d)
+    move(mb2d, outs[1], mc, moff2d)
+    move(ra2d, outs[2], rc, roff2d)
+    move(rb2d, outs[3], rc, roff2d)
+    move(lit2d, lit_out, lc, loff2d)
+    return (*(o.view(nrows, 128) for o in outs), lit_out.view(nrows_lit, 128))
+
+
+def compact_v14(ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, moff2d, roff2d, loff2d,
+                nrows: int, nrows_lit: int, slots: int):
+    """Compact every cell's records into dense lists in one pass.
+
+    ma2d/mb2d/ra2d/rb2d/lit2d: (cells * slots / 128, 128) cell-major
+    records (record j of cell c at c * slots + j).  cnt2d: (cells / 128,
+    128) packed match_count << 16 | run_count << 8 | lit_count (a count
+    past ``slots``, an overflowed tape whose result every caller
+    discards, is read as ``slots``).  moff2d/roff2d/loff2d: each cell's
+    dense offset in the match, run and literal lists.  Returns (mdst,
+    mmeta, rdst, rmeta) as (nrows, 128) and litD as (nrows_lit, 128),
+    zero where no record lands.
+
+    CUDA kernel (csrc/compact_v14.cu): a thread per (cell, slot) copies
+    its record to the cell's offset plus the slot.
+    """
+    _check_i32(ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, moff2d, roff2d, loff2d)
+    if slots not in (8, 16, 32, 64, 128):
+        raise ValueError(f"slots must be a power of two in [8, 128], got {slots}")
+    n_cells = cnt2d.numel()
+    if (any(t.numel() < n_cells * slots for t in (ma2d, mb2d, ra2d, rb2d, lit2d))
+            or any(t.numel() != n_cells for t in (moff2d, roff2d, loff2d))):
+        raise ValueError("records, counts and offsets do not cover the same cells")
+    if _plain_here(ma2d):
+        return compact_v14_plain(ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, moff2d,
+                                 roff2d, loff2d, nrows, nrows_lit, slots)
+    out = torch.zeros((4, nrows, 128), dtype=torch.int32, device=ma2d.device)
+    lit_out = torch.zeros((nrows_lit, 128), dtype=torch.int32,
+                          device=ma2d.device)
+    if n_cells:
+        _kernels.launch("dbg_compact_v14", ma2d, mb2d, ra2d, rb2d, lit2d,
+                        cnt2d, moff2d, roff2d, loff2d, n_cells, slots,
+                        out[0], out[1], out[2], out[3], nrows * 128, lit_out,
+                        nrows_lit * 128)
+        compact_v14.launches += 1
+    return out[0], out[1], out[2], out[3], lit_out
+
+
+compact_v14.launches = 0
+
+
+def _walk_limits(out_init, lims):
+    """(m_lo, m_hi, r_lo, r_hi, base_adj, body_end) of a walk over the
+    segments of ``lims``: their record ranges joined, positions shifted so
+    the first segment's body starts at BODY_START."""
+    body_end = _body_end(out_init)
+    rows = lims.reshape(-1, 8)
+    first, last = torch.stack([rows[0], rows[-1]]).tolist()
+    return (first[0], last[1], first[2], last[3], BODY_START - first[4],
+            body_end)
+
+
+def resolve_walk_v14_plain(out_init, lims, mdst, mmeta, rdst, rmeta, lit2d):
+    m_lo, m_hi, r_lo, r_hi, base_adj, body_end = _walk_limits(out_init, lims)
+    out = out_init.reshape(-1).clone()
+    lit = lit2d.reshape(-1)
+    rm = rmeta.reshape(-1)[r_lo:r_hi].long() & 0xFFFFFFFF
+    rec, o = _expand(rm & 0x7F)
+    pos = rdst.reshape(-1)[r_lo:r_hi].long()[rec] + base_adj + o
+    src = (rm >> 7)[rec] + o
+    ok = (pos >= BODY_START) & (pos < body_end) & (src < lit.numel())
+    out[pos[ok]] = lit[src[ok]]
+    mm = mmeta.reshape(-1)[m_lo:m_hi].long()
+    dst, eff = lz._clip_matches(mdst.reshape(-1)[m_lo:m_hi].long() + base_adj,
+                                (mm >> 16) & 0x1FF, body_end)
+    lz._apply_copies_plain(out, dst, eff, mm & 0xFFFF)
+    return out.view_as(out_init)
+
+
+def resolve_walk_v14(out_init, lims, mdst, mmeta, rdst, rmeta, lit2d):
+    """Walk the dense lists over one body: literal runs, then matches.
+
+    lims: (8,) or (n_seg, 8) int32 rows of (m_lo, m_hi, r_lo, r_hi,
+    seg_off, lit_row0, 0, 0) for consecutive segments of one body;
+    records [m_lo of the first, m_hi of the last) and likewise the runs
+    are applied, a record at position p landing at BODY_START + p -
+    seg_off of the first.  mdst/mmeta: dense matches (position; clean bit
+    31 | len << 16 | dist); rdst/rmeta: dense runs (position; lit_flat << 7
+    | run_len, the run's bytes being lit2d's flat lit_flat ...).  Stores
+    are clipped to the body [BODY_START, (rows - 4) * 128); a match that
+    begins before it is head-clipped.  ``lit_row0`` and the clean bit are
+    the reference's VMEM window base and fast-path hint: the card reads
+    the whole literal array and needs no hint.  The reference's ``slots``
+    argument (its staging size) is not taken.
+
+    CUDA kernels (csrc/walk_v14.cu): a thread per run; the matches, split
+    into ranges that share no byte (the streams of a merged batch), a
+    thread per 8 of one range clips them; they then run in stream order,
+    a warp per 8, one CTA per range (csrc/lz77_chunks.cu).
+    """
+    _check_i32(out_init, lims, mdst, mmeta, rdst, rmeta, lit2d)
+    if mdst.numel() != mmeta.numel() or rdst.numel() != rmeta.numel():
+        raise ValueError("positions and metas must have one length")
+    if _plain_here(out_init):
+        return resolve_walk_v14_plain(out_init, lims, mdst, mmeta, rdst,
+                                      rmeta, lit2d)
+    m_lo, m_hi, r_lo, r_hi, base_adj, body_end = _walk_limits(out_init, lims)
+    out = out_init.clone()
+    runs = r_hi > r_lo
+    if runs:
+        _kernels.launch("dbg_walk_v14_runs", out, body_end, base_adj, rdst,
+                        rmeta, r_lo, r_hi, lit2d, lit2d.numel())
+    walked = _walk_chunks(out, mdst.reshape(-1)[m_lo:m_hi],
+                          mmeta.reshape(-1)[m_lo:m_hi], base_adj, body_end)
+    if runs or walked:
+        resolve_walk_v14.launches += 1
+    return out
+
+
+resolve_walk_v14.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# v1: the whole token tape
+# ---------------------------------------------------------------------------
+
+
+def _cell_lengths_plain(tape, counts):
+    """Output bytes of each cell's first min(count, slots) tokens."""
+    slots = tape.shape[1]
+    tok = tape.long()
+    valid = torch.arange(slots, device=tape.device)[None, :] < \
+        counts.long().clamp(max=slots)[:, None]
+    return torch.where(valid & (tok >= TOK_MATCH_BIT), (tok >> 16) & 0x3FFF,
+                       valid.long()).sum(1)
+
+
+def _check_total(cell_len, out_size: int):
+    total = int(cell_len.sum())
+    if total != out_size:
+        raise ValueError(f"tape output {total} != expected {out_size}")
+
+
+def resolve_tape_v1_plain(tape, counts, out_size: int) -> torch.Tensor:
+    cell_len = _cell_lengths_plain(tape, counts)
+    _check_total(cell_len, out_size)
+    rows = BODY_START // 128 + -(-out_size // 128) + SLACK_ROWS
+    buf = torch.zeros((rows, 128), dtype=torch.int32, device=tape.device)
+    out = lz.resolve_tape_v6_plain(buf, tape, counts,
+                                   torch.cumsum(cell_len, 0) - cell_len, 0,
+                                   tape.shape[0], 0, tape.shape[1])
+    return out.view(-1)[BODY_START : BODY_START + out_size].to(torch.uint8)
+
+
+def resolve_tape_v1(tape, counts, out_size: int) -> torch.Tensor:
+    """The whole token tape to (out_size,) uint8 on the tape's device: the
+    counterpart of the reference's ``resolve_tape_pallas`` (v1).
+
+    tape: (cells, slots) int32 tokens (literal byte, or TOK_MATCH_BIT |
+    len << 16 | dist); counts: (cells,) tokens per cell (tensors or numpy
+    arrays) (a count past ``slots`` is read as ``slots``).  Raises
+    ValueError when the tokens' output is not ``out_size`` bytes, as the
+    reference does.  Streams with stored blocks need another resolver
+    (stored bytes are not in the tape).  The reference chains launches of
+    at most 8192 cells and 1.5 MiB of output, each with the last 32 KiB of
+    the one before as its window; here one pass covers the tape with a
+    zero window before it: ``resolve_tape_v6`` over the whole tape, each
+    cell's first byte the sum of the lengths of the cells before it.
+
+    CUDA kernels (csrc/lz77_tape.cu): a thread per cell sums its token
+    lengths (``tape_v1_len_kernel``), an exclusive prefix sum gives each
+    cell's first byte, then the v6 placement and in-order walk run over
+    the whole tape (pad row, zero window, body).
+    """
+    tape = torch.as_tensor(tape).contiguous()
+    counts = torch.as_tensor(counts).contiguous()
+    if tape.dim() != 2 or counts.shape != (tape.shape[0],):
+        raise ValueError("tape is (cells, slots) and counts (cells,)")
+    _check_i32(tape, counts)
+    if _plain_here(tape):
+        return resolve_tape_v1_plain(tape, counts, out_size)
+    cells, slots = tape.shape
+    cell_len = torch.zeros(cells, dtype=torch.int32, device=tape.device)
+    if cells:
+        _kernels.launch("dbg_lz77_tape_v1_len", tape, counts, cells, slots,
+                        cell_len)
+    _check_total(cell_len, out_size)
+    out = torch.zeros(BODY_START + out_size, dtype=torch.int32,
+                      device=tape.device)
+    if cells:
+        cbase = (torch.cumsum(cell_len, 0, dtype=torch.int32)
+                 - cell_len).contiguous()
+        lz.tape_place_walk(out, BODY_START + out_size, tape, counts, cbase, 0,
+                           cells, BODY_START, slots)
+        resolve_tape_v1.launches += 1
+    return out[BODY_START:].to(torch.uint8)
+
+
+resolve_tape_v1.launches = 0

@@ -165,14 +165,18 @@ def _independent_ranges(kc, rmin, thr) -> torch.Tensor:
     starts one.  Starts with no match since the previous start are dropped.
     One read-back (the number of ranges is the walk's grid)."""
     n = kc.numel()
-    lowest = torch.flip(torch.cummin(torch.flip(rmin, [0]), 0).values, [0])
-    start = lowest >= thr
+    start = suffix_min(rmin) >= thr
     start[0] = True
     cells = torch.nonzero(start)[:, 0]
     before = (torch.cumsum(kc, 0) - kc)[cells]
     first = torch.ones_like(cells, dtype=torch.bool)
     first[1:] = before[1:] != before[:-1]
     return torch.cat([cells[first], cells.new_full((1,), n)])
+
+
+def suffix_min(x: torch.Tensor) -> torch.Tensor:
+    """out[i] = min(x[i:])."""
+    return torch.flip(torch.cummin(torch.flip(x, [0]), 0).values, [0])
 
 
 def _clip_matches(dst, mlen, body_end: int):
@@ -183,6 +187,20 @@ def _clip_matches(dst, mlen, body_end: int):
     eff = (mlen - delta).clamp(min=0)
     dst = dst + delta
     return dst, torch.minimum(eff, (body_end - dst).clamp(min=0))
+
+
+def tape_place_walk(out, body_end: int, tape, counts, cbase, lo: int, n: int,
+                    base_adj: int, slots: int) -> None:
+    """The kernels of csrc/lz77_tape.cu over cells [lo, lo + n) (n > 0) of
+    a token tape, in place on ``out``: placement (literals stored, clipped
+    matches listed), the independent ranges, the in-order walk."""
+    mlist, (kc, rmax, rmin, thr) = _scratch(n, slots, out.device)
+    _kernels.launch("dbg_lz77_tape_place", out, body_end, tape, counts, cbase,
+                    lo, n, base_adj, slots, mlist[0], mlist[1], kc, rmax,
+                    rmin, thr)
+    bounds = _independent_ranges(kc, rmin, thr)
+    _kernels.launch("dbg_lz77_tape_walk", out, body_end, mlist[0], mlist[1],
+                    kc, rmax, thr, bounds, bounds.numel() - 1, slots)
 
 
 def resolve_tape_v6_plain(out_init, tape2d, counts, cbase, cell_lo, cell_hi,
@@ -238,13 +256,7 @@ def resolve_tape_v6(out_init, tape2d, counts, cbase, cell_lo, cell_hi,
     out = out_init.clone()
     n = hi - lo
     if n:
-        mlist, (kc, rmax, rmin, thr) = _scratch(n, slots, out.device)
-        _kernels.launch("dbg_lz77_tape_place", out, body_end, tape2d, counts,
-                        cbase, lo, n, base_adj, slots, mlist[0], mlist[1],
-                        kc, rmax, rmin, thr)
-        bounds = _independent_ranges(kc, rmin, thr)
-        _kernels.launch("dbg_lz77_tape_walk", out, body_end, mlist[0],
-                        mlist[1], kc, rmax, thr, bounds, bounds.numel() - 1,
+        tape_place_walk(out, body_end, tape2d, counts, cbase, lo, n, base_adj,
                         slots)
         resolve_tape_v6.launches += 1
     return out

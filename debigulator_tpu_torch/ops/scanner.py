@@ -51,6 +51,20 @@ def scan_stream_cells(data, cell_bits: int):
                                       cell_bits=cell_bits)
 
 
+def scan_stream_records(data, cell_bits: int):
+    """Index + cell entries + dense token records (the host-fed decode's
+    scan, native/scanner.scan_stream_records).
+
+    Returns (blocks, lengths, cells, recs); under ``DBG_NO_NATIVE=1`` the
+    Python scan gives cells=None and recs=None, as the reference does.
+    """
+    if native.disabled():
+        blocks, lengths = _scan_stream_py(data)
+        return blocks, lengths, None, None
+    return native_scanner.scan_stream_records(bytes(memoryview(data)),
+                                              cell_bits=cell_bits)
+
+
 def _scan_stream_py(data) -> tuple[list[BlockInfo], list]:
     _, blocks = inflate(data)
     lengths: list = []

@@ -1,5 +1,5 @@
 """Merged-plan batching: N independent DEFLATE streams as one device call
-(the port of debigulator_tpu/parallel/merged.py, record-free form).
+(the port of debigulator_tpu/parallel/merged.py).
 
 Streams concatenate on the virtual bitstream: each stream's blocks keep
 their own EOB chain (ending in TERMINAL), cells carry exact entries (or,
@@ -23,7 +23,13 @@ from debigulator_tpu_torch import native
 from debigulator_tpu_torch.native import get_lib
 from debigulator_tpu_torch.ops import inflate as inf
 from debigulator_tpu_torch.ops import plan as pl
-from debigulator_tpu_torch.ops.scanner import scan_stream_cells
+from debigulator_tpu_torch.ops.scanner import (
+    scan_stream_cells,
+    scan_stream_records,
+)
+
+#: Merged record arrays of a plan built with records=True.
+REC_KEYS = ("m_pos", "m_meta", "r_pos", "r_cell", "r_j0len", "r_lit0", "lit")
 
 
 @dataclasses.dataclass
@@ -31,21 +37,42 @@ class MergedPlan:
     plan: pl.PlanV3
     out_offsets: list[int]  # per-stream start in the merged output
     out_sizes: list[int]
+    #: Merged token records of the host-fed decode (records=True), else
+    #: None: m_pos/m_meta (matches at merged output offsets), r_pos/r_cell/
+    #: r_j0len (literal runs; r_cell in merged virtual cells), r_lit0 (each
+    #: run's first literal in ``lit``), lit (every literal byte in stream
+    #: order), max_cell_tokens.
+    recs: dict | None = None
 
 
-def build_merged_plan(streams: list[bytes],
+def build_merged_plan(streams: list[bytes], records: bool = False,
                       scanned: list | None = None) -> MergedPlan:
     """One PlanV3 over all streams.  scanned: optional per-stream
     (blocks, lengths, cells) so callers that already indexed the streams
-    do not pay a second scan."""
+    do not pay a second scan.
+
+    records=True also keeps the scanner's token records, merged, for the
+    host-fed decode (ops.archive.host_fed), and sets the plan's slots to
+    the first of 16/32/64 that holds the densest cell (slots_exact).  The
+    reference defaults to records=True, but every one of its decode paths
+    passes records=False; the port's default is theirs, so the main path's
+    host plan stays record-free.  Records need the native scanner: without
+    it (``DBG_NO_NATIVE=1``), or with ``scanned`` given, records=True
+    raises."""
+    if records and (scanned is not None or native.disabled()):
+        raise RuntimeError("records=True needs the native record scan "
+                           "(no DBG_NO_NATIVE, no pre-scanned input)")
 
     # The native scans are independent ctypes calls that release the
     # interpreter lock, so they run on a thread pool.  The plan builds are
     # many small numpy calls that hold it: on a pool they contend (29
     # pooled builds took ~5x their time one after another on an H100
     # host, chip_smoke.py's host breakdown), so they run on this thread.
+    recs_list = [None] * len(streams)
     if scanned is None:
         def scan(s):
+            if records:
+                return scan_stream_records(s, pl.CELL_BITS)
             return scan_stream_cells(s, pl.CELL_BITS)
 
         if len(streams) > 1 and not native.disabled():
@@ -55,9 +82,13 @@ def build_merged_plan(streams: list[bytes],
                 scanned = list(pool.map(scan, streams))
         else:
             scanned = [scan(s) for s in streams]
+        if records:
+            recs_list = [r[3] for r in scanned]
+            scanned = [r[:3] for r in scanned]
     plans = [pl.build_plan_v3(s, blocks, lengths, cells=cells)
              for s, (blocks, lengths, cells) in zip(streams, scanned)]
     exact = all(p.exact_entries for p in plans)
+    have_recs = records and bool(streams)
 
     vb_parts, cell_entry_parts, cell_pend_parts, cell_block_parts = [], [], [], []
     ll_parts = {k: [] for k in ("count", "first", "base", "aug")}
@@ -69,9 +100,27 @@ def build_merged_plan(streams: list[bytes],
     block_cursor = 0
     stored_cursor = 0
     out_cursor = 0
+    lit_cursor = 0
+    rec_parts = {k: [] for k in REC_KEYS}
+    max_cell_tokens = 0
     tc_bits = pl.TC * pl.CELL_BITS
 
-    for p in plans:
+    for p, prec in zip(plans, recs_list):
+        if have_recs:
+            rec_parts["m_pos"].append(prec["m_pos"] + out_cursor)
+            rec_parts["m_meta"].append(prec["m_meta"])
+            rec_parts["r_pos"].append(prec["r_pos"] + out_cursor)
+            rec_parts["r_cell"].append(prec["r_cell"]
+                                       + bit_cursor // pl.CELL_BITS)
+            rec_parts["r_j0len"].append(prec["r_j0len"])
+            # Merged dense literal offsets: run r's literals start at the
+            # prefix sum of earlier run lengths (stream order).
+            rln = (prec["r_j0len"] & 0xFF).astype(np.int64)
+            lit0 = np.cumsum(rln) - rln + lit_cursor
+            rec_parts["r_lit0"].append(lit0.astype(np.int32))
+            rec_parts["lit"].append(prec["lit_bytes"])
+            lit_cursor += int(rln.sum())
+            max_cell_tokens = max(max_cell_tokens, prec["max_cell_tokens"])
         # Per-stream extent: the plan's true used virtual extent (it can
         # exceed 8*len(stream) on flush-heavy streams), rounded up to whole
         # TC-cell tiles so no tile spans two streams.  Tile-tail cells are
@@ -168,8 +217,30 @@ def build_merged_plan(streams: list[bytes],
         cell_pend=pad_cells(cell_pend_parts, 0).astype(np.int32),
         slots_exact=bool(plans) and all(p.slots_exact for p in plans),
     )
+    recs = None
+    if have_recs:
+        recs = {k: (np.concatenate(v) if v else np.zeros(0, np.int32))
+                for k, v in rec_parts.items()}
+        recs["max_cell_tokens"] = max_cell_tokens
+        # Exact tape capacity (token tape rows are 128 lanes, so slots must
+        # divide 128): the scanner's bound makes the overflow probe moot.
+        merged.slots = next(s for s in (16, 32, 64)
+                            if s >= max(max_cell_tokens, 1))
+        merged.slots_exact = True
     return MergedPlan(plan=merged, out_offsets=out_offsets,
-                      out_sizes=out_sizes)
+                      out_sizes=out_sizes, recs=recs)
+
+
+def _pad_rec_rows(a: np.ndarray, stage_rows: int) -> np.ndarray:
+    """A flat record array as (rows, 128) int32, rows padded to a multiple
+    of ``stage_rows`` plus two stages of slack, zero-filled (the layout the
+    host-fed resolver's inputs keep)."""
+    n = len(a)
+    rows = -(-max(n, 1) // 128)
+    rows = -(-rows // stage_rows) * stage_rows + 2 * stage_rows
+    out = np.zeros(rows * 128, np.int32)
+    out[:n] = a
+    return out.reshape(rows, 128)
 
 
 def prepare_merged(mp: MergedPlan, device="cuda"):

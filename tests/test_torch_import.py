@@ -29,6 +29,10 @@ MODULES = [
     "debigulator_tpu_torch.ops.scanner",
     "debigulator_tpu_torch.ops.unfilter",
     "debigulator_tpu_torch.ops._kernels",
+    "debigulator_tpu_torch.ops.archive",
+    "debigulator_tpu_torch.ops.archive.host_fed",
+    "debigulator_tpu_torch.ops.archive.inflate_generations",
+    "debigulator_tpu_torch.ops.archive.lz77_generations",
     "debigulator_tpu_torch.models.bmp_codec",
     "debigulator_tpu_torch.models.gzip_codec",
     "debigulator_tpu_torch.models.pipeline",
@@ -36,6 +40,7 @@ MODULES = [
     "debigulator_tpu_torch.models.zlib_codec",
     "debigulator_tpu_torch.parallel.merged",
     "debigulator_tpu_torch.tools.first_call",
+    "debigulator_tpu_torch.tools.profile_merged",
     "debigulator_tpu_torch.utils.logging",
     "debigulator_tpu_torch.utils.manifest",
 ]
@@ -55,6 +60,8 @@ assert inflate_device(raw, device="cpu") == data
 assert inflate_device(raw, device="cpu", use_kernels=False) == data
 img = np.arange(9 * 7 * 4, dtype=np.uint8).reshape(9, 7, 4) // 8
 assert (decode_png_device(encode_png(img, device="cpu"), device="cpu") == img).all()
+from debigulator_tpu_torch.tools.profile_merged import profile
+assert profile([raw], device="cpu", reps=1)["out_bytes"] == len(data)
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
              or k == "debigulator_tpu" or k.startswith("debigulator_tpu."))
@@ -81,7 +88,12 @@ def _entry_calls():
     from debigulator_tpu_torch.models.zlib_codec import encode_zlib
     from debigulator_tpu_torch.ops import deflate_encode_device as dev
     from debigulator_tpu_torch.ops import inflate as inf
-    from debigulator_tpu_torch.parallel.merged import decode_merged
+    from debigulator_tpu_torch.ops.archive import host_fed
+    from debigulator_tpu_torch.parallel.merged import (
+        build_merged_plan,
+        decode_merged,
+    )
+    from debigulator_tpu_torch.tools import profile_merged
 
     data = b"default device " * 100
     arr = np.frombuffer(data, np.uint8)
@@ -104,6 +116,10 @@ def _entry_calls():
         "lz77_parse_device": lambda: dev.lz77_parse_device(arr),
         "lz77_parse_device_short": lambda: dev.lz77_parse_device(arr[:5]),
         "lz77_select_device": lambda: dev.lz77_select_device(arr),
+        "build_v9_arrays": lambda: host_fed.build_v9_arrays(
+            build_merged_plan([raw], records=True), 1),
+        "profile_merged": lambda: profile_merged.profile([raw]),
+        "host_fed_inputs": lambda: profile_merged.host_fed_inputs([raw]),
     }
 
 
@@ -112,7 +128,8 @@ def _entry_calls():
     "inflate_device_dev", "decode_png_device", "decode_png_corpus_device",
     "decode_png_batch", "decode_corpus", "encode_png", "encode_zlib",
     "deflate_fixed_device", "lz77_parse_device", "lz77_parse_device_short",
-    "lz77_select_device"])
+    "lz77_select_device", "build_v9_arrays", "profile_merged",
+    "host_fed_inputs"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -194,7 +211,13 @@ def _c_params(entry: str) -> list[str]:
                                    "dbg_unfilter", "dbg_greedy_walk",
                                    "dbg_phase_a_tape", "dbg_lz77_match",
                                    "dbg_lz77_tape_place", "dbg_lz77_tape_walk",
-                                   "dbg_lz77_ops_place", "dbg_lz77_ops_walk"])
+                                   "dbg_lz77_ops_place", "dbg_lz77_ops_walk",
+                                   "dbg_lz77_tape_v1_len",
+                                   "dbg_lz77_chunks_place",
+                                   "dbg_lz77_chunks_walk",
+                                   "dbg_groups_v11_lits",
+                                   "dbg_groups_v11_unpack", "dbg_compact_v14",
+                                   "dbg_walk_v14_runs"])
 def test_ctypes_declarations_match_c_entries(entry):
     """ctypes cannot check a call against the C prototype: a missing or
     mistyped argument shifts every later one (and the stream).  Hold the
@@ -214,3 +237,132 @@ def test_ctypes_declarations_match_c_entries(entry):
             assert at is ctypes.c_int64, decl
         else:
             assert decl.startswith("int ") and at is ctypes.c_int, decl
+
+
+def _archive_calls():
+    """Each archive wrapper on small CPU inputs."""
+    from debigulator_tpu_torch.ops.archive import lz77_generations as lg
+
+    buf = torch.zeros((lg.BODY_START // 128 + 8, 128), dtype=torch.int32)
+    lim = torch.zeros(8, dtype=torch.int32)
+    words = torch.zeros((32, 128), dtype=torch.int32)
+    rows = torch.zeros((1, 128), dtype=torch.int32)
+    cells = torch.zeros((16, 8), dtype=torch.int32)
+    return {
+        "resolve_groups_v11": lambda: lg.resolve_groups_v11(
+            buf, lim, words, words, words, words, words),
+        "compact_v14": lambda: lg.compact_v14(
+            words, words, words, words, words, rows, rows, rows, rows, 4, 4,
+            16),
+        "resolve_walk_v14": lambda: lg.resolve_walk_v14(
+            buf, lim, words, words, words, words, words),
+        "resolve_tape_v1": lambda: lg.resolve_tape_v1(
+            cells, torch.zeros(16, dtype=torch.int32), 0),
+    }
+
+
+@pytest.mark.parametrize("wrapper", ["resolve_groups_v11", "compact_v14",
+                                     "resolve_walk_v14", "resolve_tape_v1"])
+def test_archive_wrappers_count_launches_only_on_the_card(wrapper):
+    """On CPU tensors an archive wrapper runs its plain version and its
+    launch count stays where it was; its kernel entries refuse CPU
+    tensors, so a CUDA-only path cannot fall back."""
+    from debigulator_tpu_torch.ops import _kernels
+    from debigulator_tpu_torch.ops.archive import lz77_generations as lg
+
+    fn = getattr(lg, wrapper)
+    before = fn.launches
+    _archive_calls()[wrapper]()
+    assert fn.launches == before
+    entries = [e for e, (lib, _) in _kernels._ENTRIES.items()
+               if lib in {"resolve_groups_v11": ("groups_v11", "lz77_chunks"),
+                          "compact_v14": ("compact_v14",),
+                          "resolve_walk_v14": ("walk_v14", "lz77_chunks"),
+                          "resolve_tape_v1": ("lz77_tape",)}[wrapper]]
+    assert entries
+    for entry in entries:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            _kernels.launch(entry, torch.zeros(4, dtype=torch.int32))
+
+
+def _archive_card_calls(empty: bool):
+    """Each archive wrapper on inputs with nothing to resolve (empty), or
+    with the least that makes it launch: literal pieces, cells, one run,
+    a tape."""
+    from debigulator_tpu_torch.ops.archive import lz77_generations as lg
+
+    i32 = torch.int32
+    buf = torch.zeros((lg.BODY_START // 128 + 8, 128), dtype=i32)
+    lim = torch.zeros(8, dtype=i32)
+    none = torch.zeros((0, 128), dtype=i32)
+    words = none if empty else torch.zeros((16, 128), dtype=i32)
+    cnt = none if empty else torch.zeros((1, 128), dtype=i32)
+    run = torch.tensor([0, 0, 0, 0 if empty else 1, 0, 0, 0, 0], dtype=i32)
+    tape = torch.zeros((0 if empty else 16, 8), dtype=i32)
+    return {
+        "resolve_groups_v11": lambda: lg.resolve_groups_v11(
+            buf, lim, none, none, words, words, words),
+        "compact_v14": lambda: lg.compact_v14(
+            words, words, words, words, words, cnt, cnt, cnt, cnt, 4, 4, 16),
+        "resolve_walk_v14": lambda: lg.resolve_walk_v14(
+            buf, lim if empty else run, none, none, words, words, words),
+        "resolve_tape_v1": lambda: lg.resolve_tape_v1(
+            tape, torch.zeros(tape.shape[0], dtype=i32), 0),
+    }
+
+
+@pytest.mark.parametrize("empty", [True, False])
+@pytest.mark.parametrize("wrapper", ["resolve_groups_v11", "compact_v14",
+                                     "resolve_walk_v14", "resolve_tape_v1"])
+def test_archive_wrappers_count_only_calls_that_launch(monkeypatch, wrapper,
+                                                       empty):
+    """The card's branch of each archive wrapper, taken here on CPU
+    tensors with the launches recorded instead of made: a call with
+    nothing to resolve launches no kernel and leaves the count as it was;
+    a call that launches adds one."""
+    from debigulator_tpu_torch.ops import _kernels
+    from debigulator_tpu_torch.ops.archive import lz77_generations as lg
+
+    made = []
+    monkeypatch.setattr(lg, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "launch", lambda entry, *a: made.append(entry))
+    fn = getattr(lg, wrapper)
+    before = fn.launches
+    _archive_card_calls(empty)[wrapper]()
+    assert bool(made) is not empty
+    assert fn.launches == before + (not empty)
+
+
+@pytest.mark.parametrize("entry", ["dbg_scan", "dbg_scan2", "dbg_pack_groups"])
+def test_native_ctypes_declarations_match_the_source(entry):
+    """The port's ctypes declarations of the native scanner entries against
+    their prototypes in native/dbg_native.cpp."""
+    import ctypes
+    import re
+    import types
+
+    from debigulator_tpu_torch import native
+
+    src = native._SRC.read_text()
+    m = re.search(r"\nint64_t " + entry + r"\(([^)]*)\)", src)
+    assert m, entry
+    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    fns = {n: types.SimpleNamespace()
+           for n in ("dbg_scan", "dbg_scan2", "dbg_pack_groups", "dbg_crc32",
+                     "dbg_adler32")}
+    native._declare(types.SimpleNamespace(**fns))
+    fn = fns[entry]
+    assert fn.restype is ctypes.c_int64
+    assert len(fn.argtypes) == len(params)
+    for decl, at in zip(params, fn.argtypes):
+        if "*" in decl:
+            assert at in (ctypes.c_void_p, ctypes.c_char_p) or (
+                hasattr(at, "_type_") and at.__name__.startswith("LP_")), decl
+            if at is not ctypes.c_void_p and at is not ctypes.c_char_p:
+                want = {"int64_t": ctypes.c_int64, "int32_t": ctypes.c_int32,
+                        "uint64_t": ctypes.c_uint64}[decl.split("*")[0].strip()]
+                assert at._type_ is want, decl
+        elif decl.startswith("uint64_t"):
+            assert at is ctypes.c_uint64, decl
+        else:
+            assert decl.startswith("int64_t") and at is ctypes.c_int64, decl

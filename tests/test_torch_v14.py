@@ -1,0 +1,205 @@
+"""The v14 driver of the PyTorch port (compact_v14, the glue of
+resolve_segmented_v14, resolve_walk_v14 and inflate_v14) against the JAX
+package (Pallas in interpret mode), the port's v13 driver and zlib, on
+device="cpu" (the kernels' plain versions).  Bit-exact everywhere."""
+
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from debigulator_tpu.ops import inflate_v3 as v3
+from debigulator_tpu.ops import lz77_pallas as ref_lz
+from debigulator_tpu.ops.archive import inflate_generations as ref_ig
+from debigulator_tpu.ops.archive import lz77_generations as ref_lzgen
+from debigulator_tpu.ops.phase_a_pallas import build_pa_arrays
+from debigulator_tpu.ops.scanner import scan_stream_cells as ref_scan
+from debigulator_tpu_torch.ops import inflate as inf
+from debigulator_tpu_torch.ops import phase_a as tpa
+from debigulator_tpu_torch.ops import plan as tp
+from debigulator_tpu_torch.ops.archive import inflate_generations as ig
+from debigulator_tpu_torch.ops.archive import lz77_generations as lzgen
+from debigulator_tpu_torch.ops.scanner import scan_stream_cells
+from torch_stream_cases import STREAMS, deflate, words
+
+CPU = torch.device("cpu")
+
+
+def _plan(stream):
+    blocks, lengths, cells = scan_stream_cells(stream, tp.CELL_BITS)
+    plan = tp.build_plan_v3(stream, blocks, lengths, cells=cells)
+    pa = tpa.stage_phase_a_inputs(tpa.build_phase_a_inputs(plan), CPU)
+    return plan, pa, tp.plan_arrays_v7(plan, CPU)
+
+
+def _spy(monkeypatch, module, name, store):
+    real = getattr(module, name)
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        store[name] = (a, k, out)
+        return out
+
+    monkeypatch.setattr(module, name, spy)
+
+
+def _port_v14(monkeypatch, stream):
+    """The port's Phase B of v14 on a stream, with the arguments and
+    results of compact_v14, segment_lims and resolve_walk_v14 kept."""
+    plan, pa, arrays = _plan(stream)
+    seen = {}
+    _spy(monkeypatch, lzgen, "compact_v14", seen)
+    _spy(monkeypatch, lzgen, "resolve_walk_v14", seen)
+    _spy(monkeypatch, ig, "segment_lims", seen)
+    tapes = tpa.phase_a(pa, plan.slots)
+    n_seg = inf.n_segments(plan.out_size)
+    body = ig.resolve_segmented_v14(*tapes, pa.bob_cell, n_seg,
+                                    arrays["stored_pos"],
+                                    arrays["stored_val"], plan.slots)
+    monkeypatch.undo()
+    return plan, pa, tapes, n_seg, body, seen
+
+
+def _concrete(x):
+    return not isinstance(x, jax.core.Tracer)
+
+
+@pytest.mark.parametrize("name", ["dynamic", "mixed", "rle"])
+def test_compact_v14(monkeypatch, name):
+    """All five outputs, padding included, on the port's own glue inputs."""
+    stream = STREAMS[name]()
+    plan, *_, seen = _port_v14(monkeypatch, stream)
+    args = seen["compact_v14"][0]
+    got = seen["compact_v14"][2]
+    want = ref_lzgen.compact_v14(*(jnp.asarray(a.numpy()) for a in args[:9]),
+                                 *args[9:], interpret=True)
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == w.shape
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("name", ["dynamic", "far"])
+def test_resolve_segmented_v14_glue(monkeypatch, name):
+    """The glue against the reference's on the same Phase A tapes: compact
+    inputs, the dense lists with the clean bits, and the body."""
+    stream = STREAMS[name]()
+    plan, pa, tapes, n_seg, body, seen = _port_v14(monkeypatch, stream)
+    ref = {}
+
+    real_compact, real_walk = ref_lzgen.compact_v14, ref_lzgen.resolve_walk_v14
+
+    def spy_compact(*a, **k):
+        ref["compact"] = a
+        return real_compact(*a, **k)
+
+    def spy_walk(out_init, lims, *lists, **k):
+        # Called inside lax.scan: the dense lists are closed-over arrays.
+        ref["walk"] = [np.asarray(x) for x in lists[:5] if _concrete(x)]
+        return real_walk(out_init, lims, *lists, **k)
+
+    monkeypatch.setattr(ref_lzgen, "compact_v14", spy_compact)
+    monkeypatch.setattr(ref_lzgen, "resolve_walk_v14", spy_walk)
+    want = ref_ig.resolve_segmented_v14(
+        *(jnp.asarray(t.numpy()) for t in tapes),
+        jnp.asarray(pa.bob_cell.numpy()), n_seg,
+        jnp.asarray(plan.stored_pos), jnp.asarray(plan.stored_val),
+        plan.slots, interpret=True)
+    monkeypatch.undo()
+    for g, w in zip(seen["compact_v14"][0][:9], ref["compact"][:9],
+                    strict=True):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    walk_args = seen["resolve_walk_v14"][0]
+    got_lists = [t.numpy() for t in walk_args[2:7]]
+    assert len(ref["walk"]) == 5
+    for g, w in zip(got_lists[:4], ref["walk"][:4], strict=True):
+        assert np.array_equal(g, w)
+    rows = got_lists[4].shape[0]  # litD: the reference pads a VMEM window
+    assert np.array_equal(got_lists[4], ref["walk"][4][:rows])
+    assert not ref["walk"][4][rows:].any()
+    assert np.array_equal(body.numpy(), np.asarray(want))
+    assert body[: plan.out_size].to(torch.uint8).numpy().tobytes() == \
+        zlib.decompress(stream, -15)
+
+
+@pytest.mark.parametrize("seg", [0, 2])
+def test_resolve_walk_v14_segment(monkeypatch, seg):
+    """One 8 KiB segment cut from a body (its window the bytes before it,
+    matches clipped at its head and end) through both walk kernels."""
+    stream = deflate(words(6000, seed=12) + bytes(range(256)) * 8, 6)
+    data = np.frombuffer(zlib.decompress(stream, -15), np.uint8)
+    *_, seen = _port_v14(monkeypatch, stream)
+    _, _, mdst, mmeta, rdst, rmeta, lit_d = seen["resolve_walk_v14"][0]
+    slots = seen["compact_v14"][0][-1]
+    seg_bytes = 8192
+    lims = ig.segment_lims(*seen["segment_lims"][0][:6],
+                           -(-len(data) // seg_bytes), seg_bytes=seg_bytes)[seg]
+    w = ref_lz.WINDOW
+    off = seg * seg_bytes
+    init = np.zeros(ref_lz.PAD + w + seg_bytes + 512, np.int32)
+    tail = data[max(0, off - w) : off].astype(np.int32)
+    init[ref_lz.PAD + w - len(tail) : ref_lz.PAD + w] = tail
+    init = torch.from_numpy(init.reshape(-1, 128))
+    got = lzgen.resolve_walk_v14(init, lims, mdst, mmeta, rdst, rmeta, lit_d)
+    lit_ref = np.zeros((lit_d.shape[0] + ref_lzgen.V14_LIT_ROWS, 128),
+                       np.int32)
+    lit_ref[: lit_d.shape[0]] = lit_d.numpy()
+    want = ref_lzgen.resolve_walk_v14(
+        jnp.asarray(init.numpy()), jnp.asarray(lims.numpy()),
+        *(jnp.asarray(t.numpy()) for t in (mdst, mmeta, rdst, rmeta)),
+        jnp.asarray(lit_ref), slots, interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    body = got.view(-1)[lzgen.BODY_START : lzgen.BODY_START + seg_bytes]
+    n = min(seg_bytes, len(data) - off)
+    assert np.array_equal(body[:n].numpy(), data[off : off + n])
+
+
+def test_inflate_v14_against_the_jit():
+    """The whole driver against _inflate_v14_jit on a few KB."""
+    data = (b"experiment " * 300 + b"\x00" * 1500
+            + bytes(np.random.default_rng(9).integers(0, 256, 1000,
+                                                      dtype=np.uint8)))
+    stream = deflate(data)
+    blocks, lengths, cells = ref_scan(stream, v3.CELL_BITS)
+    ref_plan = v3.build_plan_v3(stream, blocks, lengths, cells=cells)
+    n_seg = 1
+    want, want_of = ref_ig._inflate_v14_jit(
+        build_pa_arrays(ref_plan), v3.plan_arrays_v7(ref_plan),
+        ref_plan.slots, n_seg, interpret=True)
+    plan, pa, arrays = _plan(stream)
+    got, overflow = ig.inflate_v14(pa, arrays, plan.slots, n_seg)
+    assert not bool(overflow) and not bool(want_of)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert got[: len(data)].to(torch.uint8).numpy().tobytes() == data
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_inflate_v14(name):
+    """inflate_v14 against zlib and the port's v13 driver."""
+    stream = STREAMS[name]()
+    plan, pa, arrays = _plan(stream)
+    n_seg = inf.n_segments(plan.out_size)
+    got, overflow = ig.inflate_v14(pa, arrays, plan.slots, n_seg)
+    v13, _ = inf.inflate_v13(pa, arrays, plan.slots, n_seg)
+    assert not bool(overflow)
+    assert torch.equal(got, v13)
+    assert got[: plan.out_size].to(torch.uint8).numpy().tobytes() == \
+        zlib.decompress(stream, -15)
+
+
+def test_inflate_v14_flags_overflow_below_the_exact_slots():
+    plan, pa, arrays = _plan(STREAMS["dense"]())
+    assert plan.slots == 32
+    assert bool(ig.inflate_v14(pa, arrays, 16, 1)[1])
+
+
+def test_inflate_v14_multi_segment():
+    """A body of two 512 KiB segments, matches across the edge."""
+    data = words(150_000, seed=6)
+    plan, pa, arrays = _plan(deflate(data, 9))
+    body, overflow = ig.inflate_v14(pa, arrays, plan.slots, 2)
+    assert not bool(overflow) and body.numel() == 2 * tp.SEG_BYTES
+    assert body[: plan.out_size].to(torch.uint8).numpy().tobytes() == data
