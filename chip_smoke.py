@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the host library and the thirteen CUDA kernels from this checkout
+Builds the host library and the eighteen CUDA kernels from this checkout
 and holds every kernel bit-exact against its plain PyTorch version on the
 card.
 Each phase prints one JSON line:
@@ -48,6 +48,20 @@ Each phase prints one JSON line:
   scan, group packer and piece words by tools/profile_merged's
   host_fed_inputs, then inflate_v10) and the v14 driver, one stream through tape_v3 and the v1
   resolver, every stream checked against zlib; host ms and device ms;
+* match_v1_vs_plain, match_v2_vs_plain, groups_v9_vs_plain,
+  groups_v10_vs_plain, microbench_pb_vs_plain: the archived kernels no
+  path of the JAX package calls, on a hand-made match list (overlaps, a
+  window tail, padding rows) and one stream's tape; on one 512 KiB segment
+  cut from the middle of a body and at the 29 streams; the piece loop's
+  variants at 2^16 pieces and its full loop at 2^21, both on random
+  bytes;
+* microbench_pb: the tool's own run (python3 -m
+  debigulator_tpu_torch.tools.microbench_pb), every variant at 2^21
+  pieces, ns per piece;
+* archive_paths_2: one stream's token tape through the v2 and v1
+  match-list resolvers, the 29 streams through the record scan,
+  build_group_arrays_v10 and the v9 and v10 group kernels, every stream
+  checked against zlib; host ms and device ms;
 * kernels: per kernel its launches on its path, times and bound.
 
 The line before the last is the card's name and power limit as nvidia-smi
@@ -306,6 +320,41 @@ def check_unfilter(name, filt: torch.Tensor, h, w, bpp, uf, reps=3):
             "ms": time_ms(lambda: uf.unfilter(filt, h, w, bpp), reps),
             "plain_ms": plain_ms,
             "bound_ms": (filt.numel() + got.numel()) / HBM_BYTES_PER_S * 1e3}
+
+
+def same(name, got, want) -> int:
+    """max_abs_err of paired tensors; raises unless it is 0."""
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def spy(module, name, store):
+    """Keep the arguments of the module's calls of `name`; returns the
+    real function, which the caller puts back."""
+    real = getattr(module, name)
+
+    def wrapper(*a, **k):
+        store[name] = (a, k)
+        return real(*a, **k)
+
+    wrapper.launches = 0
+    setattr(module, name, wrapper)
+    return real
+
+
+def window_buffer(flat, off: int, body, dev):
+    """A resolver buffer of one segment: pad row, the 32 KiB of `flat`
+    (numpy bytes) before `off`, `body` (int32), four slack rows."""
+    from debigulator_tpu_torch.ops import lz77 as lz
+
+    init = torch.zeros(lz.BODY_START + body.numel() + lz.SLACK_ROWS * 128,
+                       dtype=torch.int32)
+    tail = flat[max(0, off - lz.WINDOW) : off].astype(np.int32)
+    init[lz.BODY_START - len(tail) : lz.BODY_START] = torch.from_numpy(tail)
+    init[lz.BODY_START : lz.BODY_START + body.numel()] = body.cpu()
+    return init.view(-1, 128).to(dev)
 
 
 def require_launches(path: str, launches: dict, names) -> None:
@@ -643,12 +692,6 @@ def fallback_phases(dev, base, streams):
         for off, size, want in zip(mp.out_offsets, mp.out_sizes, datas):
             if got[off : off + size].tobytes() != want:
                 raise AssertionError(f"{what}: decode is not bit-exact")
-
-    def same(name, got, want):
-        err = max_abs_err(got, want)
-        if err:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        return err
 
     def stored_of(st):
         return {"stored_pos": st.stored_pos, "stored_val": st.stored_val}
@@ -997,34 +1040,12 @@ def archive_phases(dev, streams):
 
     datas = [zlib.decompress(s, -15) for s in streams]
 
-    def same(name, got, want):
-        err = max_abs_err(got, want)
-        if err:
-            raise AssertionError(f"{name} disagrees with its plain version")
-        return err
-
     def body_of(out2d, n):
         return out2d.view(-1)[lg.BODY_START : lg.BODY_START + n]
 
     def segment_buffer(flat, off, seg):
-        """Pad row, the window before `off`, `seg` zero body bytes, slack."""
-        init = torch.zeros(lg.BODY_START + seg + lg.SLACK_ROWS * 128,
-                           dtype=torch.int32)
-        tail = flat[max(0, off - lg.WINDOW) : off].astype(np.int32)
-        init[lg.BODY_START - len(tail) : lg.BODY_START] = torch.from_numpy(tail)
-        return init.view(-1, 128).to(dev)
-
-    def spy(module, name, store):
-        """Keep the arguments of the module's calls of `name`."""
-        real = getattr(module, name)
-
-        def wrapper(*a, **k):
-            store[name] = (a, k)
-            return real(*a, **k)
-
-        wrapper.launches = 0
-        setattr(module, name, wrapper)
-        return real
+        return window_buffer(flat, off, torch.zeros(seg, dtype=torch.int32),
+                             dev)
 
     # --- the four kernels vs their plain versions ----------------------
     vs = {n: [] for n in ("groups_v11", "compact_v14", "walk_v14", "tape_v1")}
@@ -1253,6 +1274,325 @@ def archive_phases(dev, streams):
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": rec.get("library_ms")})
+    return kernels
+
+
+def match_list_case(dev, seed: int = 0, body: int = 60_000):
+    """A hand-made match list in the v2 layout (pad row, window, body):
+    a window tail of random bytes, then literals and matches laid out as a
+    valid stream: runs (dist 1-3 < len), full-length matches of 258,
+    matches reaching into the window tail up to 32768; padding entries
+    (length 0) between matches and one all-padding row.  Returns (buffer
+    with the literals placed, pos, meta) on `dev`."""
+    from debigulator_tpu_torch.ops import lz77 as lz
+
+    rng = np.random.default_rng(seed)
+    origin = lz.BODY_START
+    buf = np.zeros(((origin + body) // 128 + 8) * 128, np.int32)
+    buf[lz.PAD : origin] = rng.integers(0, 256, lz.WINDOW)
+    entries, cur = [], 0
+    while cur < body - 300:
+        if rng.random() < 0.4:
+            n = int(rng.integers(1, 20))
+            buf[origin + cur : origin + cur + n] = rng.integers(0, 256, n)
+            cur += n
+            continue
+        kind = int(rng.integers(0, 4))
+        ln = 258 if kind == 0 else int(rng.integers(3, 40))
+        if kind == 1:
+            dist = int(rng.integers(1, 4))
+        elif kind == 2:  # into the window tail while it is in reach
+            dist = int(rng.integers(min(cur + 1, lz.WINDOW), lz.WINDOW + 1))
+        else:
+            dist = int(rng.integers(1, min(cur, lz.WINDOW) + 1)) if cur else 1
+        entries.append((origin + cur, (ln << 16) | dist))
+        if len(entries) % 7 == 0:
+            entries.append((origin, 0))
+        cur += ln
+    pos = np.full((-(-len(entries) // 128) + 2) * 128, origin, np.int32)
+    meta = np.zeros(len(pos), np.int32)
+    at = [i + 128 * (i >= 128) for i in range(len(entries))]  # row 1 empty
+    pos[at] = [e[0] for e in entries]
+    meta[at] = [e[1] for e in entries]
+    return tuple(torch.from_numpy(a.reshape(-1, 128)).to(dev)
+                 for a in (buf, pos, meta))
+
+
+def archive_kernel_phases(dev, streams):
+    """The fifth slice: the v1/v2 match-list resolvers, the v9/v10 group
+    resolvers and the piece-loop microbenchmark against their plain
+    versions, the microbenchmark tool's run, then archive_paths_2: v1 and
+    v2 on one stream's token tape, v9 and the v10 kernel on the streams
+    through the record scan and build_group_arrays_v10.  Returns the five
+    kernels' entries for the `kernels` line."""
+    import contextlib
+    import io
+
+    from debigulator_tpu_torch.ops import inflate as inf
+    from debigulator_tpu_torch.ops import lz77 as lz
+    from debigulator_tpu_torch.ops import plan as tp
+    from debigulator_tpu_torch.ops.archive import host_fed as hf
+    from debigulator_tpu_torch.ops.archive import inflate_generations as ig
+    from debigulator_tpu_torch.ops.archive import lz77_generations as lg
+    from debigulator_tpu_torch.parallel.merged import build_merged_plan
+    from debigulator_tpu_torch.tools import microbench_pb as mb
+    from debigulator_tpu_torch.tools import profile_merged as pm
+
+    counted = {"match_v1": lg.resolve_matches,
+               "match_v2": lg.resolve_matches_v2,
+               "groups_v9": lg.resolve_groups_v9,
+               "groups_v10": lg.resolve_groups_v10,
+               "microbench_pb": mb.microbench}
+
+    def reset():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    datas = [zlib.decompress(s, -15) for s in streams]
+    vs = {n: [] for n in counted}
+    timed = {}
+
+    # --- rows 10e and 10f: a hand-made list, then one stream's tape ------
+    lists = {"match_v1": (lg.resolve_matches, lg.resolve_matches_plain,
+                          lz.WINDOW),
+             "match_v2": (lg.resolve_matches_v2, lg.resolve_matches_v2_plain,
+                          lz.BODY_START)}
+
+    def layout(name, buf, pos, meta):
+        """v2 inputs as they are, or in v1's layout: no pad row, positions
+        less PAD."""
+        if name == "match_v2":
+            return buf, pos, meta
+        return buf[lz.PAD // 128 :], pos - lz.PAD, meta
+
+    hand = match_list_case(dev)
+    for name, (fn, plain, _) in lists.items():
+        a = layout(name, *hand)
+        vs[name].append({"shape": "hand-made", "entries": a[1].numel(),
+                         "max_abs_err": same(f"{name} hand-made", (fn(*a),),
+                                             (plain(*a),))})
+    one = build_merged_plan(streams[:1])
+    arrays1 = tp.plan_arrays_v3(one.plan, dev)
+    out_size = one.plan.out_size
+    out_rows = inf._round_pow2(
+        -(-(out_size + lz.BODY_START + lz.MAXLEN + 512) // 128), 64)
+    m_rows = inf._round_pow2(-(-(out_size // 3 + 130) // 128), 16)
+    tail = torch.zeros(lz.WINDOW, dtype=torch.int32, device=dev)
+
+    def tape_args():
+        tape, overflow, _, _ = inf.tape_v3(arrays1, one.plan.n_bits,
+                                           one.plan.slots, exact=True)
+        if bool(overflow):
+            raise AssertionError("tape_v3 overflowed the exact slots")
+        return (tape, arrays1["cell_block"], arrays1["block_out_base"],
+                out_rows, m_rows, arrays1["stored_pos"],
+                arrays1["stored_val"], tail)
+
+    def decoded(out2d, origin, n=out_size):
+        return out2d.view(-1)[origin : origin + n].to(torch.uint8).cpu() \
+            .numpy().tobytes()
+
+    out_init, pos1, meta1, n1 = inf.match_v4_inputs(*tape_args())
+    for name, (fn, plain, origin) in lists.items():
+        a = layout(name, out_init, pos1, meta1)
+        got = fn(*a)
+        torch.cuda.synchronize()
+        rec = {"shape": "path", "entries": pos1.numel(), "matches": int(n1),
+               "max_abs_err": same(name, (got,), (plain(*a),))}
+        if decoded(got, origin) != datas[0]:
+            raise AssertionError(f"{name}: decode is not bit-exact")
+        rec["ms"] = time_ms(lambda: fn(*a), 3)
+        rec["plain_ms"] = time_ms(lambda: plain(*a), 1)
+        # The window and body read and written once; the meta of every
+        # entry (the walk has no n_matches bound), the position of each
+        # live match.
+        rec["bytes"] = 4 * (2 * (origin + out_size) + pos1.numel() + int(n1))
+        timed[name] = rec
+        vs[name].append(rec)
+    del out_init, pos1, meta1, got
+
+    # --- rows 10g and 10h: a 512 KiB segment, then the streams -----------
+    seg = tp.SEG_BYTES
+    groups = {"groups_v9": (lg.resolve_groups_v9, lg.resolve_groups_v9_plain),
+              "groups_v10": (lg.resolve_groups_v10,
+                             lg.resolve_groups_v10_plain)}
+
+    def group_inputs(batch):
+        mp = build_merged_plan(batch, records=True)
+        n_seg = inf.n_segments(mp.plan.out_size)
+        arrays = hf.build_group_arrays_v10(mp.recs, n_seg, device=dev)
+        runs = hf.literal_runs(mp.recs, device=dev)
+        stored = (torch.from_numpy(np.asarray(mp.plan.stored_pos,
+                                              np.int32)).to(dev),
+                  torch.from_numpy(np.asarray(mp.plan.stored_val,
+                                              np.uint8)).to(dev))
+        return mp, n_seg, arrays, runs, stored
+
+    for label, k in (("small", 2), ("path", len(streams))):
+        mp, n_seg, arrays, runs, stored = group_inputs(streams[:k])
+        seen = {}
+        real9 = spy(lg, "resolve_groups_v9", seen)
+        real10 = spy(lg, "resolve_groups_v10", seen)
+        try:
+            ig.inflate_v9(runs, arrays, *stored, n_seg)
+            ig.inflate_v10_wide(arrays, *stored, n_seg)
+        finally:
+            lg.resolve_groups_v9, lg.resolve_groups_v10 = real9, real10
+        flat = np.frombuffer(b"".join(datas[:k]), np.uint8)
+        for name, (fn, plain) in groups.items():
+            a = seen[f"resolve_{name}"][0]
+            got = fn(*a)
+            torch.cuda.synchronize()
+            rec = {"shape": label, "streams": k, "n_seg": n_seg,
+                   "max_abs_err": same(name, (got,), (plain(*a),))}
+            pm.check(got.view(-1)[lz.BODY_START:], mp, datas[:k])
+            if label == "path":
+                rec["ms"] = time_ms(lambda: fn(*a), 3)
+                rec["plain_ms"] = time_ms(lambda: plain(*a), 1)
+                lims = a[1]
+                n_pieces = int(((a[3].view(-1).long() >> 16) > 0).sum())
+                rec["pieces"] = n_pieces
+                # The window and bodies read and written once, two words a
+                # live piece, the limits; for v10 two words a literal piece
+                # and the literal bytes.
+                b = 2 * (lz.BODY_START + len(flat)) + 2 * n_pieces \
+                    + lims.numel()
+                if name == "groups_v10":
+                    rec["literal_pieces"] = int((lims[:, 4] - lims[:, 3]).sum())
+                    b += 2 * rec["literal_pieces"] + len(mp.recs["lit"])
+                rec["bytes"] = 4 * b
+                timed[name] = rec
+            else:
+                # Segment 1 alone, the reference's kernel-call shape: its
+                # window the bytes before it, its body as the driver placed
+                # it (literal runs and stored bytes for v9, stored bytes for
+                # v10).
+                body = a[0].view(-1)[lz.BODY_START + seg : lz.BODY_START + 2 * seg]
+                call = (window_buffer(flat, seg, body, dev),
+                        a[1][1].contiguous(), *a[2:])
+                got1 = fn(*call)
+                torch.cuda.synchronize()
+                err = same(f"{name} segment", (got1,), (plain(*call),))
+                n = min(seg, len(flat) - seg)
+                if decoded(got1, lz.BODY_START, n) != flat[seg : seg + n].tobytes():
+                    raise AssertionError(f"{name}: segment is not bit-exact")
+                vs[name].append({"shape": "segment 1", "seg_off": seg,
+                                 "max_abs_err": err})
+            vs[name].append(rec)
+        del seen, got, arrays, runs
+
+    # --- row 11: the piece loop, every variant against the plain one -----
+    # Checked on a buffer of random bytes, so that a wrong source, order or
+    # mask shows (on zeros every copy leaves zeros); the tool's zero buffer
+    # is for timing only.
+    rand = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (mb.ROWS, 128)).astype(np.int32)).to(dev)
+    idle = ("noop", "noop8", "scalar_smem")  # they store nothing
+
+    def mb_check(v, w0, w1):
+        want = mb.microbench_plain(v, w0, w1, rand)
+        if v not in idle and bool(torch.equal(want, rand)):
+            raise AssertionError(f"microbench {v}: the plain version "
+                                 "leaves the check's buffer as it was")
+        return same(f"microbench {v}", (mb.microbench(v, w0, w1, rand),),
+                    (want,))
+
+    n_red = 1 << 16
+    w0, w1 = (torch.from_numpy(w).to(dev) for w in mb.make_pieces(n_red))
+    errs = {v: mb_check(v, w0, w1) for v in mb.VARIANTS if v != "nodma"}
+    vs["microbench_pb"].append({"shape": "reduced", "pieces": n_red,
+                                "max_abs_err": errs})
+    w0, w1 = (torch.from_numpy(w).to(dev) for w in mb.make_pieces())
+    rec = {"shape": "path", "pieces": mb.N_PIECES,
+           "max_abs_err": mb_check("full", w0, w1)}
+    init = torch.zeros((mb.ROWS, 128), dtype=torch.int32, device=dev)
+    rec["ms"] = mb.run_variant("full", w0, w1, init)
+    rec["plain_ms"] = time_ms(lambda: mb.microbench_plain("full", w0, w1,
+                                                          init), 1)
+    # Two words a piece read once, the buffer read and written once.
+    rec["bytes"] = 4 * (2 * mb.N_PIECES + 2 * init.numel())
+    timed["microbench_pb"] = rec
+    vs["microbench_pb"].append(rec)
+    del w0, w1, rand
+    for name, shp in vs.items():
+        emit({"phase": f"{name}_vs_plain", "max_abs_err": 0, "shapes": shp})
+
+    # The tool's own run is the microbenchmark's path.
+    reset()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        mb.main()
+    torch.cuda.synchronize()
+    dmb = counts()
+    require_launches("microbench_pb", dmb, ("microbench_pb",))
+    emit({"phase": "microbench_pb", "pieces": mb.N_PIECES,
+          "lines": text.getvalue().splitlines(), "launches": dmb})
+
+    # --- archive_paths_2: v2 and v1 on one stream, v9 and v10 on all ------
+    # Each path is driven once with the counts set to 0 just before it and
+    # read just after; timing repeats come after the read.
+    paths, launches = {}, dict(dmb)
+    for name, driver in (("match_v2", ig.resolve_tape_matches_v2),
+                         ("match_v1", ig.resolve_tape_matches_v1)):
+        reset()
+        t0 = time.perf_counter()
+        got = driver(*tape_args())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        d = counts()
+        if decoded(got, lists[name][2]) != datas[0]:
+            raise AssertionError(f"{name} path: decode is not bit-exact")
+        require_launches(f"archive_paths_2, {name}", d, (name,))
+        paths[name] = {"out_bytes": out_size, "tape_v3_and_resolve_ms": ms,
+                       "launches": d}
+        launches = {k: launches[k] + d[k] for k in counted}
+
+    t0 = time.perf_counter()
+    mp, n_seg, arrays, runs, stored = group_inputs(streams)
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    for name, run in (
+            ("groups_v9", lambda: ig.inflate_v9(runs, arrays, *stored, n_seg)),
+            ("groups_v10", lambda: ig.inflate_v10_wide(arrays, *stored,
+                                                       n_seg))):
+        reset()
+        body = run()
+        torch.cuda.synchronize()
+        d = counts()
+        pm.check(body, mp, datas)
+        require_launches(f"archive_paths_2, {name}", d, (name,))
+        paths[name] = {"device_ms": host_ms(
+            lambda: (run(), torch.cuda.synchronize())), "launches": d}
+        launches = {k: launches[k] + d[k] for k in counted}
+    paths["host_scan_and_prep_ms"] = prep_ms
+    emit({"phase": "archive_paths_2", "streams": len(streams),
+          "out_bytes": sum(map(len, datas)), "bit_exact": True, **paths,
+          "launches": launches})
+
+    sources = {
+        "match_v1": ("debigulator_tpu_torch/csrc/lz77_match.cu",
+                     "debigulator_tpu/ops/archive/lz77_generations.py:171"),
+        "match_v2": ("debigulator_tpu_torch/csrc/lz77_match.cu",
+                     "debigulator_tpu/ops/archive/lz77_generations.py:231"),
+        "groups_v9": ("debigulator_tpu_torch/csrc/groups_v9.cu",
+                      "debigulator_tpu/ops/archive/lz77_generations.py:345"),
+        "groups_v10": ("debigulator_tpu_torch/csrc/groups_v9.cu",
+                       "debigulator_tpu/ops/archive/lz77_generations.py:431"),
+        "microbench_pb": ("debigulator_tpu_torch/csrc/microbench_pb.cu",
+                          "tools/microbench_pb.py:31"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        rec = timed[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": 0, "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bytes"] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None})
     return kernels
 
 
@@ -1514,6 +1854,10 @@ def main() -> int:
     # --- the fourth slice: the archived decode generations --------------
     torch.cuda.empty_cache()
     kernels += archive_phases(dev, streams)
+
+    # --- the fifth slice: the archive and tool kernels with no caller ----
+    torch.cuda.empty_cache()
+    kernels += archive_kernel_phases(dev, streams)
 
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -27,8 +27,7 @@
 // What bounds it on the H100: (a) and (b) bytes, the words and literals
 // read once; (c) latency (lz77_copy.cuh).
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "lz77_copy.cuh"
 
 namespace {
 
@@ -47,20 +46,7 @@ __device__ __forceinline__ Piece unpack(int w0, int w1) {
   return p;
 }
 
-// The segment whose slot range [lims[k][lo], lims[k][hi]) holds slot t, or
-// -1.  The ranges rise with k; the last k with lims[k][lo] <= t is tried.
-__device__ __forceinline__ int segment_of(const int* __restrict__ lims,
-                                          int n_seg, int lo, int hi,
-                                          int64_t t) {
-  int a = 0, b = n_seg;
-  while (a < b) {
-    const int m = (a + b) >> 1;
-    if (lims[m * 8 + lo] <= t) a = m + 1;
-    else b = m;
-  }
-  const int k = a - 1;
-  return (k >= 0 && t < lims[k * 8 + hi]) ? k : -1;
-}
+using lz77::segment_of;
 
 __global__ void lit_kernel(int* out, int64_t n_out,
                            const int* __restrict__ lims, int n_seg,

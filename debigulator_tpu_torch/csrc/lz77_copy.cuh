@@ -1,6 +1,7 @@
 // In-order LZ77 match application for Hopper, shared by the three
-// resolvers of ops/lz77.py (lz77_match.cu, lz77_tape.cu, lz77_ops.cu) and
-// by the flat match-list walk of the archive resolvers (lz77_chunks.cu).
+// resolvers of ops/lz77.py (lz77_match.cu, lz77_tape.cu, lz77_ops.cu), by
+// the flat match-list walk of the archive resolvers (lz77_chunks.cu) and
+// by the group walks (groups_v9.cu, and groups_v11.cu's segment lookup).
 //
 // A DEFLATE match copies `len` bytes from `dist` bytes back; matches must
 // take effect in stream order because a source may be bytes an earlier
@@ -110,6 +111,22 @@ __device__ __forceinline__ int clip_match(int* dst, int len, int body_start,
   *dst += delta;
   eff = min(eff, max(body_end - *dst, 0));
   return eff;
+}
+
+// The segment whose slot range [lims[k][lo], lims[k][hi]) holds slot t, or
+// -1.  lims rows are 8 ints; the ranges rise with k, and the last k with
+// lims[k][lo] <= t is tried.
+__device__ __forceinline__ int segment_of(const int* __restrict__ lims,
+                                          int n_seg, int lo, int hi,
+                                          int64_t t) {
+  int a = 0, b = n_seg;
+  while (a < b) {
+    const int m = (a + b) >> 1;
+    if (lims[m * 8 + lo] <= t) a = m + 1;
+    else b = m;
+  }
+  const int k = a - 1;
+  return (k >= 0 && t < lims[k * 8 + hi]) ? k : -1;
 }
 
 inline int launch_walk_cells(int* out, int64_t limit, const int* mpos,

@@ -6,6 +6,12 @@
 // meta[i] = len << 16 | dist; entries from n_matches on and entries of
 // length 0 do nothing.
 //
+// The archived match-list kernels _match_kernel (v1) and _match_kernel_v2
+// (v2) (debigulator_tpu/ops/archive/lz77_generations.py:171 and :231) are
+// this walk over their whole list (n_matches = every entry, padding of
+// length 0 included); their layouts differ only in where the buffer
+// starts, which their wrappers in ops/archive/lz77_generations.py check.
+//
 // One CTA, 32 matches a batch, a warp per match (lz77_copy.cuh).  Warp w
 // holds match s + w and its lanes test it against the earlier members
 // s + 0 .. s + w - 1 exactly: it may not read what one of them writes,

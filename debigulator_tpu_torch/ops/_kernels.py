@@ -28,10 +28,12 @@ SOURCES = {"phase_a": "phase_a.cu", "compact": "compact.cu", "walk": "walk.cu",
            "lz77_match": "lz77_match.cu", "lz77_tape": "lz77_tape.cu",
            "lz77_ops": "lz77_ops.cu", "lz77_chunks": "lz77_chunks.cu",
            "groups_v11": "groups_v11.cu", "compact_v14": "compact_v14.cu",
-           "walk_v14": "walk_v14.cu"}
+           "walk_v14": "walk_v14.cu", "groups_v9": "groups_v9.cu",
+           "microbench_pb": "microbench_pb.cu"}
 #: Headers a source includes: hashed with it, so an edit rebuilds it.
-HEADERS = {"lz77_match": ["lz77_copy.cuh"], "lz77_tape": ["lz77_copy.cuh"],
-           "lz77_ops": ["lz77_copy.cuh"], "lz77_chunks": ["lz77_copy.cuh"]}
+HEADERS = {name: ["lz77_copy.cuh"]
+           for name in ("lz77_match", "lz77_tape", "lz77_ops", "lz77_chunks",
+                        "groups_v11", "groups_v9")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -70,6 +72,11 @@ _ENTRIES = {
                                         _I64]),
     "dbg_walk_v14_runs": ("walk_v14", [_P, _I32, _I32, _P, _P, _I32, _I32, _P,
                                        _I64]),
+    "dbg_groups_v10_lits": ("groups_v9", [_P, _I64, _P, _I32, _P, _P, _I64,
+                                          _P, _I64]),
+    "dbg_groups_v9_walk": ("groups_v9", [_P, _I64, _P, _P, _P, _P, _I32]),
+    "dbg_microbench_pb": ("microbench_pb", [_P, _I64, _P, _P, _I32, _I32,
+                                            _I32, _I32]),
 }
 
 _FNS: dict = {}

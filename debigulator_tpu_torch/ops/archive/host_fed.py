@@ -7,7 +7,8 @@ matches, literal runs and literal bytes; the native packer
 8 pieces; here every piece, match or literal, becomes two packed words
 that ``lz77_generations.resolve_groups_v11`` unpacks.  Numpy throughout,
 bit-exact with the reference; the results are tensors on the caller's
-device.
+device.  ``build_group_arrays_v10`` and ``literal_runs`` are the inputs of
+the earlier v10 and v9 group kernels.
 """
 
 from __future__ import annotations
@@ -137,4 +138,102 @@ def build_piece_arrays(recs: dict, n_seg: int, seg_bytes: int | None = None,
             "gmeta": _pad_rec_rows(g_meta, sr),
             "lpos": _pad_rec_rows(l_pos, sr), "lmeta": _pad_rec_rows(l_meta, sr),
             "lit": lit32.reshape(lr, 128)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def build_group_arrays_v10(recs: dict, n_seg: int, seg_bytes: int | None = None,
+                           device="cuda") -> dict:
+    """Inputs of the v10 group kernel (``lz77_generations.
+    resolve_groups_v10``; v9 takes lims, gpos and gmeta): matches packed
+    into conflict-free groups of 8 (native dbg_pack_groups, len <= 128),
+    literal runs as pieces over the dense literal array.
+
+    The JAX package holds no such function at HEAD: this is the packing of
+    the v10 era, ``build_v9_arrays`` of debigulator_tpu/parallel/merged.py
+    at the parent of commit 579264c (:211-300), which then moved the
+    pieces to the row-split words of ``build_piece_arrays``.  gpos/gmeta
+    are the packer's stream-global destinations and len << 16 | dist.
+    Literal pieces are cut at segment boundaries only (a run is at most 64
+    bytes), lpos = the destination, lmeta = len << 20 | rel with rel the
+    first byte's offset from the segment's literal row base plus 128;
+    padding slots hold the segment's offset and meta 0.
+
+    Returns {"lims": (n_seg, 8) rows of (match slot lo, hi, segment
+    offset, literal slot lo, hi, literal row base, 0, 0), "gpos"/"gmeta",
+    "lpos"/"lmeta" ((rows, 128), _pad_rec_rows), "lit": (Lr, 128) the
+    literal bytes padded by one segment's literal window}, int32 tensors on
+    ``device``."""
+    dev = resolve_device(device)
+    seg = seg_bytes if seg_bytes is not None else SEG_BYTES
+    g_pos, g_meta, seg_lo, seg_hi = pack_groups(recs["m_pos"], recs["m_meta"],
+                                                seg, n_seg)
+
+    rln = recs["r_j0len"].astype(np.int64) & 0xFF
+    dst = recs["r_pos"].astype(np.int64)
+    lit0 = recs["r_lit0"].astype(np.int64)
+    boundary = (dst // seg + 1) * seg
+    len_a = np.minimum(rln, boundary - dst)
+    p_dst = np.stack([dst, boundary], 1).reshape(-1)
+    p_lit = np.stack([lit0, lit0 + len_a], 1).reshape(-1)
+    p_len = np.stack([len_a, rln - len_a], 1).reshape(-1)
+    keep = p_len > 0
+    p_dst, p_lit, p_len = p_dst[keep], p_lit[keep], p_len[keep]
+    # Array order is output order, so a stable bucketing keeps the literal
+    # offsets rising inside each segment.
+    seg_id = np.clip(p_dst // seg, 0, n_seg - 1)
+    order = np.argsort(seg_id, kind="stable")
+    p_dst, p_lit, p_len, seg_id = (p_dst[order], p_lit[order], p_len[order],
+                                   seg_id[order])
+    counts = np.bincount(seg_id, minlength=n_seg)
+    padded = -(-counts // lzgen.V9_GROUP) * lzgen.V9_GROUP
+    starts_in = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    starts_out = np.concatenate([[0], np.cumsum(padded)[:-1]])
+    n_slots = int(padded.sum())
+    # Padding slots: the segment's offset, meta 0.
+    l_pos = np.repeat(np.arange(n_seg, dtype=np.int64) * seg, padded)
+    l_meta = np.zeros(n_slots, np.int64)
+    lit_row_base = np.zeros(n_seg, np.int32)
+    if len(p_dst):
+        seg_has = counts > 0
+        first_lit = np.zeros(n_seg, np.int64)
+        first_lit[seg_has] = p_lit[starts_in[np.nonzero(seg_has)[0]]]
+        lit_row_base = (first_lit >> 7).astype(np.int32)
+        rel = p_lit - (lit_row_base.astype(np.int64)[seg_id] << 7) + 128
+        if rel.max() >= 1 << 20:
+            raise ValueError("a segment's literal slice overflows 20 bits")
+        slot = starts_out[seg_id] + np.arange(len(p_dst)) - starts_in[seg_id]
+        l_pos[slot] = p_dst
+        l_meta[slot] = (p_len << 20) | rel
+
+    lims = np.zeros((n_seg, 8), np.int32)
+    lims[:, 0] = seg_lo
+    lims[:, 1] = seg_hi
+    lims[:, 2] = (np.arange(n_seg, dtype=np.int64) * seg).astype(np.int32)
+    lims[:, 3] = starts_out
+    lims[:, 4] = starts_out + counts
+    lims[:, 5] = lit_row_base
+
+    lit = recs["lit"]
+    lr = -(-max(len(lit), 1) // 128) + lzgen._lit_scratch_rows(seg)
+    lit32 = np.zeros(lr * 128, np.int32)
+    lit32[: len(lit)] = lit
+    sr = lzgen.V9_STAGE_ROWS
+    host = {"lims": lims, "gpos": _pad_rec_rows(g_pos, sr),
+            "gmeta": _pad_rec_rows(g_meta, sr),
+            "lpos": _pad_rec_rows(l_pos.astype(np.int32), sr),
+            "lmeta": _pad_rec_rows(l_meta.astype(np.int32), sr),
+            "lit": lit32.reshape(lr, 128)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+
+
+def literal_runs(recs: dict, device="cuda") -> dict:
+    """The scanner's literal runs as tensors on ``device``, for the v9
+    decode's scatter: {"pos": output offset, "lit0": first byte's index in
+    "lit", "len": run length}, int64, and "lit": the dense literal bytes,
+    uint8."""
+    dev = resolve_device(device)
+    host = {"pos": recs["r_pos"].astype(np.int64),
+            "lit0": recs["r_lit0"].astype(np.int64),
+            "len": recs["r_j0len"].astype(np.int64) & 0xFF,
+            "lit": np.asarray(recs["lit"], np.uint8)}
     return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}

@@ -1,5 +1,6 @@
 """Superseded decode drivers: the host-fed v10 and the v14 (the port of
-debigulator_tpu/ops/archive/inflate_generations.py).
+debigulator_tpu/ops/archive/inflate_generations.py), and the drivers of
+the archived kernels that no path of the JAX package calls any more.
 
 * ``inflate_v10`` (``_inflate_v10_jit``): the host scan's records, packed
   by host_fed.build_v9_arrays, go straight to the group resolver
@@ -7,6 +8,17 @@ debigulator_tpu/ops/archive/inflate_generations.py).
 * ``inflate_v14`` (``_inflate_v14_jit``): the Phase A kernel, then
   ``resolve_segmented_v14``: glue, ``compact_v14`` and
   ``resolve_walk_v14``.
+* ``inflate_v9`` (``resolve_groups_segmented_v9`` of debigulator_tpu/ops/
+  inflate_v3.py at commit 6555e4e, :973-1010): the scanner's literal runs
+  and the stored bytes scattered with tensor ops, then the v9 group
+  kernel over host_fed.build_group_arrays_v10's match groups.
+* ``inflate_v10_wide``: the v10 kernel over the same packing, its literal
+  pieces not split at rows (``resolve_groups_v10``, the kernel the
+  reference's ``inflate_v10`` ran before commit 579264c).
+* ``resolve_tape_matches_v2`` / ``_v1``: a token tape through
+  ``ops.inflate.match_v4_inputs`` into the v2 match-list kernel (as
+  debigulator_tpu/ops/inflate_v3.py at commit c1475b8 drove it, :677 and
+  :763), or into the v1 kernel without the pad row.
 
 The reference resolves one 512 KiB segment per kernel call in a scan that
 carries the 32 KiB window; the card holds the whole body, so each driver
@@ -18,7 +30,9 @@ from __future__ import annotations
 
 import torch
 
+from debigulator_tpu_torch.ops import inflate as inf
 from debigulator_tpu_torch.ops import lz77 as lz
+from debigulator_tpu_torch.ops.phase_b import _expand
 from debigulator_tpu_torch.ops.archive import lz77_generations as lzgen
 from debigulator_tpu_torch.ops.phase_a import PhaseAInputs, phase_a
 from debigulator_tpu_torch.ops.plan import SEG_BYTES
@@ -192,3 +206,71 @@ def inflate_v14(pa: PhaseAInputs, arrays: dict, slots: int, n_seg: int):
                                  pa.bob_cell, n_seg, arrays["stored_pos"],
                                  arrays["stored_val"], slots)
     return body, overflow
+
+
+def resolve_groups_segmented_v9(runs: dict, v9: dict, n_seg: int,
+                                stored_pos, stored_val) -> torch.Tensor:
+    """Phase B of the v9 decode: (n_seg * SEG_BYTES,) int32 body.
+
+    runs: host_fed.literal_runs (the scanner's literal runs; in the
+    reference the same bytes came from the Phase A tape); v9:
+    host_fed.build_group_arrays_v10 (lims, gpos, gmeta are read).  The
+    literal runs, then the stored bytes, are scattered into the body; one
+    ``resolve_groups_v9`` call resolves every segment (the reference ran
+    one kernel call per 512 KiB segment with the window carried)."""
+    total = n_seg * SEG_BYTES
+    dev = v9["gpos"].device
+    body = torch.zeros(total, dtype=torch.int32, device=dev)
+    rec, o = _expand(runs["len"])
+    pos = runs["pos"][rec] + o
+    keep = pos < total
+    body[pos[keep]] = runs["lit"][(runs["lit0"][rec] + o)[keep]].to(torch.int32)
+    _place_stored(body, stored_pos, stored_val)
+    out2d = lzgen.resolve_groups_v9(_buffer(body), v9["lims"], v9["gpos"],
+                                    v9["gmeta"])
+    return _body_of(out2d, total)
+
+
+def inflate_v9(runs: dict, v9: dict, stored_pos, stored_val, n_seg: int):
+    """The v9 decode's device part: the body, (n_seg * SEG_BYTES,) int32,
+    from the literal runs, the match groups and the stored bytes."""
+    return resolve_groups_segmented_v9(runs, v9, n_seg, stored_pos,
+                                       stored_val)
+
+
+def inflate_v10_wide(v9: dict, stored_pos, stored_val, n_seg: int):
+    """The host-fed decode through the v10 kernel: the body, (n_seg *
+    SEG_BYTES,) int32.  v9: host_fed.build_group_arrays_v10.  The stored
+    bytes are placed, then one ``resolve_groups_v10`` call resolves every
+    segment."""
+    total = n_seg * SEG_BYTES
+    body = torch.zeros(total, dtype=torch.int32, device=v9["gpos"].device)
+    _place_stored(body, stored_pos, stored_val)
+    out2d = lzgen.resolve_groups_v10(
+        _buffer(body), v9["lims"], v9["gpos"], v9["gmeta"], v9["lpos"],
+        v9["lmeta"], v9["lit"])
+    return _body_of(out2d, total)
+
+
+def resolve_tape_matches_v2(tape, cell_block, block_out_base, out_rows: int,
+                            m_rows: int, stored_pos, stored_val, tail):
+    """A token tape through the v2 match-list kernel: ``ops.inflate.
+    match_v4_inputs`` (literals, stored bytes and the window tail placed,
+    matches compacted in order) into ``resolve_matches_v2``.  Returns the
+    (out_rows, 128) buffer, pad row and window first."""
+    out_init, pos, meta, _ = inf.match_v4_inputs(
+        tape, cell_block, block_out_base, out_rows, m_rows, stored_pos,
+        stored_val, tail)
+    return lzgen.resolve_matches_v2(out_init, pos, meta)
+
+
+def resolve_tape_matches_v1(tape, cell_block, block_out_base, out_rows: int,
+                            m_rows: int, stored_pos, stored_val, tail):
+    """The same inputs through the v1 kernel: the buffer without its pad
+    row and the positions less PAD.  Returns the (out_rows - 1, 128)
+    buffer, window first."""
+    out_init, pos, meta, _ = inf.match_v4_inputs(
+        tape, cell_block, block_out_base, out_rows, m_rows, stored_pos,
+        stored_val, tail)
+    return lzgen.resolve_matches(out_init[lz.PAD // 128 :], pos - lz.PAD,
+                                 meta)

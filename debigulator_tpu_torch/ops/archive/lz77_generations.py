@@ -1,8 +1,8 @@
-"""Superseded LZ77 generations of the host-fed and v14 decodes, and the
-first tape resolver (the port of debigulator_tpu/ops/archive/
-lz77_generations.py, the kernels that its live paths reach).
+"""Superseded LZ77 generations: the host-fed, v14 and v1 resolvers and
+the archived match-list and group resolvers (the port of
+debigulator_tpu/ops/archive/lz77_generations.py, every kernel it holds).
 
-Four functions, each behind one wrapper with its plain PyTorch twin and a
+Eight functions, each behind one wrapper with its plain PyTorch twin and a
 launch count:
 
 * ``resolve_groups_v11`` (replaces ``_group_kernel_v11`` :609): Phase B
@@ -14,6 +14,13 @@ launch count:
   lists applied: literal runs, then matches in stream order.
 * ``resolve_tape_v1`` (replaces ``_lz77_kernel`` :49, the counterpart of
   ``resolve_tape_pallas`` :806): the whole token tape to bytes.
+* ``resolve_matches`` and ``resolve_matches_v2`` (replace ``_match_kernel``
+  :171 and ``_match_kernel_v2`` :231): a match list applied in order to a
+  buffer whose literals are placed; v1's buffer has no pad row.
+* ``resolve_groups_v9`` and ``resolve_groups_v10`` (replace
+  ``_group_kernel_v9`` :345 and ``_group_kernel_v10`` :431): the packer's
+  match groups of 8, each group's loads before its stores (v10 first
+  copies its literal pieces from the dense literal bytes).
 
 Buffers are one int32 per byte, (rows, 128), laid out as the reference's
 and ops.lz77's: one pad row, the 32 KiB window prologue, the body, and 4
@@ -26,12 +33,14 @@ The wrappers return a new buffer and leave ``out_init`` as it was.
 On the card each resolver is a grid-wide pass for what reads no output
 (literal pieces, literal runs, literals of the tape), then a pass that
 applies the matches in order, a warp per chunk of 8 matches (or per cell
-of the tape), up to 32 a batch, one CTA per range of matches that share no
-byte with another range (csrc/lz77_chunks.cu, csrc/lz77_tape.cu).  A
-wrapper adds one to its launch count in a call that launched a kernel, and
-nowhere else.  The plain versions
-place the literals, point every match byte at its source byte and follow
-the pointers by doubling (ops.lz77._apply_copies_plain).
+of the tape, per match of a list, per group), up to 32 a batch, one CTA per
+range of matches that share no byte with another range (csrc/
+lz77_chunks.cu, lz77_tape.cu, lz77_match.cu, groups_v9.cu).  A wrapper adds
+one to its launch count in a call that launched a kernel, and nowhere
+else.  The plain versions place the literals, point every match byte at
+its source byte and follow the pointers by doubling (ops.lz77.
+_apply_copies_plain; for the group resolvers, whose loads precede their
+group's stores, ``_group_walk_plain``).
 """
 
 from __future__ import annotations
@@ -476,3 +485,294 @@ def resolve_tape_v1(tape, counts, out_size: int) -> torch.Tensor:
 
 
 resolve_tape_v1.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# v1 and v2: match lists over placed literals
+# ---------------------------------------------------------------------------
+
+
+def _check_list(out_init, pos, meta, prologue: int) -> None:
+    _check_i32(out_init, pos, meta)
+    if any(t.dim() != 2 or t.shape[1] != 128 for t in (out_init, pos, meta)):
+        raise ValueError("the buffer and the list are (rows, 128) arrays")
+    if pos.shape != meta.shape:
+        raise ValueError("pos and meta must have one shape")
+    if out_init.numel() < prologue:
+        raise ValueError("the buffer has no room for its window prologue")
+
+
+def resolve_matches_plain(out_init, match_pos, match_meta):
+    out = out_init.reshape(-1).clone()
+    m = match_meta.reshape(-1).long()
+    lz._apply_copies_plain(out, match_pos.reshape(-1).long(), m >> 16,
+                           m & 0xFFFF)
+    return out.view_as(out_init)
+
+
+def resolve_matches(out_init, match_pos, match_meta):
+    """Apply a match list in order (v1 layout).
+
+    out_init: (rows, 128) int32 with no pad row: the 32 KiB window
+    prologue, then the body with its literals (and stored bytes) placed.
+    match_pos/match_meta: (Mr, 128) int32, every row in order: the
+    destination (offset by WINDOW) and len << 16 | dist; entries of length
+    0 are padding.  ``dist < len`` repeats the pattern.  Returns the
+    resolved buffer.
+
+    CUDA kernel (csrc/lz77_match.cu, ``dbg_lz77_match``, row 8's list
+    walk over every entry): one CTA walks the whole list, 32 matches a
+    batch, a warp per match.
+    """
+    _check_list(out_init, match_pos, match_meta, WINDOW)
+    if _plain_here(out_init):
+        return resolve_matches_plain(out_init, match_pos, match_meta)
+    out = out_init.clone()
+    if match_pos.numel():
+        _kernels.launch("dbg_lz77_match", out, out.numel(), match_pos,
+                        match_meta, match_pos.numel())
+        resolve_matches.launches += 1
+    return out
+
+
+resolve_matches.launches = 0
+
+
+#: The two layouts differ only in where the buffer starts.
+resolve_matches_v2_plain = resolve_matches_plain
+
+
+def resolve_matches_v2(out_init, match_pos, match_meta):
+    """Apply a match list in order (v2 layout).
+
+    out_init: (rows, 128) int32: row 0 the pad row, then the window
+    prologue, then the body with its literals placed (the layout of
+    ``ops.inflate.match_v4_inputs``).  match_pos/match_meta: (Mr, 128)
+    int32, every row in order: the destination (offset by PAD + WINDOW)
+    and len << 16 | dist; entries of length 0 are padding.  Returns the
+    resolved buffer.
+
+    CUDA kernel: the v1 walk (csrc/lz77_match.cu, ``dbg_lz77_match``).
+    """
+    _check_list(out_init, match_pos, match_meta, BODY_START)
+    if _plain_here(out_init):
+        return resolve_matches_v2_plain(out_init, match_pos, match_meta)
+    out = out_init.clone()
+    if match_pos.numel():
+        _kernels.launch("dbg_lz77_match", out, out.numel(), match_pos,
+                        match_meta, match_pos.numel())
+        resolve_matches_v2.launches += 1
+    return out
+
+
+resolve_matches_v2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# v9 and v10: the packer's match groups
+# ---------------------------------------------------------------------------
+
+#: Longest piece of a v9/v10 group (the packer cuts matches at 128 bytes;
+#: the card's walk holds 128 bytes a piece, 4 a lane).
+V9_MAX_PIECE = 128
+
+
+def _group_live(lims, lo_col: int, hi_col: int, n: int):
+    """Per slot, its segment and whether its group's first slot lies in
+    that segment's [lo, hi) (a group never spans segments)."""
+    seg, live = _slot_segments(lims, lo_col, hi_col, n)
+    first = torch.arange(n, device=lims.device) // V9_GROUP * V9_GROUP
+    return seg[first], live[first]
+
+
+def _match_pieces(lims, gpos, gmeta):
+    """The live match pieces of a group list in slot order: (buffer
+    position, length, distance, group).  Positions are stream-global: a
+    piece at p lands at p - lims[0, 2] + BODY_START."""
+    lims = lims.long()
+    n = gpos.numel()
+    _, live = _group_live(lims, 0, 1, n)
+    m = gmeta.reshape(-1).long()
+    ln = (m >> 16).clamp(max=V9_MAX_PIECE)
+    live &= ln > 0
+    dst = gpos.reshape(-1).long() - lims[0, 2] + BODY_START
+    group = torch.arange(n, device=gpos.device) // V9_GROUP
+    return dst[live], ln[live], (m & 0xFFFF)[live], group[live]
+
+
+def _lit_pieces(lims, lpos, lmeta):
+    """The live literal pieces in slot order: (buffer position, length,
+    flat index of the first byte in the literal array)."""
+    lims = lims.long()
+    seg, live = _group_live(lims, 3, 4, lpos.numel())
+    m = lmeta.reshape(-1).long()
+    ln = m >> 20
+    live &= ln > 0
+    dst = lpos.reshape(-1).long() - lims[0, 2] + BODY_START
+    src = lims[seg, 5] * 128 + (m & 0xFFFFF) - 128
+    return dst[live], ln[live], src[live]
+
+
+def _group_walk_plain(out, dst, length, src, group) -> None:
+    """Group semantics on the flat buffer, in place: pieces (dst, length,
+    src) in slot order, ``group`` rising; a piece's loads see the buffer as
+    the groups before its own left it, stores follow in slot order (a
+    later one wins).  A source byte outside the buffer reads as 0.
+
+    Every written byte is an event; an event's value is the byte its
+    source held before the event's group: the last event on that byte
+    from an earlier group (found by one search over events sorted by
+    byte and slot), else the buffer's own byte.  The pointers are followed
+    by doubling."""
+    n_out = out.numel()
+    rec, off = _expand(length)
+    p, s = dst[rec] + off, src[rec] + off
+    first = torch.searchsorted(group, group)[rec]  # first piece of its group
+    keep = (p >= 0) & (p < n_out)
+    p, s, first, t = p[keep], s[keep], first[keep], rec[keep]
+    e = p.numel()
+    if e == 0:
+        return
+    span = length.numel() + 1
+    key, order = torch.sort(p * span + t)
+    p, s, first = p[order], s[order], first[order]
+    prev = torch.searchsorted(key, s * span + first) - 1
+    found = (prev >= 0) & (p[prev.clamp(min=0)] == s)
+    inside = (s >= 0) & (s < n_out)
+    ptr = torch.cat([
+        torch.where(found, prev, torch.where(inside, e + s, e + n_out)),
+        torch.arange(e, e + n_out + 1, device=out.device)])
+    while True:
+        nxt = ptr[ptr]
+        if torch.equal(nxt, ptr):
+            break
+        ptr = nxt
+    vals = torch.cat([out.new_zeros(e), out, out.new_zeros(1)])
+    last = torch.ones(e, dtype=torch.bool, device=out.device)
+    last[:-1] = p[1:] != p[:-1]
+    out[p[last]] = vals[ptr[:e][last]]
+
+
+def _walk_groups(out, dst, length, dist, group) -> bool:
+    """The group walk on the card (csrc/groups_v9.cu): the pieces split
+    into ranges that share no byte (``_independent_order``), each range's
+    part of a group a sub-group, one CTA per range.  Returns whether it
+    launched (not for an empty list)."""
+    n = dst.numel()
+    if n == 0:
+        return False
+    order, starts = _independent_order(dst, length, dist)
+    grp = group[order]
+    rid = torch.zeros(n, dtype=torch.long, device=dst.device)
+    rid[starts] = 1
+    rid = torch.cumsum(rid, 0)
+    new = torch.ones(n, dtype=torch.bool, device=dst.device)
+    new[1:] = (grp[1:] != grp[:-1]) | (rid[1:] != rid[:-1])
+    firsts = torch.nonzero(new)[:, 0]
+    sg_first = torch.cat([firsts, firsts.new_full((1,), n)]).to(torch.int32)
+    sg_id = torch.cumsum(new, 0) - 1
+    bounds = torch.cat([sg_id[starts], sg_id.new_full((1,), firsts.numel())])
+    pdst = dst[order].to(torch.int32)
+    pmeta = ((length << 16) | dist)[order].to(torch.int32)
+    _kernels.launch("dbg_groups_v9_walk", out, out.numel(), pdst, pmeta,
+                    sg_first, bounds, starts.numel())
+    return True
+
+
+def _check_groups(out_init, lim, *pairs) -> None:
+    _check_i32(out_init, lim, *(t for pair in pairs for t in pair))
+    _body_end(out_init)
+    for pos, meta in pairs:
+        if pos.shape != meta.shape:
+            raise ValueError("position and meta words must have one shape")
+        if pos.numel() % V9_GROUP:
+            raise ValueError("a piece list holds whole groups of 8 slots")
+    if lim.numel() % 8 or lim.numel() == 0:
+        raise ValueError("rows of 8 limits expected")
+
+
+def resolve_groups_v9_plain(out_init, lim, gpos, gmeta):
+    out = out_init.reshape(-1).clone()
+    dst, ln, dist, grp = _match_pieces(lim.reshape(-1, 8), gpos, gmeta)
+    _group_walk_plain(out, dst, ln, dst - dist, grp)
+    return out.view_as(out_init)
+
+
+def resolve_groups_v9(out_init, lim, gpos, gmeta):
+    """Resolve the packer's match groups over literals already placed.
+
+    out_init: (rows, 128) int32, pad row + window + the segments' bodies
+    one after another + 4 slack rows.  lim: (8,) or (n_seg, 8) int32 rows
+    of (slot lo, slot hi, segment output offset, ...); a group is resolved
+    when its first slot lies in a row's [lo, hi).  gpos/gmeta: (rows, 128)
+    stream-global destinations and len << 16 | dist (len <= 128; padding
+    len 0), so a piece at p lands at p - lim[0, 2] + BODY_START.  Groups
+    run in slot order; a group's pieces all load before any of them
+    stores.  For the packer's groups (no piece reads what its group
+    writes) that is the in-order result.
+
+    CUDA kernel (csrc/groups_v9.cu, ``dbg_groups_v9_walk``): the live
+    pieces split into ranges that share no byte, one CTA per range, a warp
+    per group, up to 32 groups a batch.
+    """
+    _check_groups(out_init, lim, (gpos, gmeta))
+    if _plain_here(out_init):
+        return resolve_groups_v9_plain(out_init, lim, gpos, gmeta)
+    out = out_init.clone()
+    if _walk_groups(out, *_match_pieces(lim.reshape(-1, 8), gpos, gmeta)):
+        resolve_groups_v9.launches += 1
+    return out
+
+
+resolve_groups_v9.launches = 0
+
+
+def resolve_groups_v10_plain(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
+    lims = lim.reshape(-1, 8)
+    out = out_init.reshape(-1).clone()
+    flat_lit = lit.reshape(-1)
+    dst, ln, src = _lit_pieces(lims, lpos, lmeta)
+    rec, o = _expand(ln)
+    p, s = dst[rec] + o, src[rec] + o
+    ok = (p >= 0) & (p < out.numel()) & (s >= 0) & (s < flat_lit.numel())
+    out[p[ok]] = flat_lit[s[ok]]
+    dst, ln, dist, grp = _match_pieces(lims, gpos, gmeta)
+    _group_walk_plain(out, dst, ln, dst - dist, grp)
+    return out.view_as(out_init)
+
+
+def resolve_groups_v10(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
+    """Resolve host-fed segments: literal pieces, then the v9 match groups.
+
+    As ``resolve_groups_v9``, and lim rows also hold (literal slot lo, hi,
+    literal row base) in columns 3-5.  lpos/lmeta: (rows, 128) literal
+    pieces, the stream-global destination and len << 20 | rel: the piece's
+    bytes are lit[base * 128 + rel - 128 ...] (the reference's +128 is its
+    scratch pad row).  Literal pieces are cut at segment boundaries only,
+    so one may cross a 128-byte row; their destinations are disjoint.  One
+    call resolves every segment of ``lim``: the literal pieces of all of
+    them, then the match groups in slot order.  The reference's
+    ``seg_bytes`` (its literal scratch size) is not taken.
+
+    CUDA kernels (csrc/groups_v9.cu): a thread per literal slot, then the
+    v9 group walk.
+    """
+    _check_groups(out_init, lim, (gpos, gmeta), (lpos, lmeta))
+    _check_i32(out_init, lit)
+    if _plain_here(out_init):
+        return resolve_groups_v10_plain(out_init, lim, gpos, gmeta, lpos,
+                                        lmeta, lit)
+    out = out_init.clone()
+    lims = lim.reshape(-1, 8).contiguous()
+    launched = lpos.numel() > 0
+    if launched:
+        _kernels.launch("dbg_groups_v10_lits", out, out.numel(), lims,
+                        lims.shape[0], lpos, lmeta, lpos.numel(), lit,
+                        lit.numel())
+    launched |= _walk_groups(out, *_match_pieces(lims, gpos, gmeta))
+    if launched:
+        resolve_groups_v10.launches += 1
+    return out
+
+
+resolve_groups_v10.launches = 0

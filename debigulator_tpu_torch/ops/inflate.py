@@ -232,6 +232,28 @@ def resolve_tape_fused(tape, cell_block, block_out_base, out_rows: int,
     return lz.resolve_matches_v4(out_init, pos, meta, n_matches=n)
 
 
+def resolve_tape_segmented(tape, cell_block, block_out_base, n_seg: int,
+                           stored_pos, stored_val) -> torch.Tensor:
+    """Phase B of any output size from a token tape through
+    ``lz77.resolve_matches_v4``: the body, (n_seg * SEG_BYTES,) int32.
+
+    The counterpart of the reference's ``resolve_tape_segmented``
+    (inflate_v3.py:897-981, which no path calls).  The reference cuts the
+    matches at 512 KiB segment edges and walks the segments through its
+    match kernel with the window carried, because a segment must fit its
+    VMEM; the card holds the whole body, so as in ``resolve_tape_fused``
+    one call covers it: literals and stored bytes placed, matches compacted
+    in order.  Bytes past the body are dropped, as the reference drops
+    them."""
+    total = n_seg * SEG_BYTES
+    out_rows = (lz.BODY_START + total) // 128 + lz.SLACK_ROWS
+    m_rows = -(-(total // 3 + 130) // 128)
+    tail = torch.zeros(lz.WINDOW, dtype=torch.int32, device=tape.device)
+    return _body_of(resolve_tape_fused(tape, cell_block, block_out_base,
+                                       out_rows, m_rows, stored_pos,
+                                       stored_val, tail))
+
+
 def _segment_buffer(n_seg: int, stored_pos, stored_val, device):
     """(rows, 128) buffer of a whole-body resolve: pad row, zero window,
     n_seg * SEG_BYTES of body with the stored bytes placed, slack rows."""

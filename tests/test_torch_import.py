@@ -40,6 +40,7 @@ MODULES = [
     "debigulator_tpu_torch.models.zlib_codec",
     "debigulator_tpu_torch.parallel.merged",
     "debigulator_tpu_torch.tools.first_call",
+    "debigulator_tpu_torch.tools.microbench_pb",
     "debigulator_tpu_torch.tools.profile_merged",
     "debigulator_tpu_torch.utils.logging",
     "debigulator_tpu_torch.utils.manifest",
@@ -93,7 +94,7 @@ def _entry_calls():
         build_merged_plan,
         decode_merged,
     )
-    from debigulator_tpu_torch.tools import profile_merged
+    from debigulator_tpu_torch.tools import microbench_pb, profile_merged
 
     data = b"default device " * 100
     arr = np.frombuffer(data, np.uint8)
@@ -120,6 +121,11 @@ def _entry_calls():
             build_merged_plan([raw], records=True), 1),
         "profile_merged": lambda: profile_merged.profile([raw]),
         "host_fed_inputs": lambda: profile_merged.host_fed_inputs([raw]),
+        "build_group_arrays_v10": lambda: host_fed.build_group_arrays_v10(
+            build_merged_plan([raw], records=True).recs, 1),
+        "literal_runs": lambda: host_fed.literal_runs(
+            build_merged_plan([raw], records=True).recs),
+        "microbench_pb": microbench_pb.main,
     }
 
 
@@ -129,7 +135,8 @@ def _entry_calls():
     "decode_png_batch", "decode_corpus", "encode_png", "encode_zlib",
     "deflate_fixed_device", "lz77_parse_device", "lz77_parse_device_short",
     "lz77_select_device", "build_v9_arrays", "profile_merged",
-    "host_fed_inputs"])
+    "host_fed_inputs", "build_group_arrays_v10", "literal_runs",
+    "microbench_pb"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -217,7 +224,9 @@ def _c_params(entry: str) -> list[str]:
                                    "dbg_lz77_chunks_walk",
                                    "dbg_groups_v11_lits",
                                    "dbg_groups_v11_unpack", "dbg_compact_v14",
-                                   "dbg_walk_v14_runs"])
+                                   "dbg_walk_v14_runs",
+                                   "dbg_groups_v10_lits",
+                                   "dbg_groups_v9_walk", "dbg_microbench_pb"])
 def test_ctypes_declarations_match_c_entries(entry):
     """ctypes cannot check a call against the C prototype: a missing or
     mistyped argument shifts every later one (and the stream).  Hold the
@@ -258,11 +267,21 @@ def _archive_calls():
             buf, lim, words, words, words, words, words),
         "resolve_tape_v1": lambda: lg.resolve_tape_v1(
             cells, torch.zeros(16, dtype=torch.int32), 0),
+        "resolve_matches": lambda: lg.resolve_matches(buf, words, words),
+        "resolve_matches_v2": lambda: lg.resolve_matches_v2(buf, words, words),
+        "resolve_groups_v9": lambda: lg.resolve_groups_v9(buf, lim, words,
+                                                          words),
+        "resolve_groups_v10": lambda: lg.resolve_groups_v10(
+            buf, lim, words, words, words, words, words),
     }
 
 
-@pytest.mark.parametrize("wrapper", ["resolve_groups_v11", "compact_v14",
-                                     "resolve_walk_v14", "resolve_tape_v1"])
+ARCHIVE_WRAPPERS = ["resolve_groups_v11", "compact_v14", "resolve_walk_v14",
+                    "resolve_tape_v1", "resolve_matches", "resolve_matches_v2",
+                    "resolve_groups_v9", "resolve_groups_v10"]
+
+
+@pytest.mark.parametrize("wrapper", ARCHIVE_WRAPPERS)
 def test_archive_wrappers_count_launches_only_on_the_card(wrapper):
     """On CPU tensors an archive wrapper runs its plain version and its
     launch count stays where it was; its kernel entries refuse CPU
@@ -278,7 +297,11 @@ def test_archive_wrappers_count_launches_only_on_the_card(wrapper):
                if lib in {"resolve_groups_v11": ("groups_v11", "lz77_chunks"),
                           "compact_v14": ("compact_v14",),
                           "resolve_walk_v14": ("walk_v14", "lz77_chunks"),
-                          "resolve_tape_v1": ("lz77_tape",)}[wrapper]]
+                          "resolve_tape_v1": ("lz77_tape",),
+                          "resolve_matches": ("lz77_match",),
+                          "resolve_matches_v2": ("lz77_match",),
+                          "resolve_groups_v9": ("groups_v9",),
+                          "resolve_groups_v10": ("groups_v9",)}[wrapper]]
     assert entries
     for entry in entries:
         with pytest.raises(ValueError, match="CUDA tensors"):
@@ -299,6 +322,12 @@ def _archive_card_calls(empty: bool):
     cnt = none if empty else torch.zeros((1, 128), dtype=i32)
     run = torch.tensor([0, 0, 0, 0 if empty else 1, 0, 0, 0, 0], dtype=i32)
     tape = torch.zeros((0 if empty else 16, 8), dtype=i32)
+    # One live match piece of 3 bytes at distance 1 in slot range [0, 8).
+    one = torch.tensor([0, 8, 0, 0, 0, 0, 0, 0], dtype=i32)
+    piece = torch.zeros((0 if empty else 1, 128), dtype=i32)
+    piece_meta = piece.clone()
+    if not empty:
+        piece_meta[0, 0] = (3 << 16) | 1
     return {
         "resolve_groups_v11": lambda: lg.resolve_groups_v11(
             buf, lim, none, none, words, words, words),
@@ -308,12 +337,17 @@ def _archive_card_calls(empty: bool):
             buf, lim if empty else run, none, none, words, words, words),
         "resolve_tape_v1": lambda: lg.resolve_tape_v1(
             tape, torch.zeros(tape.shape[0], dtype=i32), 0),
+        "resolve_matches": lambda: lg.resolve_matches(buf, words, words),
+        "resolve_matches_v2": lambda: lg.resolve_matches_v2(buf, words, words),
+        "resolve_groups_v9": lambda: lg.resolve_groups_v9(
+            buf, one if not empty else lim, piece, piece_meta),
+        "resolve_groups_v10": lambda: lg.resolve_groups_v10(
+            buf, lim, none, none, words, words, words),
     }
 
 
 @pytest.mark.parametrize("empty", [True, False])
-@pytest.mark.parametrize("wrapper", ["resolve_groups_v11", "compact_v14",
-                                     "resolve_walk_v14", "resolve_tape_v1"])
+@pytest.mark.parametrize("wrapper", ARCHIVE_WRAPPERS)
 def test_archive_wrappers_count_only_calls_that_launch(monkeypatch, wrapper,
                                                        empty):
     """The card's branch of each archive wrapper, taken here on CPU
