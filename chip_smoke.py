@@ -15,8 +15,11 @@ Each phase prints one JSON line:
   seed) through build_merged_plan -> prepare_merged -> run on "cuda", every
   stream checked against zlib; profile (device busy share and top kernels);
 * unfilter_vs_plain, greedy_walk_vs_plain: the PNG unfilter at a small
-  size with every filter type, on batches, on 1024x1024 and 4096x4096 RGBA;
-  the encoder's greedy walk at edge shapes and on a 4 MB filtered image;
+  size with every filter type, on batches, on 1024x1024 and 4096x4096 RGBA,
+  and on images taller than one CTA's shared memory could hold (20,000 x 1
+  RGBA8 and 9,400 x 2 16-bit RGBA against the NumPy oracle, a 20,000 x 256
+  RGBA8 PNG through decode_png_device against its pixels); the encoder's
+  greedy walk at edge shapes and on a 4 MB filtered image;
 * png_path: a corpus of 16 PNGs made here from numpy seed 0 with zlib and
   struct (about 64 MB of RGBA: RGBA, RGB, gray+alpha, palette with tRNS,
   gray, and one image cycling through all five filters) through
@@ -26,8 +29,12 @@ Each phase prints one JSON line:
 * encode_path: deflate_fixed_device on the filtered rows of a 1024x1024
   RGBA image (checked with zlib), then encode_png on the card and
   decode_png_device of the result equal to the image;
-* kernel_times, entry_points (two-member gzip, the chunked long-stream
-  decode, a stored/dynamic mix);
+* compact_edge_cases: the compact kernel against its plain version on
+  inputs that stress its look-back (every chunk empty, a fill carried from
+  599 chunks back, every record valid, one chunk);
+* kernel_times (the library yardstick of compact is masked_select of each
+  of the four arrays it compacts), entry_points (two-member gzip, the
+  chunked long-stream decode, a stored/dynamic mix);
 * phase_a_tape_vs_plain, lz77_tape_vs_plain, lz77_ops_vs_plain,
   lz77_match_vs_plain: the token-tape Phase A and the three LZ77 resolvers
   of the other decode drivers, at two streams, on a segment cut from the
@@ -43,7 +50,8 @@ Each phase prints one JSON line:
   tape_v1_vs_plain: the archived generations' kernels at two streams, on
   one 512 KiB segment of the host-fed packing and an 8 KiB segment of the
   v14 walk (window tail, head and tail clip), and at the 29 streams (the
-  v1 resolver on one stream);
+  v1 resolver on one stream); the v14 compaction also on cells empty, full
+  and overflowed (library yardstick: masked_select of its five arrays);
 * archive_paths: the 29 streams through the host-fed v10 decode (record
   scan, group packer and piece words by tools/profile_merged's
   host_fed_inputs, then inflate_v10) and the v14 driver, one stream through tape_v3 and the v1
@@ -322,6 +330,139 @@ def check_unfilter(name, filt: torch.Tensor, h, w, bpp, uf, reps=3):
             "bound_ms": (filt.numel() + got.numel()) / HBM_BYTES_PER_S * 1e3}
 
 
+#: Tall images of the banded unfilter: (name, h, w, bpp, filter types);
+#: None draws a random filter type per row.
+TALL_SHAPES = (("rgba8_20000x1", 20_000, 1, 4, 0),
+               ("rgba16_9400x2", 9_400, 2, 8, None))
+#: (h, w) of the tall RGBA8 PNG decoded through decode_png_device.
+TALL_PNG = (20_000, 256)
+
+
+def tall_unfilter_checks(dev, uf, pl) -> list:
+    """Images taller than one CTA's shared memory could hold: the unfilter
+    kernel on 20,000 x 1 RGBA8 (filter 0, random bytes) and 9,400 x 2
+    16-bit RGBA (bpp 8, random filter types), each equal to the NumPy
+    oracle; a 20,000 x 256 RGBA8 PNG through decode_png_device equal to
+    its source pixels."""
+    rng = np.random.default_rng(6)
+    out = []
+    for name, h, w, bpp, ftype in TALL_SHAPES:
+        raw = rng.integers(0, 256, (h, 1 + w * bpp), dtype=np.uint8)
+        raw[:, 0] = rng.integers(0, 5, h) if ftype is None else ftype
+        filt = torch.from_numpy(raw.reshape(-1)).to(dev)
+        got = uf.unfilter(filt, h, w, bpp)
+        torch.cuda.synchronize()
+        if not np.array_equal(got.cpu().numpy(),
+                              uf.unfilter_image(raw.reshape(-1), h, w, bpp)):
+            raise AssertionError(f"tall image {name} is not exact")
+        out.append({"shape": name, "h": h, "w": w, "bpp": bpp, "exact": True,
+                    "ms": time_ms(lambda: uf.unfilter(filt, h, w, bpp), 3),
+                    "bound_ms": (filt.numel() + got.numel())
+                    / HBM_BYTES_PER_S * 1e3})
+    h, w = TALL_PNG
+    pix = smooth_pixels(rng, h, w, 4)
+    png, filtered = make_png(pix, 6, 6)
+    pl.decode_png_device(png, device=dev)  # warm-up; the second call is timed
+    t0 = time.perf_counter()
+    got = pl.decode_png_device(png, device=dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(got, pix):
+        raise AssertionError("the tall PNG differs from its source")
+    filt = gpu_filtered(filtered, dev)
+    out.append({"shape": f"png_rgba8_{h}x{w}", "h": h, "w": w, "bpp": 4,
+                "exact": True, "decode_png_device_ms": ms,
+                "rgba_bytes": pix.nbytes,
+                "ms": time_ms(lambda: uf.unfilter(filt, h, w, 4), 3),
+                "bound_ms": 2 * pix.nbytes / HBM_BYTES_PER_S * 1e3})
+    return out
+
+
+def compact_case(rng, dev, slots: int, counts: np.ndarray, dst_hi):
+    """phase_b.Records of cells with the given match counts (and run counts
+    rolled by one cell): valid slots hold random dst below dst_hi[cell]
+    and a non-zero meta, the rest zeros; chunk bases as prep_records
+    lays them out."""
+    from debigulator_tpu_torch.ops import phase_b as pb
+
+    n_chunks = len(counts) // pb.CHUNK_CELLS
+    lists = []
+    for cnt in (counts, np.roll(counts, 1)):
+        valid = (np.arange(slots)[None, :] < cnt[:, None]).reshape(-1)
+        hi = np.repeat(np.asarray(dst_hi, np.int64), slots)
+        d = np.where(valid, rng.integers(0, 1 << 62, valid.size) % hi, 0)
+        m = np.where(valid, rng.integers(1, 1 << 31, valid.size), 0)
+        rows = -(-cnt.reshape(n_chunks, -1).sum(1) // 128)
+        lists += [torch.from_numpy(d.astype(np.int32)).to(dev),
+                  torch.from_numpy(m.astype(np.int32)).to(dev),
+                  torch.from_numpy((np.cumsum(rows) - rows).astype(np.int32)).to(dev)]
+    dm, mm, mbase, dr, mr, rbase = lists
+    return pb.Records(dm, mm, dr, mr, mbase, rbase, None)
+
+
+def compact_edge_cases(dev) -> list:
+    """Row 2 against its plain twin on inputs that stress the look-back:
+    every chunk empty; a fill carried from the first chunk through 599
+    chunks of smaller dst (most of them empty); every record valid; a
+    single chunk."""
+    from debigulator_tpu_torch.ops import phase_b as pb
+
+    rng = np.random.default_rng(7)
+    cells = pb.CHUNK_CELLS
+    far = np.zeros(600 * cells, np.int64)
+    far[:cells] = rng.integers(0, 9, cells)
+    far[cells * 50 :: cells * 50] = 3
+    far_hi = np.full(600 * cells, 1000)
+    far_hi[:cells] = 1 << 29
+    cases = {
+        "all_empty": (8, np.zeros(4 * cells, np.int64), np.ones(4 * cells)),
+        "far_fill": (8, far, far_hi),
+        "all_valid": (16, np.full(8 * cells, 16), np.full(8 * cells, 1 << 30)),
+        "single_chunk": (32, rng.integers(0, 33, cells), np.full(cells, 1 << 30)),
+    }
+    out = []
+    for name, (slots, counts, hi) in cases.items():
+        rec = compact_case(rng, dev, slots, counts, hi)
+        got = pb.compact(rec, slots)
+        torch.cuda.synchronize()
+        out.append({"case": name, "slots": slots,
+                    "chunks": len(counts) // cells,
+                    "max_abs_err": same(f"compact {name}", got,
+                                        pb.compact_plain(rec, slots))})
+    return out
+
+
+def compact_v14_edge_case(dev) -> dict:
+    """Row 10b against its plain twin on 2,048 cells of 16 slots where a
+    third of the cells are empty, a third full and a few overflowed (a
+    count past `slots`, read as `slots`, its offset span a gap of
+    zeros)."""
+    from debigulator_tpu_torch.ops.archive import lz77_generations as lg
+
+    rng = np.random.default_rng(8)
+    cells, slots = 2048, 16
+    kind = rng.integers(0, 3, (3, cells))
+    counts = np.where(kind == 0, 0, np.where(kind == 1, slots,
+                                             rng.integers(1, slots, (3, cells))))
+    counts[:, 5::97] = 40
+    cnt = (counts[0] << 16) | (counts[1] << 8) | counts[2]
+    nrows = cells * slots // 128 + 2 * lg.V14_STAGE_ROWS + 2
+    nrows_lit = cells * slots // 128 + 2
+    if counts[:2].sum(1).max() > nrows * 128 or counts[2].sum() > nrows_lit * 128:
+        raise AssertionError("edge case does not fit its outputs")
+
+    def rows(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).view(-1, 128).to(dev)
+
+    args = ([rows(rng.integers(1, 1 << 31, cells * slots)) for _ in range(5)]
+            + [rows(cnt)] + [rows(np.cumsum(c) - c) for c in counts]
+            + [nrows, nrows_lit, slots])
+    got = lg.compact_v14(*args)
+    torch.cuda.synchronize()
+    return {"case": "empty_full_overflow", "cells": cells, "slots": slots,
+            "max_abs_err": same("compact_v14 edge case", got,
+                                lg.compact_v14_plain(*args))}
+
+
 def same(name, got, want) -> int:
     """max_abs_err of paired tensors; raises unless it is 0."""
     err = max_abs_err(got, want)
@@ -445,15 +586,9 @@ def png_and_encode_phases(dev):
     big_filt = gpu_filtered(big_filtered, dev)
     shapes.append(check_unfilter("rgba_big", big_filt, BIG_SIDE, BIG_SIDE, 4,
                                  uf, reps=2))
-    try:
-        uf.unfilter(torch.zeros(20_000 * 5, dtype=torch.uint8, device=dev),
-                    20_000, 1, 4)
-    except ValueError as e:
-        too_tall = str(e)
-    else:
-        raise AssertionError("an image too tall for one CTA must raise")
+    tall = tall_unfilter_checks(dev, uf, pl)
     emit({"phase": "unfilter_vs_plain", "max_abs_err": 0, "shapes": shapes,
-          "too_tall_raises": too_tall[:60]})
+          "tall": tall})
     del big_filt
 
     # --- greedy walk kernel vs plain ----------------------------------
@@ -1125,15 +1260,24 @@ def archive_phases(dev, streams):
             slots = c_args[-1]
             cnt = c_args[5].view(-1).long()
             n_m, n_r, n_l = (int(((cnt >> sh) & 0xFF).sum()) for sh in (16, 8, 0))
-            valid_m = (torch.arange(slots, device=dev)[None, :]
-                       < (cnt >> 16)[:, None]).view(-1)
+            slot = torch.arange(slots, device=dev)[None, :]
+            valid = [(slot < ((cnt >> sh) & 0xFF).clamp(max=slots)[:, None]
+                      ).view(-1) for sh in (16, 8, 0)]
+
+            def library_v14():
+                # Each of the five arrays the wrapper compacts through
+                # masked_select (no zero padding).
+                return [torch.masked_select(c_args[i].view(-1), valid[v])
+                        for i, v in ((0, 0), (1, 0), (2, 1), (3, 1), (4, 2))]
+
             rec["ms"] = time_ms(lambda: lg.compact_v14(*c_args), 10)
             rec["plain_ms"] = time_ms(lambda: lg.compact_v14_plain(*c_args), 3)
-            rec["library_ms"] = time_ms(lambda: torch.masked_select(
-                c_args[0].view(-1), valid_m), 10)
+            rec["library_ms"] = time_ms(library_v14, 10)
+            rec["library_one_array_ms"] = time_ms(lambda: torch.masked_select(
+                c_args[0].view(-1), valid[0]), 10)
             rec["records"] = [n_m, n_r, n_l]
             # The valid records read once with each cell's count and three
-            # offsets; the five zero-filled outputs written once.
+            # offsets; every slot of the five outputs written once.
             rec["bytes"] = 4 * (2 * n_m + 2 * n_r + n_l + 4 * cnt.numel()
                                 + sum(t.numel() for t in got_c))
             timed["compact_v14"] = rec
@@ -1193,6 +1337,7 @@ def archive_phases(dev, streams):
     rec["bytes"] = 4 * (rec["tokens"] + cnt1.numel()) + out_size
     timed["tape_v1"] = rec
     vs["tape_v1"].append(rec)
+    vs["compact_v14"].append(compact_v14_edge_case(dev))
     for name, shp in vs.items():
         emit({"phase": f"{name}_vs_plain", "max_abs_err": 0, "shapes": shp})
 
@@ -1751,6 +1896,16 @@ def main() -> int:
     mdst, mmeta, rdst, rmeta = s["c_k"]
     out_k = s["init"].clone()
     valid_m = rec.mm != 0
+    valid_r = rec.mr != 0
+
+    def library_compact():
+        # The same function by library calls: each of the four arrays the
+        # wrapper compacts through masked_select (no padding, no fill).
+        return (torch.masked_select(rec.dm, valid_m),
+                torch.masked_select(rec.mm, valid_m),
+                torch.masked_select(rec.dr, valid_r),
+                torch.masked_select(rec.mr, valid_r))
+
     t = {
         "phase_a": (time_ms(lambda: pa.phase_a(st.pa, slots), 10),
                     time_ms(lambda: pa.phase_a_plain(
@@ -1758,7 +1913,7 @@ def main() -> int:
                     None),
         "compact": (time_ms(lambda: pb.compact(rec, slots), 10),
                     time_ms(lambda: pb.compact_plain(rec, slots), 3),
-                    time_ms(lambda: torch.masked_select(rec.dm, valid_m), 10)),
+                    time_ms(library_compact, 10)),
         "walk": (time_ms(lambda: pb.walk(out_k, mdst, mmeta, s["s8"], rdst,
                                          rmeta, rec.lit,
                                          stream_starts=st.stream_starts), 5),
@@ -1768,6 +1923,13 @@ def main() -> int:
     }
     if not torch.equal(out_k, s["w_k"]):
         raise AssertionError("repeated walk changed its output")
+    compact_repeats = [time_ms(lambda: pb.compact(rec, slots), 10)
+                       for _ in range(5)]
+    compact_one_array_ms = time_ms(
+        lambda: torch.masked_select(rec.dm, valid_m), 10)
+    compact_edges = compact_edge_cases(dev)
+    emit({"phase": "compact_edge_cases", "max_abs_err": 0,
+          "cases": compact_edges})
 
     # Least time for the same work: bytes each function must move at HBM
     # rate, or its integer operations at the ALU rate, whichever is larger.
@@ -1806,7 +1968,7 @@ def main() -> int:
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": lib_ms,
         })
-    del s, st, rec, out_k, body, run, mdst, mmeta, rdst, rmeta, valid_m
+    del s, st, rec, out_k, body, run, mdst, mmeta, rdst, rmeta, valid_m, valid_r
     torch.cuda.empty_cache()
 
     # --- the second slice: PNG decode and the encoder -------------------
@@ -1815,8 +1977,11 @@ def main() -> int:
     emit({"phase": "kernel_times", "cells_pad": cells_pad, "slots": slots,
           "matches": n_match, "runs": n_run, "literals": n_lit,
           "match_bytes": mlen_total, "bytes_moved": bytes_,
-          "library_call": {"compact": "torch.masked_select(dst, meta != 0)",
+          "library_call": {"compact": "torch.masked_select of mdst, mmeta, "
+                                      "rdst, rmeta (4 calls)",
                            "unfilter": None, "greedy_walk": None},
+          "compact_ms_repeats": compact_repeats,
+          "compact_library_one_array_ms": compact_one_array_ms,
           **times2})
 
     # --- other entry points -------------------------------------------

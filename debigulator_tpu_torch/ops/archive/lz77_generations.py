@@ -305,12 +305,16 @@ def compact_v14(ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, moff2d, roff2d, loff2d,
     128) packed match_count << 16 | run_count << 8 | lit_count (a count
     past ``slots``, an overflowed tape whose result every caller
     discards, is read as ``slots``).  moff2d/roff2d/loff2d: each cell's
-    dense offset in the match, run and literal lists.  Returns (mdst,
-    mmeta, rdst, rmeta) as (nrows, 128) and litD as (nrows_lit, 128),
-    zero where no record lands.
+    dense offset in the match, run and literal lists, non-decreasing with
+    each cell's records ending at or before the next cell's offset (the
+    exclusive prefix sums of the counts that ``resolve_segmented_v14``
+    passes).  Returns (mdst, mmeta, rdst, rmeta) as (nrows, 128) and litD
+    as (nrows_lit, 128), zero where no record lands.
 
-    CUDA kernel (csrc/compact_v14.cu): a thread per (cell, slot) copies
-    its record to the cell's offset plus the slot.
+    CUDA kernel (csrc/compact_v14.cu): a thread per cell copies its
+    records to the cell's offset and zeroes any gap up to the next offset;
+    a thread per four slots zeroes those before the first record and after
+    the last, so every output slot is written once.
     """
     _check_i32(ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, moff2d, roff2d, loff2d)
     if slots not in (8, 16, 32, 64, 128):
@@ -322,15 +326,17 @@ def compact_v14(ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, moff2d, roff2d, loff2d,
     if _plain_here(ma2d):
         return compact_v14_plain(ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, moff2d,
                                  roff2d, loff2d, nrows, nrows_lit, slots)
-    out = torch.zeros((4, nrows, 128), dtype=torch.int32, device=ma2d.device)
-    lit_out = torch.zeros((nrows_lit, 128), dtype=torch.int32,
-                          device=ma2d.device)
-    if n_cells:
-        _kernels.launch("dbg_compact_v14", ma2d, mb2d, ra2d, rb2d, lit2d,
-                        cnt2d, moff2d, roff2d, loff2d, n_cells, slots,
-                        out[0], out[1], out[2], out[3], nrows * 128, lit_out,
-                        nrows_lit * 128)
-        compact_v14.launches += 1
+    dev = ma2d.device
+    if not n_cells:  # nothing to compact: no launch
+        return (*torch.zeros((4, nrows, 128), dtype=torch.int32, device=dev),
+                torch.zeros((nrows_lit, 128), dtype=torch.int32, device=dev))
+    out = torch.empty((4, nrows, 128), dtype=torch.int32, device=dev)
+    lit_out = torch.empty((nrows_lit, 128), dtype=torch.int32, device=dev)
+    _kernels.launch("dbg_compact_v14", ma2d, mb2d, ra2d, rb2d, lit2d,
+                    cnt2d, moff2d, roff2d, loff2d, n_cells, slots,
+                    out[0], out[1], out[2], out[3], nrows * 128, lit_out,
+                    nrows_lit * 128)
+    compact_v14.launches += 1
     return out[0], out[1], out[2], out[3], lit_out
 
 

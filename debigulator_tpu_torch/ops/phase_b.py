@@ -119,18 +119,14 @@ def _chunk_layout(d, m, base, per_chunk: int, cap_rows: int):
     return fill, end
 
 
-def _compact_layout(rec: Records, slots: int):
-    """(per_chunk, dense_rows, (mfill, mend), (rfill, rend)) of a compact
-    call on ``rec``."""
+def _compact_shape(rec: Records, slots: int):
+    """(per_chunk, cap_rows, dense_rows) of a compact call on ``rec``."""
     per_chunk = CHUNK_CELLS * slots
     cap_rows = per_chunk // 128 + 2
     n_rec = rec.dm.numel()
     if n_rec % per_chunk:
         raise ValueError("record count is not a whole number of chunks")
-    dense_rows = n_rec // 128 + cap_rows + DENSE_SLACK_ROWS
-    return (per_chunk, dense_rows,
-            _chunk_layout(rec.dm, rec.mm, rec.mbase, per_chunk, cap_rows),
-            _chunk_layout(rec.dr, rec.mr, rec.rbase, per_chunk, cap_rows))
+    return per_chunk, cap_rows, n_rec // 128 + cap_rows + DENSE_SLACK_ROWS
 
 
 def _compact_list_plain(d, m, base, fill, end, per_chunk: int,
@@ -155,36 +151,37 @@ def _compact_list_plain(d, m, base, fill, end, per_chunk: int,
 
 def compact_plain(rec: Records, slots: int):
     """Plain PyTorch version of ``compact``, on any device."""
-    per_chunk, dense_rows, (mfill, mend), (rfill, rend) = \
-        _compact_layout(rec, slots)
-    return (*_compact_list_plain(rec.dm, rec.mm, rec.mbase, mfill, mend,
-                                 per_chunk, dense_rows),
-            *_compact_list_plain(rec.dr, rec.mr, rec.rbase, rfill, rend,
-                                 per_chunk, dense_rows))
+    per_chunk, cap_rows, dense_rows = _compact_shape(rec, slots)
+    out = []
+    for d, m, base in ((rec.dm, rec.mm, rec.mbase), (rec.dr, rec.mr, rec.rbase)):
+        fill, end = _chunk_layout(d, m, base, per_chunk, cap_rows)
+        out += _compact_list_plain(d, m, base, fill, end, per_chunk, dense_rows)
+    return tuple(out)
+
+
+def _plain_here(t: torch.Tensor) -> bool:
+    """A wrapper runs its plain version where its tensors lie on the CPU."""
+    return t.device.type == "cpu"
 
 
 def compact(rec: Records, slots: int):
     """Dense dst-sorted match and run lists, each (dense_rows*128,) int32:
     (mdst, mmeta, rdst, rmeta), equal to the reference's compact_v15 on
     the same records.  Plain version for CPU tensors, CUDA kernel for CUDA
-    tensors."""
-    if rec.dm.device.type == "cpu":
+    tensors: one launch that writes every output slot once and finds each
+    chunk's fill by a look-back over the chunks before it, after one memset
+    of its status words (two per chunk) and ticket counter."""
+    if _plain_here(rec.dm):
         return compact_plain(rec, slots)
-    per_chunk, dense_rows, (mfill, mend), (rfill, rend) = \
-        _compact_layout(rec, slots)
+    per_chunk, cap_rows, dense_rows = _compact_shape(rec, slots)
     n_chunks = rec.dm.numel() // per_chunk
     dev = rec.dm.device
     out = torch.empty((4, dense_rows * 128), dtype=torch.int32, device=dev)
-    # Past the last region the reference keeps its inits (dst BIG, meta 0);
-    # the kernel writes every region itself.
-    out[0].fill_(BIG)
-    out[1].zero_()
-    out[2].fill_(BIG)
-    out[3].zero_()
+    status = torch.zeros(2 * n_chunks + 1, dtype=torch.int64, device=dev)
     _kernels.launch(
         "dbg_compact", rec.dm, rec.mm, rec.dr, rec.mr, rec.mbase, rec.rbase,
-        mend, rend, mfill, rfill, n_chunks, per_chunk,
-        out[0], out[1], out[2], out[3])
+        n_chunks, per_chunk, cap_rows, dense_rows,
+        out[0], out[1], out[2], out[3], status)
     compact.launches += 1
     return out[0], out[1], out[2], out[3]
 

@@ -27,8 +27,8 @@ import torch
 from debigulator_tpu_torch import constants as C
 from debigulator_tpu_torch.ops import _kernels
 
-#: Shared memory one CTA may use on an H100 (dynamic, after opt-in).
-SMEM_LIMIT_BYTES = 232_448
+#: Rows of one band of the CUDA kernel (one warp, a lane a row).
+BAND_ROWS = 32
 
 
 class FilterError(ValueError):
@@ -208,7 +208,7 @@ def _as_batch(filtered: torch.Tensor, height: int, width: int, bpp: int):
     """(B, h, 1+stride) view of one image or a batch of same-shape images,
     and whether the caller passed a batch."""
     row = 1 + width * bpp
-    if min(height, width) < 1 or not 1 <= bpp <= 4:
+    if min(height, width) < 1 or not 1 <= bpp <= 8:
         raise ValueError(f"bad image shape h={height} w={width} bpp={bpp}")
     if filtered.dim() not in (1, 2) or filtered.shape[-1] != height * row:
         raise ValueError(
@@ -286,34 +286,30 @@ def unfilter_subfast(filtered: torch.Tensor, height: int, width: int,
     return out.reshape(height, width * bpp).to(torch.uint8)
 
 
-def smem_bytes(height: int, bpp: int) -> int:
-    """Shared memory the kernel needs for one image: a three-diagonal ring
-    of h*bpp bytes plus the h filter bytes."""
-    return 3 * height * bpp + height
+def _plain_here(t: torch.Tensor) -> bool:
+    """A wrapper runs its plain version where its tensors lie on the CPU."""
+    return t.device.type == "cpu"
 
 
 def unfilter(filtered: torch.Tensor, height: int, width: int,
              bpp: int) -> torch.Tensor:
     """PNG reconstruction of one image (h*(1+w*bpp),) or a batch
     (B, h*(1+w*bpp)) of same-shape images, uint8 in, (h, w*bpp) or
-    (B, h, w*bpp) uint8 out.  The plain version for CPU tensors, the CUDA
-    kernel (one CTA per image) for CUDA tensors; an image too tall for one
-    CTA's shared memory raises."""
+    (B, h, w*bpp) uint8 out, bpp 1..8.  The plain version for CPU tensors,
+    the CUDA kernel for CUDA tensors: bands of BAND_ROWS rows, one warp a
+    band, handed off through flags in a small int32 tensor (a ticket
+    counter, then one count per band), any height."""
     fil, batched = _as_batch(filtered, height, width, bpp)
     if fil.dtype != torch.uint8 or not fil.is_contiguous():
         raise ValueError("filtered must be a contiguous uint8 tensor")
-    if fil.device.type == "cpu":
+    if _plain_here(fil):
         return unfilter_plain(filtered, height, width, bpp)
-    need = smem_bytes(height, bpp)
-    if need > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"image height {height} at bpp {bpp} needs {need} bytes of shared "
-            f"memory (> {SMEM_LIMIT_BYTES}): the one-CTA wavefront cannot "
-            "hold it")
     nb = fil.shape[0]
     out = torch.empty((nb, height, width * bpp), dtype=torch.uint8,
                       device=fil.device)
-    _kernels.launch("dbg_unfilter", fil, out, nb, height, width, bpp)
+    bands = -(-height // BAND_ROWS)
+    sync = torch.zeros(1 + nb * bands, dtype=torch.int32, device=fil.device)
+    _kernels.launch("dbg_unfilter", fil, out, nb, height, width, bpp, sync)
     unfilter.launches += 1
     return out if batched else out[0]
 

@@ -10,6 +10,14 @@ import torch
 
 from debigulator_tpu.ops import checksum as jax_ck
 from debigulator_tpu_torch.ops import checksum as ck
+from torch_stream_cases import ensure_reference_native
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
+
 
 LENGTHS = [0, 1, 5551, 5552, 5553, 65521, 128, 1280, 128 * 517]
 

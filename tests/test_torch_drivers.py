@@ -16,7 +16,21 @@ from debigulator_tpu.ops.scanner import scan_stream_cells
 from debigulator_tpu_torch.ops import inflate as inf
 from debigulator_tpu_torch.ops import phase_a as tpa
 from debigulator_tpu_torch.ops import plan as tp
-from torch_stream_cases import STREAMS, deflate, to_port_arrays, to_port_plan, words
+from torch_stream_cases import (
+    STREAMS,
+    deflate,
+    ensure_reference_native,
+    to_port_arrays,
+    to_port_plan,
+    words,
+)
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
+
 
 CPU = torch.device("cpu")
 #: (stream, exact entries) for the tensor-op drivers; "dense" overflows 16

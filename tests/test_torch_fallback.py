@@ -23,7 +23,14 @@ from debigulator_tpu_torch.models import zlib_codec as tz
 from debigulator_tpu_torch.ops import inflate as inf
 from debigulator_tpu_torch.ops import inflate_ref
 from debigulator_tpu_torch.parallel import merged as tm
-from torch_stream_cases import STREAMS
+from torch_stream_cases import STREAMS, ensure_reference_native
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
+
 
 FOUR = ["dynamic", "mixed", "rle", "flushed"]
 

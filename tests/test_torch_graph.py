@@ -13,7 +13,19 @@ from debigulator_tpu.ops import inflate_v3 as v3
 from debigulator_tpu.ops.scanner import scan_stream_cells
 from debigulator_tpu_torch.ops import graph as tg
 from debigulator_tpu_torch.ops import plan as tp
-from torch_stream_cases import STREAMS, to_port_arrays, to_port_plan
+from torch_stream_cases import (
+    STREAMS,
+    ensure_reference_native,
+    to_port_arrays,
+    to_port_plan,
+)
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
+
 
 CASES = sorted(set(STREAMS) - {"stored"})
 #: Speculative chases: the streams whose entries converge in a few sweeps.

@@ -26,7 +26,13 @@ from debigulator_tpu_torch.ops.archive import host_fed as hf
 from debigulator_tpu_torch.ops.archive import inflate_generations as ig
 from debigulator_tpu_torch.ops.archive import lz77_generations as lzgen
 from debigulator_tpu_torch.parallel import merged as tm
-from torch_stream_cases import STREAMS, deflate, words
+from torch_stream_cases import STREAMS, deflate, ensure_reference_native, words
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
 
 
 def _text(seed, n=20000):

@@ -42,6 +42,7 @@ MODULES = [
     "debigulator_tpu_torch.tools.first_call",
     "debigulator_tpu_torch.tools.microbench_pb",
     "debigulator_tpu_torch.tools.profile_merged",
+    "debigulator_tpu_torch.tools.unfilter_bands",
     "debigulator_tpu_torch.utils.logging",
     "debigulator_tpu_torch.utils.manifest",
 ]

@@ -20,6 +20,13 @@ from debigulator_tpu.ops.phase_a_pallas import build_pa_arrays, phase_a13_pallas
 from debigulator_tpu.ops.scanner import scan_stream_cells
 from debigulator_tpu_torch.ops import phase_a as tpa
 from debigulator_tpu_torch.ops import plan as tp
+from torch_stream_cases import ensure_reference_native
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
 
 
 @functools.partial(jax.jit, static_argnames=("slots",))

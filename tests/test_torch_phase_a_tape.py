@@ -14,7 +14,14 @@ from debigulator_tpu.ops import inflate_v3 as v3
 from debigulator_tpu.ops.phase_a_pallas import build_pa_arrays, phase_a_pallas
 from debigulator_tpu.ops.scanner import scan_stream_cells
 from debigulator_tpu_torch.ops import phase_a as tpa
-from torch_stream_cases import STREAMS, to_port_plan
+from torch_stream_cases import STREAMS, ensure_reference_native, to_port_plan
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
+
 
 #: "flushed" packs 73 blocks into a few cells: more blocks in one tile than
 #: a table page of the reference kernel holds (build_pa_arrays gives None),

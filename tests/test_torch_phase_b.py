@@ -20,6 +20,13 @@ from debigulator_tpu.ops.scanner import scan_stream_cells
 from debigulator_tpu_torch.ops import phase_a as tpa
 from debigulator_tpu_torch.ops import phase_b as tpb
 from debigulator_tpu_torch.ops import plan as tp
+from torch_stream_cases import ensure_reference_native
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
 
 
 def _deflate(data, level=6):
@@ -142,6 +149,125 @@ def test_compact_matches_pallas(name):
     for n, w, g in zip(("mdst", "mmeta", "rdst", "rmeta"), want, got,
                        strict=True):
         assert np.array_equal(np.asarray(w).reshape(-1), g.numpy()), n
+
+
+def _edge_records(slots: int, counts: np.ndarray, dst_hi: np.ndarray,
+                  seed: int) -> tpb.Records:
+    """Records of cells with the given match counts (run counts rolled by
+    one cell): valid slots hold random dst below dst_hi[cell] and a non-zero
+    meta, the rest zeros; chunk row bases as prep_records lays them out."""
+    rng = np.random.default_rng(seed)
+    n_chunks = len(counts) // tpb.CHUNK_CELLS
+    lists = []
+    for cnt in (counts, np.roll(counts, 1)):
+        valid = (np.arange(slots)[None, :] < cnt[:, None]).reshape(-1)
+        hi = np.repeat(dst_hi.astype(np.int64), slots)
+        d = np.where(valid, rng.integers(0, 1 << 62, valid.size) % hi, 0)
+        m = np.where(valid, rng.integers(1, 1 << 31, valid.size), 0)
+        rows = -(-cnt.reshape(n_chunks, -1).sum(1) // 128)
+        lists += [torch.from_numpy(d.astype(np.int32)),
+                  torch.from_numpy(m.astype(np.int32)),
+                  torch.from_numpy((np.cumsum(rows) - rows).astype(np.int32))]
+    dm, mm, mbase, dr, mr, rbase = lists
+    return tpb.Records(dm, mm, dr, mr, mbase, rbase, None)
+
+
+def _edge_case(name):
+    """(slots, counts, dst_hi) of the look-back edge cases."""
+    cells = tpb.CHUNK_CELLS
+    rng = np.random.default_rng(len(name))
+    if name == "all_empty":
+        return 8, np.zeros(3 * cells, np.int64), np.ones(3 * cells)
+    if name == "far_fill":
+        # Chunk 0 holds the largest dst; of the next 11 chunks only chunk 6
+        # holds records, all smaller: every later fill comes from chunk 0.
+        counts = np.zeros(12 * cells, np.int64)
+        counts[:cells] = rng.integers(0, 9, cells)
+        counts[6 * cells : 6 * cells + 40] = 2
+        hi = np.full(12 * cells, 1000)
+        hi[:cells] = 1 << 29
+        return 8, counts, hi
+    if name == "all_valid":
+        return 8, np.full(3 * cells, 8), np.full(3 * cells, 1 << 30)
+    return 16, rng.integers(0, 17, cells), np.full(cells, 1 << 30)
+
+
+EDGE_CASES = ["all_empty", "far_fill", "all_valid", "single_chunk"]
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_compact_edge_cases_match_pallas(name):
+    """Inputs that stress the kernel's look-back, through the plain
+    version against the reference's compact_v15 in interpret mode: every
+    chunk empty, a fill carried across eleven chunks, every slot valid, a
+    single chunk."""
+    slots, counts, hi = _edge_case(name)
+    rec = _edge_records(slots, counts, hi, seed=3)
+    per_chunk = pb15.CHUNK_CELLS * slots
+    dense_rows = (rec.dm.numel() // 128 + per_chunk // 128 + 2
+                  + pb15.SUB_ROWS + 16)
+    want = _ref_compact(*(jnp.asarray(getattr(rec, k).numpy().reshape(-1, 128))
+                          for k in ("dm", "mm", "dr", "mr")),
+                        jnp.asarray(rec.mbase.numpy()),
+                        jnp.asarray(rec.rbase.numpy()),
+                        slots=slots, dense_rows=dense_rows)
+    got = tpb.compact(rec, slots)
+    for n, w, g in zip(("mdst", "mmeta", "rdst", "rmeta"), want, got,
+                       strict=True):
+        assert np.array_equal(np.asarray(w).reshape(-1), g.numpy()), n
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_compact_card_branch_is_one_launch_and_no_fill(monkeypatch, name):
+    """The card's branch of ``compact``, taken on CPU tensors with the
+    launch recorded instead of made: one launch of dbg_compact with the
+    arguments the C entry declares, and no fill of the outputs (the
+    kernel writes every slot); the only tensor zeroed is the look-back
+    status, two words a chunk and the ticket."""
+    import ctypes
+
+    from debigulator_tpu_torch.ops import _kernels
+
+    slots, counts, hi = _edge_case(name)
+    rec = _edge_records(slots, counts, hi, seed=3)
+    n_chunks = len(counts) // tpb.CHUNK_CELLS
+    made, zeroed = [], []
+    real_zeros = torch.zeros
+
+    def zeros(*a, **k):
+        out = real_zeros(*a, **k)
+        zeroed.append(out.numel())
+        return out
+
+    def no_fill(*a, **k):
+        raise AssertionError("an output was filled before the launch")
+
+    monkeypatch.setattr(tpb, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "launch",
+                        lambda entry, *a: made.append((entry, a)))
+    monkeypatch.setattr(torch, "zeros", zeros)
+    monkeypatch.setattr(torch, "full", no_fill)
+    monkeypatch.setattr(torch.Tensor, "fill_", no_fill)
+    monkeypatch.setattr(torch.Tensor, "zero_", no_fill)
+    before = tpb.compact.launches
+    out = tpb.compact(rec, slots)
+    monkeypatch.undo()
+    assert tpb.compact.launches == before + 1
+    assert [e for e, _ in made] == ["dbg_compact"]
+    args = made[0][1]
+    argtypes = _kernels._ENTRIES["dbg_compact"][1]
+    assert len(args) == len(argtypes)
+    for a, at in zip(args, argtypes, strict=True):
+        assert isinstance(a, torch.Tensor) if at is ctypes.c_void_p \
+            else isinstance(a, int)
+    status = args[-1]
+    assert status.dtype == torch.int64 and status.numel() == 2 * n_chunks + 1
+    assert zeroed == [2 * n_chunks + 1]
+    assert args[6:10] == (n_chunks, tpb.CHUNK_CELLS * slots,
+                          tpb.CHUNK_CELLS * slots // 128 + 2,
+                          rec.dm.numel() // 128 + tpb.CHUNK_CELLS * slots // 128
+                          + 2 + tpb.DENSE_SLACK_ROWS)
+    assert [o.data_ptr() for o in out] == [a.data_ptr() for a in args[10:14]]
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

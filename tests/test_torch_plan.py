@@ -14,6 +14,13 @@ from debigulator_tpu.parallel import merged as ref_merged
 from debigulator_tpu_torch.ops import plan as tp
 from debigulator_tpu_torch.ops.scanner import scan_stream_cells
 from debigulator_tpu_torch.parallel import merged as tm
+from torch_stream_cases import ensure_reference_native
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
 
 
 def _deflate(data, level=6, strategy=zlib.Z_DEFAULT_STRATEGY):

@@ -15,6 +15,13 @@ from debigulator_tpu.ops import unfilter as jax_uf
 from debigulator_tpu_torch.models import bmp_codec, png_codec, zlib_codec
 from debigulator_tpu_torch.models import pipeline as pl
 from torch_png_cases import CASES, make_case
+from torch_stream_cases import ensure_reference_native
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
 
 
 @pytest.mark.parametrize("color_type,h,w", CASES)

@@ -12,6 +12,13 @@ from debigulator_tpu.models import pipeline as jax_pl
 from debigulator_tpu_torch.models import bmp_codec, png_codec
 from debigulator_tpu_torch.models import pipeline as pl
 from torch_png_cases import corpus, corrupt, make_case
+from torch_stream_cases import ensure_reference_native
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
 
 
 def test_corpus_matches_jax_and_source(monkeypatch):

@@ -11,6 +11,13 @@ from debigulator_tpu.models import png_codec as jax_png
 from debigulator_tpu_torch.models import png_codec, zlib_codec
 from debigulator_tpu_torch.models import pipeline as pl
 from torch_png_cases import CASES, corrupt, make_case
+from torch_stream_cases import ensure_reference_native
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
 
 
 @pytest.mark.parametrize("color_type,h,w", CASES)

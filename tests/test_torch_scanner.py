@@ -15,7 +15,14 @@ from debigulator_tpu_torch import constants as C
 from debigulator_tpu_torch.ops import huffman as th
 from debigulator_tpu_torch.ops import inflate_ref as tr
 from debigulator_tpu_torch.ops import scanner as ts
-from torch_stream_cases import STREAMS
+from torch_stream_cases import STREAMS, ensure_reference_native
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
+
 
 CASES = sorted(STREAMS)
 

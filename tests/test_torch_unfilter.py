@@ -3,6 +3,9 @@ version) against the JAX package: the Pallas wavefront kernel in interpret
 mode, the NumPy oracle and the encoder's filter search.  Every comparison
 is on bytes and bit-exact (tolerance 0)."""
 
+import struct
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -119,10 +122,83 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="expected"):
         uf.unfilter(flat[:-1], 4, 4, 4)
     with pytest.raises(ValueError, match="bad image shape"):
-        uf.unfilter(flat, 4, 4, 5)
+        uf.unfilter(flat, 4, 4, 9)
 
 
-def test_height_limit_is_the_shared_memory_of_one_cta():
-    assert uf.smem_bytes(4096, 4) == 3 * 4096 * 4 + 4096
-    assert uf.smem_bytes(4096, 4) <= uf.SMEM_LIMIT_BYTES
-    assert uf.smem_bytes(20_000, 4) > uf.SMEM_LIMIT_BYTES
+@pytest.mark.parametrize("h,w,bpp,batch", [(20_000, 1, 4, None),
+                                            (9_400, 2, 8, None),
+                                            (70, 9, 4, 3)])
+def test_card_branch_launches_once_at_any_height(monkeypatch, h, w, bpp,
+                                                 batch):
+    """The wrapper's card branch, taken here on CPU tensors with the launch
+    recorded instead of made: one launch with the arguments the C entry
+    declares (a tall image, 16-bit RGBA, a batch), a zeroed flag tensor of
+    one ticket counter and one count per band, and no height limit."""
+    import ctypes
+
+    from debigulator_tpu_torch.ops import _kernels
+
+    made = []
+    monkeypatch.setattr(uf, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "launch",
+                        lambda entry, *a: made.append((entry, a)))
+    shape = (h * (1 + w * bpp),) if batch is None else (batch, h * (1 + w * bpp))
+    before = uf.unfilter.launches
+    got = uf.unfilter(torch.zeros(shape, dtype=torch.uint8), h, w, bpp)
+    nb = 1 if batch is None else batch
+    assert got.shape == ((h, w * bpp) if batch is None else (nb, h, w * bpp))
+    assert uf.unfilter.launches == before + 1
+    assert [e for e, _ in made] == ["dbg_unfilter"]
+    args = made[0][1]
+    argtypes = _kernels._ENTRIES["dbg_unfilter"][1]
+    assert len(args) == len(argtypes)
+    for a, at in zip(args, argtypes, strict=True):
+        assert isinstance(a, torch.Tensor) if at is ctypes.c_void_p \
+            else isinstance(a, int)
+    fil, out, n, hh, ww, bb, sync = args
+    assert (n, hh, ww, bb) == (nb, h, w, bpp)
+    assert fil.dtype == torch.uint8 and fil.shape == (nb, h, 1 + w * bpp)
+    assert out.dtype == torch.uint8 and out.shape == (nb, h, w * bpp)
+    bands = -(-h // uf.BAND_ROWS)
+    assert sync.dtype == torch.int32 and sync.numel() == 1 + nb * bands
+    assert not sync.any()
+
+
+def _png_rgba8(pix: np.ndarray, level: int = 6) -> bytes:
+    """An 8-bit RGBA PNG of (h, w, 4) pixels, filter 0 on every row."""
+    from torch_png_cases import _chunk
+    from debigulator_tpu_torch import constants as C
+
+    h, w, _ = pix.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          pix.reshape(h, w * 4)], axis=1).tobytes()
+    return (C.PNG_SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw, level)) + _chunk(b"IEND", b""))
+
+
+def test_tall_png_decodes_like_the_reference():
+    """A PNG taller than one CTA's shared memory could hold (20,000 x 1
+    RGBA8, random pixels from numpy seed 0, filter 0, zlib 6): the port's
+    decode_png_device on the CPU equals the reference's decode_png_device
+    on the CPU and the source pixels."""
+    from debigulator_tpu.models import pipeline as ref_pl
+    from debigulator_tpu_torch.models import pipeline as pl
+
+    pix = np.random.default_rng(0).integers(0, 256, (20_000, 1, 4),
+                                            dtype=np.uint8)
+    png = _png_rgba8(pix)
+    got = pl.decode_png_device(png, device="cpu")
+    assert got.shape == (20_000, 1, 4) and np.array_equal(got, pix)
+    assert np.array_equal(got, np.asarray(ref_pl.decode_png_device(png)))
+
+
+@pytest.mark.parametrize("h,w,bpp", [(9, 5, 8), (7, 4, 6), (40, 3, 8)])
+def test_wide_pixels_match_pallas_and_oracle(h, w, bpp):
+    """bpp 5-8 (16-bit RGB and RGBA scanlines): the plain version against
+    the Pallas kernel and the oracle."""
+    flat = _filtered(h, w, bpp, 7 * h + w)
+    got = uf.unfilter(torch.from_numpy(flat), h, w, bpp).numpy()
+    assert np.array_equal(got, np.asarray(
+        unfilter_wavefront_pallas(flat, h, w, bpp, interpret=True)))
+    assert np.array_equal(got, uf.unfilter_image(flat, h, w, bpp))

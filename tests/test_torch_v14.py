@@ -23,7 +23,14 @@ from debigulator_tpu_torch.ops import plan as tp
 from debigulator_tpu_torch.ops.archive import inflate_generations as ig
 from debigulator_tpu_torch.ops.archive import lz77_generations as lzgen
 from debigulator_tpu_torch.ops.scanner import scan_stream_cells
-from torch_stream_cases import STREAMS, deflate, words
+from torch_stream_cases import STREAMS, deflate, ensure_reference_native, words
+
+
+@pytest.fixture(autouse=True)
+def _reference_native():
+    """The reference's native scan loaded (see ensure_reference_native)."""
+    ensure_reference_native()
+
 
 CPU = torch.device("cpu")
 
@@ -203,3 +210,80 @@ def test_inflate_v14_multi_segment():
     body, overflow = ig.inflate_v14(pa, arrays, plan.slots, 2)
     assert not bool(overflow) and body.numel() == 2 * tp.SEG_BYTES
     assert body[: plan.out_size].to(torch.uint8).numpy().tobytes() == data
+
+
+def _v14_edge_args(name: str):
+    """compact_v14 arguments on 1,024 cells of 16 slots: a third of the
+    cells empty and a third full ("empty_full"), every cell empty
+    ("all_empty"), or as empty_full with every 37th count past `slots`
+    ("overflow"; each list's offsets are the exclusive prefix sums of the
+    raw counts, as resolve_segmented_v14 makes them).  Returns the port's
+    arguments and the counts with overflows cut to `slots`."""
+    rng = np.random.default_rng(21)
+    cells, slots = 1024, 16
+    kind = rng.integers(0, 3, (3, cells))
+    counts = np.where(kind == 0, 0, np.where(kind == 1, slots,
+                                             rng.integers(1, slots, (3, cells))))
+    if name == "all_empty":
+        counts[:] = 0
+    if name == "overflow":
+        counts[:, 3::37] = 40
+    clipped = np.minimum(counts, slots)
+
+    def rows(a):
+        return torch.from_numpy(np.asarray(a, np.int32)).view(-1, 128)
+
+    def packed(c):
+        return rows((c[0] << 16) | (c[1] << 8) | c[2])
+
+    nrows = cells * slots // 128 + 2 * lzgen.V14_STAGE_ROWS + 2
+    args = ([rows(rng.integers(1, 1 << 31, cells * slots)) for _ in range(5)]
+            + [packed(counts)] + [rows(np.cumsum(c) - c) for c in counts]
+            + [nrows, cells * slots // 128 + 2, slots])
+    return args, packed(clipped)
+
+
+@pytest.mark.parametrize("name", ["empty_full", "all_empty", "overflow"])
+def test_compact_v14_edge_cases_match_pallas(name):
+    """Empty cells, full cells, no records at all, and overflowed counts
+    (read as `slots`, the rest of their span left zero): the port against
+    _compact_kernel_v14 in interpret mode given the counts cut to
+    `slots` (the reference writes a count past `slots` from the
+    neighbouring cells' slots, which every caller discards)."""
+    args, clipped = _v14_edge_args(name)
+    got = lzgen.compact_v14(*args)
+    ref_args = [*args[:5], clipped, *args[6:9]]
+    want = ref_lzgen.compact_v14(*(jnp.asarray(a.numpy()) for a in ref_args),
+                                 *args[9:], interpret=True)
+    for g, w in zip(got, want, strict=True):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("name", ["empty_full", "overflow"])
+def test_compact_v14_card_branch_is_one_launch_and_no_zeros(monkeypatch,
+                                                            name):
+    """The card's branch of compact_v14 on CPU tensors with the launch
+    recorded instead of made: one launch, outputs from torch.empty, no
+    torch.zeros (the kernel writes every output slot)."""
+    from debigulator_tpu_torch.ops import _kernels
+
+    args, _ = _v14_edge_args(name)
+    made = []
+
+    def no_zeros(*a, **k):
+        raise AssertionError("compact_v14 zero-filled its outputs")
+
+    monkeypatch.setattr(lzgen, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "launch",
+                        lambda entry, *a: made.append((entry, a)))
+    monkeypatch.setattr(torch, "zeros", no_zeros)
+    monkeypatch.setattr(torch.Tensor, "zero_", no_zeros)
+    before = lzgen.compact_v14.launches
+    out = lzgen.compact_v14(*args)
+    monkeypatch.undo()
+    assert lzgen.compact_v14.launches == before + 1
+    assert [e for e, _ in made] == ["dbg_compact_v14"]
+    launched = made[0][1]
+    assert len(launched) == len(_kernels._ENTRIES["dbg_compact_v14"][1])
+    assert [o.data_ptr() for o in out] == [
+        launched[i].data_ptr() for i in (11, 12, 13, 14, 16)]

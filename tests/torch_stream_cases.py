@@ -3,12 +3,48 @@ made with zlib from numpy seeds, and the helpers that carry a JAX-package
 plan over to the port as numpy."""
 
 import dataclasses
+import fcntl
+import os
+import tempfile
 import zlib
 
 import numpy as np
 import torch
 
 from debigulator_tpu_torch.ops import plan as tp
+
+
+def ensure_reference_native():
+    """Load the JAX package's native library (the reference's scan and
+    plan run on it) under a file lock shared by every test process.
+
+    Each process that finds native/dbg_native.cpp newer than the
+    package's .so rebuilds the .so in place, and a process that loads it
+    while another writes it caches "no library" for good; the reference
+    then plans without cell entries and its plans differ from the
+    port's.  Under the lock one process builds or loads it at a time; a
+    cached miss while the source exists and DBG_NO_NATIVE is unset is
+    retried once, and the library must then load."""
+    from debigulator_tpu import native as ref_native
+
+    lock = os.path.join(tempfile.gettempdir(), "debigulator_tpu_native.lock")
+    with open(lock, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            lib = ref_native.get_lib()
+            wanted = (ref_native._SRC.exists()
+                      and not os.environ.get("DBG_NO_NATIVE"))
+            if lib is None and wanted:
+                ref_native._TRIED = False
+                lib = ref_native.get_lib()
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+    assert lib is not None or not wanted, \
+        "the JAX package's native library did not load"
+    return lib
+
+
+ensure_reference_native()
 
 
 def deflate(data, level=6, strategy=zlib.Z_DEFAULT_STRATEGY):
