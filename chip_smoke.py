@@ -14,18 +14,27 @@ Each phase prints one JSON line:
   shape of bench.py's workload, synthetic OBJ-like text made from a fixed
   seed) through build_merged_plan -> prepare_merged -> run on "cuda", every
   stream checked against zlib; profile (device busy share and top kernels);
+* walk_vs_plain: the LZ77 walk (a grid-wide source chase) against its
+  plain version on a 4 MiB zero run at level 9 (dist-1 chains ~16,000
+  deep), 2 MiB of copies of copies, the two with a main-path stream as a
+  merged batch, and every walk of a chunked long-stream decode that has a
+  window prologue; chain-depth histograms, kernel and plain ms, bounds;
 * unfilter_vs_plain, greedy_walk_vs_plain: the PNG unfilter at a small
   size with every filter type, on batches, on 1024x1024 and 4096x4096 RGBA,
   and on images taller than one CTA's shared memory could hold (20,000 x 1
   RGBA8 and 9,400 x 2 16-bit RGBA against the NumPy oracle, a 20,000 x 256
   RGBA8 PNG through decode_png_device against its pixels); the encoder's
-  greedy walk at edge shapes and on a 4 MB filtered image;
+  greedy walk at edge shapes, on a 4 MB filtered image, and at that size on
+  every len 3 (no_merge), every len 11 and 258-long matches across every
+  chunk boundary, each with the chunks' fix-up lengths;
 * png_path: a corpus of 16 PNGs made here from numpy seed 0 with zlib and
   struct (about 64 MB of RGBA: RGBA, RGB, gray+alpha, palette with tRNS,
   gray, and one image cycling through all five filters) through
   decode_png_corpus_device, decode_png_device and decode_png_batch, every
   image equal to its source pixels, then one 4096x4096 RGBA image through
-  decode_png_device;
+  decode_png_device; the walk's work, bound and device ms inside the
+  corpus call and inside the large image's call, and the large image's
+  call taken apart (host steps, top device operations);
 * encode_path: deflate_fixed_device on the filtered rows of a 1024x1024
   RGBA image (checked with zlib), then encode_png on the card and
   decode_png_device of the result equal to the image;
@@ -472,17 +481,31 @@ def same(name, got, want) -> int:
 
 
 def spy(module, name, store):
-    """Keep the arguments of the module's calls of `name`; returns the
-    real function, which the caller puts back."""
+    """Keep the arguments of every call of the module's `name`, in order,
+    as store[name]; returns the real function, which the caller puts
+    back."""
     real = getattr(module, name)
 
     def wrapper(*a, **k):
-        store[name] = (a, k)
+        store.setdefault(name, []).append((a, k))
         return real(*a, **k)
 
     wrapper.launches = 0
     setattr(module, name, wrapper)
     return real
+
+
+def walk_work_of(resolves: list) -> dict:
+    """walk_work summed over phase_b.resolve calls kept by spy."""
+    total: dict = {}
+    for a, _ in resolves:
+        ma, mb, ra, rb, lit, cnt, outlen = a[:7]
+        work = walk_work(cnt, mb, a[11], int(outlen.long().sum())
+                         + a[10].numel())
+        for k, v in work.items():
+            total[k] = total.get(k, 0) + v
+    total["walks"] = len(resolves)
+    return total
 
 
 def window_buffer(flat, off: int, body, dev):
@@ -518,15 +541,362 @@ def stages(st, slots):
     c_k = pb.compact(rec, slots)
     c_p = pb.compact_plain(rec, slots)
     mdst, mmeta, rdst, rmeta = c_k
-    s8 = pb.size8(mdst, mmeta)
     init = pb.init_body(st.n_seg, st.stored_pos, st.stored_val,
                         device=mdst.device)
-    w_k = pb.walk(init.clone(), mdst, mmeta, s8, rdst, rmeta, rec.lit,
-                  stream_starts=st.stream_starts)
+    w_k = pb.walk(init.clone(), mdst, mmeta, None, rdst, rmeta, rec.lit)
     w_p = pb.walk_plain(init.clone(), mdst, mmeta, rdst, rmeta, rec.lit)
     torch.cuda.synchronize()
     return {"a_k": a_k, "a_p": a_p, "rec": rec, "c_k": c_k, "c_p": c_p,
-            "s8": s8, "init": init, "w_k": w_k, "w_p": w_p}
+            "init": init, "w_k": w_k, "w_p": w_p}
+
+
+#: The walk's three kernels (csrc/walk.cu) as torch.profiler names them.
+WALK_KERNEL_NAMES = ("::run_kernel(", "::pointer_kernel(", "::chase_kernel(")
+
+
+def walk_device_ms(events) -> float:
+    """Device ms of the walk's kernels among profiler key averages."""
+    return sum(e.self_device_time_total for e in events
+               if any(k in e.key for k in WALK_KERNEL_NAMES)) / 1e3
+
+
+def walk_work(cnt, mb, slots: int, out_size: int) -> dict:
+    """What one walk must move, from Phase A's counts and match metas:
+    the run records (2 words), the literals, the match records (dst and
+    meta, and the length they carry), each match byte's source, and the
+    output written once.  Bytes at 4 per int32 element."""
+    cnt = cnt.long()
+    mc = (cnt >> 16) & 0xFF
+    valid = torch.arange(slots, device=mb.device)[:, None] < mc[None, :]
+    work = {"matches": int(mc.sum()), "runs": int(((cnt >> 8) & 0xFF).sum()),
+            "literals": int((cnt & 0xFF).sum()),
+            "match_bytes": int(((mb.long() >> 16) * valid).sum()),
+            "out_bytes": out_size}
+    work["bytes"] = 4 * (2 * work["runs"] + work["literals"]
+                         + 3 * work["matches"] + work["match_bytes"] + out_size)
+    return work
+
+
+def chain_depths(out_len: int, mdst, mmeta) -> dict:
+    """Histogram of the walk's chain depths: for every element of the
+    buffer, the copies its value passes through (0: literal, stored or
+    window byte), by the kernel's rule s = d - dist + i % dist, counted by
+    pointer doubling.  Buckets 0, 1, 2-3, 4-7, ...; also max and mean."""
+    from debigulator_tpu_torch.ops import phase_b as pb
+
+    dev = mdst.device
+    mlen = (mmeta >> 16).long()
+    dist = (mmeta & 0xFFFF).long()
+    live = (mdst < pb.BIG) & (mlen > 0) & (dist > 0)
+    d = mdst[live].long() + pb.WINDOW
+    dist = dist[live]
+    rec, off = pb._expand(mlen[live])
+    pos = d[rec] + off
+    src = d[rec] - dist[rec] + off % dist[rec]
+    keep = (pos < out_len) & (src >= 0)
+    ptr = torch.arange(out_len, device=dev)
+    ptr[pos[keep]] = src[keep]
+    depth = (ptr != torch.arange(out_len, device=dev)).int()
+    del rec, off, pos, src, keep
+    while True:
+        nxt = ptr[ptr]
+        if torch.equal(nxt, ptr):
+            break
+        depth = depth + depth[ptr]
+        ptr = nxt
+    depth = depth[pb.WINDOW :]
+    bucket = torch.where(depth > 0,
+                         1 + torch.log2(depth.clamp(min=1).double()).floor().long(),
+                         0)
+    counts = torch.bincount(bucket).tolist()
+    labels = ["0"] + [f"{1 << (b - 1)}-{(1 << b) - 1}" if b > 1 else "1"
+                      for b in range(1, len(counts))]
+    return {"max": int(depth.max()), "mean": float(depth.double().mean()),
+            "buckets": dict(zip(labels, counts))}
+
+
+#: Speculative starts of a greedy-walk chunk (kStarts of greedy_walk.cu).
+GREEDY_STARTS = 8
+
+
+def greedy_fixups(best_len, chunk: int, starts: int = GREEDY_STARTS) -> dict:
+    """How far each chunk of the greedy-walk kernel re-walks in its
+    hand-off: from its true entry to the first position where the true
+    parse meets one of the chunk's speculative parses (from its first
+    `starts` positions; the chunk's end if never), by pointer doubling in
+    plain PyTorch.  Summary over the chunks."""
+    n = best_len.numel()
+    dev = best_len.device
+    ln = best_len.long()
+    idx = torch.arange(n, device=dev)
+    nxt = torch.clamp(idx + torch.where(ln >= 3, ln, 1), max=n)
+    end = torch.clamp((idx // chunk + 1) * chunk, max=n)
+
+    def orbit(starts, jump):
+        vis = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        vis[starts] = True
+        jump = torch.cat([jump, torch.full((1,), n, device=dev)])
+        for _ in range(max(1, n.bit_length())):
+            vis[jump[vis.nonzero()[:, 0]]] = True
+            jump = jump[jump]
+        return vis[:n]
+
+    true = orbit(torch.zeros(1, dtype=torch.long, device=dev), nxt)
+    first = torch.arange(0, n, chunk, device=dev)
+    first = (first[:, None] + torch.arange(starts, device=dev)).reshape(-1)
+    spec = orbit(first[(first < n) & (first % chunk < starts)],
+                 torch.where(nxt < end, nxt, n))
+    n_chunks = -(-n // chunk)
+    cid = idx // chunk
+    big = torch.full((n_chunks,), n, dtype=torch.long, device=dev)
+    entry = big.scatter_reduce(0, cid[true], idx[true], "amin")
+    both = true & spec
+    merge = big.scatter_reduce(0, cid[both], idx[both], "amin")
+    chunk_end = torch.clamp((torch.arange(n_chunks, device=dev) + 1) * chunk,
+                            max=n)
+    has = entry < n
+    never = has & (merge >= chunk_end)
+    fix = torch.where(has, torch.minimum(merge, chunk_end) - entry, 0)
+    q = torch.quantile(fix[has].double(), torch.tensor(
+        [0.5, 0.9, 0.99], dtype=torch.float64, device=dev)).tolist() \
+        if bool(has.any()) else [0.0, 0.0, 0.0]
+    return {"chunks": n_chunks, "with_entry": int(has.sum()),
+            "merged_at_entry": int((has & (fix == 0)).sum()),
+            "never_merged": int(never.sum()),
+            "rewalked": int(fix.sum()), "max": int(fix.max()),
+            "p50_p90_p99": q}
+
+
+def walk_case_streams(base: bytes):
+    """Raw DEFLATE streams of the walk's adversarial shapes and their
+    bytes: a 4 MiB zero run at level 9 (one literal, then dist-1 matches:
+    one hop per 258 bytes, ~16,000 deep), 2 MiB of 64-byte blocks each a
+    copy of the one before with one byte changed (copies of copies), and
+    the two with one main-path stream as a merged batch."""
+    rng = np.random.default_rng(11)
+    zeros = bytes(4 << 20)
+    cur = bytearray(rng.integers(0, 256, 64, dtype=np.uint8).tobytes())
+    nested = bytearray()
+    for r in rng.integers(0, 64 * 256, 1 << 15):
+        nested += cur
+        cur[r % 64] = r // 64
+    nested = bytes(nested)
+
+    def deflate(data, level):
+        c = zlib.compressobj(level, zlib.DEFLATED, -15)
+        return c.compress(data) + c.flush()
+
+    z, nst, txt = deflate(zeros, 9), deflate(nested, 9), make_streams(base, 1)[0]
+    return {"zero_run": ([z], [zeros]), "nested": ([nst], [nested]),
+            "merged": ([z, nst, txt], [zeros, nested, base])}
+
+
+def walk_args(mp, dev) -> dict:
+    """A merged plan staged, through Phase A and compact: the walk's
+    inputs (a fresh body, the dense lists, the literal tape), each
+    stream's start, and the work a walk of them must do."""
+    from debigulator_tpu_torch.ops import inflate as inf
+    from debigulator_tpu_torch.ops import phase_a as pa
+    from debigulator_tpu_torch.ops import phase_b as pb
+
+    st = inf.stage_plan(mp.plan, dev)
+    a = pa.phase_a(st.pa, st.slots)
+    rec = pb.prep_records(*a, st.pa.bob_cell, st.slots)
+    mdst, mmeta, rdst, rmeta = pb.compact(rec, st.slots)
+    return {"init": pb.init_body(st.n_seg, st.stored_pos, st.stored_val,
+                                 device=dev),
+            "lists": (mdst, mmeta, rdst, rmeta, rec.lit),
+            "starts": torch.tensor(mp.out_offsets, dtype=torch.int32,
+                                   device=dev),
+            "work": walk_work(a[5], a[1], st.slots, mp.plan.out_size)}
+
+
+def greedy_cases(dev, filtered: np.ndarray, stride: int, chunk: int) -> dict:
+    """(best_len, best_dist) on the card for the greedy walk: the encoder's
+    own on `filtered` (the path's shape), `no_merge` (every len 3 at the
+    same n: parses from different chunk starts never meet), the same with
+    every len 11 (more residues than the kernel's speculative starts) and
+    `cross_chunk` (literals, and a 258-long match over every boundary
+    of the kernel's chunks, 1 to 257 positions before it)."""
+    from debigulator_tpu_torch.ops import deflate_encode_device as enc
+
+    n = len(filtered)
+    dists = sorted({*enc.BASE_DISTANCES, stride, *enc.mine_distances(filtered)})
+    bl, bd = enc.best_matches(gpu_filtered(filtered.tobytes(), dev), dists)
+    rng = np.random.default_rng(7)
+    far = torch.from_numpy(rng.integers(1, 32768, n).astype(np.int32)).to(dev)
+    cross = torch.zeros(n, dtype=torch.int32, device=dev)
+    bounds = torch.arange(chunk, max(n, chunk), chunk, device=dev)
+    cross[bounds - 1 - bounds // chunk % 257] = 258
+    return {"rgba1024_filtered": (bl, bd),
+            "no_merge": (torch.full((n,), 3, dtype=torch.int32, device=dev), far),
+            "no_merge_len11": (torch.full((n,), 11, dtype=torch.int32,
+                                          device=dev), far),
+            "cross_chunk": (cross, far), "dists": dists}
+
+
+def corpus_first_image() -> tuple[np.ndarray, int]:
+    """The filtered scanlines of the corpus's first image (1024 x 1024
+    RGBA, numpy seed 0) and its row stride."""
+    pix = smooth_pixels(np.random.default_rng(0), 1024, 1024, 4)
+    return np.frombuffer(filter_scanlines(pix), np.uint8), 1 + 1024 * 4
+
+
+def big_image_png() -> tuple[bytes, bytes, np.ndarray]:
+    """The noisy BIG_SIDE x BIG_SIDE RGBA image (numpy seed 1) as a level-6
+    PNG: (PNG, filtered scanlines, pixels)."""
+    pix = smooth_pixels(np.random.default_rng(1), BIG_SIDE, BIG_SIDE, 4,
+                        noisy=True)
+    return (*make_png(pix, 6, 6), pix)
+
+
+def decode_breakdown(png: bytes, dev) -> dict:
+    """One decode_png_device call taken apart: its host steps, each timed
+    alone (median of 3: CRC and chunk parse, the native scan, the inflate
+    with the scan given, which holds the plan, the staging and the device
+    decode; the rest is Adler-32, unfilter, RGBA and the read-back), and
+    its device operations in one call under torch.profiler."""
+    from debigulator_tpu_torch.models import pipeline as pl
+    from debigulator_tpu_torch.models import png_codec
+    from debigulator_tpu_torch.ops import inflate as inf
+    from debigulator_tpu_torch.ops.plan import CELL_BITS
+    from debigulator_tpu_torch.ops.scanner import scan_stream_cells
+
+    stream = png_codec.parse_chunks(png).idat[2:]
+    scanned = scan_stream_cells(stream, CELL_BITS)
+    out = {"e2e_ms": host_ms(lambda: pl.decode_png_device(png, device=dev)),
+           "parse_crc_ms": host_ms(lambda: png_codec.parse_chunks(png)),
+           "scan_ms": host_ms(lambda: scan_stream_cells(stream, CELL_BITS)),
+           "inflate_ms": host_ms(lambda: (inf.inflate_device_dev(
+               stream, scanned=scanned, device=dev), torch.cuda.synchronize()))}
+    out["rest_ms"] = (out["e2e_ms"] - out["parse_crc_ms"] - out["scan_ms"]
+                      - out["inflate_ms"])
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pl.decode_png_device(png, device=dev)
+        out["profile_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["device_busy_ms"] = sum(e.self_device_time_total for e in events) / 1e3
+    out["walk_ms"] = walk_device_ms(events)
+    out["top"] = [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                  for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]]
+    return out
+
+
+def walk_bench(dev, base: bytes) -> dict:
+    """Times of the LZ77 walk and the greedy walk on the card, through
+    wrapper signatures that every version of this package shares (the
+    walk is given size8 and the stream starts, which the frontier-batch
+    design read), so that tools/walk_compare can run this phase against
+    another checkout's package: the walk at the main path's 29 streams and
+    on the adversarial shapes, the greedy walk on the encoder's shape,
+    no_merge and cross_chunk, and the 4096 x 4096 decode taken apart."""
+    from debigulator_tpu_torch.ops import deflate_encode_device as enc
+    from debigulator_tpu_torch.ops import phase_b as pb
+    from debigulator_tpu_torch.parallel.merged import build_merged_plan
+
+    res = {"walk_ms": {}, "greedy_walk_ms": {}}
+    cases = {"gzip_29": make_streams(base, N_STREAMS),
+             **{k: v[0] for k, v in walk_case_streams(base).items()}}
+    for name, streams in cases.items():
+        w = walk_args(build_merged_plan(streams), dev)
+        mdst, mmeta, rdst, rmeta, lit = w["lists"]
+        s8 = pb.size8(mdst, mmeta)
+        out = w["init"].clone()
+        res["walk_ms"][name] = time_ms(lambda: pb.walk(
+            out, mdst, mmeta, s8, rdst, rmeta, lit, stream_starts=w["starts"]), 3)
+        del w, out, s8
+    filtered, stride = corpus_first_image()
+    # The same data on any tree: boundaries of this tree's chunks
+    # (GREEDY_CHUNK, 16384 positions).
+    g = greedy_cases(dev, filtered, stride, 16384)
+    for name in ("rgba1024_filtered", "no_merge", "no_merge_len11",
+                 "cross_chunk"):
+        bl, bd = g[name]
+        res["greedy_walk_ms"][name] = time_ms(lambda: enc.greedy_walk(bl, bd), 3)
+    del g
+    torch.cuda.empty_cache()
+    res["big_image"] = decode_breakdown(big_image_png()[0], dev)
+    return res
+
+
+def walk_phases(dev, base: bytes) -> dict:
+    """The walk against its plain version on the adversarial shapes of
+    walk_case_streams and on a body with a window prologue (the chunks of
+    the long-stream decode, whose matches reach into the tail carried
+    before them), each chain-depth histogram, and the kernel's and the
+    plain version's times.  Returns the phase's line."""
+    from debigulator_tpu_torch.ops import inflate as inf
+    from debigulator_tpu_torch.ops import phase_b as pb
+    from debigulator_tpu_torch.ops.plan import CELL_BITS
+    from debigulator_tpu_torch.ops.scanner import scan_stream_cells
+    from debigulator_tpu_torch.parallel.merged import build_merged_plan
+
+    shapes = []
+    for name, (streams, datas) in walk_case_streams(base).items():
+        mp = build_merged_plan(streams)
+        w = walk_args(mp, dev)
+        mdst, mmeta, rdst, rmeta, lit = w["lists"]
+        got = pb.walk(w["init"].clone(), mdst, mmeta, None, rdst, rmeta, lit)
+        torch.cuda.synchronize()
+        want = pb.walk_plain(w["init"].clone(), mdst, mmeta, rdst, rmeta, lit)
+        err = same(f"walk at {name}", (got,), (want,))
+        body = got[pb.WINDOW : pb.WINDOW + mp.plan.out_size].to(torch.uint8)
+        body = body.cpu().numpy()
+        for off, data in zip(mp.out_offsets, datas, strict=True):
+            if body[off : off + len(data)].tobytes() != data:
+                raise AssertionError(f"walk at {name}: decode is not bit-exact")
+        out = w["init"].clone()
+        shapes.append({
+            "shape": name, "streams": len(streams), "out_bytes": mp.plan.out_size,
+            "max_abs_err": err, **w["work"],
+            "depths": chain_depths(got.numel(), mdst, mmeta),
+            "ms": time_ms(lambda: pb.walk(out, mdst, mmeta, None, rdst, rmeta,
+                                          lit), 5),
+            "plain_ms": time_ms(lambda: pb.walk_plain(
+                w["init"].clone(), mdst, mmeta, rdst, rmeta, lit), 1),
+            "bound_ms": w["work"]["bytes"] / HBM_BYTES_PER_S * 1e3})
+        if not torch.equal(out, got):
+            raise AssertionError(f"repeated walk at {name} changed its output")
+        del w, got, want, out, body
+    # A body with a window prologue: every walk of a chunked long-stream
+    # decode after the first, held against the plain version.
+    calls = []
+    real_walk = pb.walk
+
+    def keep_walk(out, mdst, mmeta, s8, rdst, rmeta, lit, stream_starts=None):
+        calls.append((out.clone(), mdst, mmeta, rdst, rmeta, lit))
+        return real_walk(out, mdst, mmeta, s8, rdst, rmeta, lit)
+
+    long_data = base * 3
+    c = zlib.compressobj(6, zlib.DEFLATED, -15)
+    long_stream = c.compress(long_data) + c.flush()
+    # The real walk counts its launches on the module's `walk`.
+    keep_walk.launches = real_walk.launches
+    pb.walk = keep_walk
+    try:
+        body, n = inf.inflate_device_long_stream(
+            long_stream, *scan_stream_cells(long_stream, CELL_BITS),
+            cap_rows=4096, device=dev)
+    finally:
+        pb.walk = real_walk
+        real_walk.launches = keep_walk.launches
+    if body[:n].to(torch.uint8).cpu().numpy().tobytes() != long_data:
+        raise AssertionError("long-stream decode is not bit-exact")
+    with_tail = [cl for cl in calls if bool(cl[0][: pb.WINDOW].any())]
+    if not with_tail:
+        raise AssertionError("no walk of the long stream had a window prologue")
+    for init, mdst, mmeta, rdst, rmeta, lit in with_tail:
+        same("walk with a window prologue",
+             (pb.walk(init.clone(), mdst, mmeta, None, rdst, rmeta, lit),),
+             (pb.walk_plain(init.clone(), mdst, mmeta, rdst, rmeta, lit),))
+    return {"phase": "walk_vs_plain", "max_abs_err": 0, "shapes": shapes,
+            "window_prologue": {"walks": len(calls),
+                                "with_prologue": len(with_tail),
+                                "max_abs_err": 0}}
 
 
 def png_and_encode_phases(dev):
@@ -553,9 +923,7 @@ def png_and_encode_phases(dev):
 
     t0 = time.perf_counter()
     corpus = make_corpus(0)
-    big_pix = smooth_pixels(np.random.default_rng(1), BIG_SIDE, BIG_SIDE, 4,
-                            noisy=True)
-    big_png, big_filtered = make_png(big_pix, 6, 6)
+    big_png, big_filtered, big_pix = big_image_png()
     make_s = time.perf_counter() - t0
     pngs = [c[1] for c in corpus]
     rgba_bytes = sum(c[2].nbytes for c in corpus)
@@ -605,6 +973,7 @@ def png_and_encode_phases(dev):
         visits = got[0].numel() + max(0, bl.numel() - mlen)
         rec = {"shape": name, "n": bl.numel(), "records": got[0].numel(),
                "visits": visits, "max_abs_err": err,
+               "fixups": greedy_fixups(bl, enc.GREEDY_CHUNK),
                "ms": time_ms(lambda: enc.greedy_walk(bl, bd), reps),
                "plain_ms": time_ms(lambda: enc.greedy_walk_plain(bl, bd), reps),
                # visited lengths, taken distances, records (pos, meta), count
@@ -624,14 +993,16 @@ def png_and_encode_phases(dev):
     enc_filtered = np.frombuffer(corpus[0][3], np.uint8)  # 1024x1024 RGBA
     enc_h, enc_w, enc_ch = corpus[0][4]
     stride = 1 + enc_w * enc_ch
-    dists = sorted({*enc.BASE_DISTANCES, stride, *enc.mine_distances(enc_filtered)})
+    g = greedy_cases(dev, enc_filtered, stride, enc.GREEDY_CHUNK)
+    walk_main = check_walk("rgba1024_filtered", *g["rgba1024_filtered"])
+    for name in ("no_merge", "no_merge_len11", "cross_chunk"):
+        check_walk(name, *g[name])
+    dists = g["dists"]
     dev_data = gpu_filtered(corpus[0][3], dev)
-    bl, bd = enc.best_matches(dev_data, dists)
-    walk_main = check_walk("rgba1024_filtered", bl, bd)
     lengths_ms = time_ms(lambda: enc.best_matches(dev_data, dists), 2)
     emit({"phase": "greedy_walk_vs_plain", "max_abs_err": 0, "shapes": walks,
           "distances": dists, "lengths_ms": lengths_ms})
-    del bl, bd
+    del g
 
     # --- png_path ------------------------------------------------------
     def corpus_call(as_numpy=True):
@@ -640,9 +1011,16 @@ def png_and_encode_phases(dev):
         return out
 
     reset()
-    t0 = time.perf_counter()
-    images = corpus_call()
-    first_s = time.perf_counter() - t0
+    resolves: dict = {}
+    real_resolve = spy(pb, "resolve", resolves)
+    try:
+        t0 = time.perf_counter()
+        images = corpus_call()
+        first_s = time.perf_counter() - t0
+    finally:
+        pb.resolve = real_resolve
+    corpus_walk = walk_work_of(resolves["resolve"])
+    del resolves
     for (name, _, want, _, _), got in zip(corpus, images, strict=True):
         if got.shape != want.shape or not np.array_equal(got, want):
             raise AssertionError(f"corpus image {name} differs from its source")
@@ -687,7 +1065,7 @@ def png_and_encode_phases(dev):
             lambda: [scan_stream_cells(s, CELL_BITS) for s in streams]),
         "merged_plan_scanned_ms": host_ms(
             lambda: build_merged_plan(streams, scanned=scans)),
-        "stage_ms": host_ms(lambda: (inf.stage_plan(mp.plan, dev, mp.out_offsets),
+        "stage_ms": host_ms(lambda: (inf.stage_plan(mp.plan, dev),
                                      torch.cuda.synchronize())),
     }
     del mp, scans
@@ -701,16 +1079,26 @@ def png_and_encode_phases(dev):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
+    corpus_walk["ms_in_call"] = walk_device_ms(dev_events)
+    corpus_walk["bound_ms"] = corpus_walk["bytes"] / HBM_BYTES_PER_S * 1e3
     reset()
-    t0 = time.perf_counter()
-    big = pl.decode_png_device(big_png, device=dev)
-    big_ms = (time.perf_counter() - t0) * 1e3
+    resolves = {}
+    real_resolve = spy(pb, "resolve", resolves)
+    try:
+        t0 = time.perf_counter()
+        big = pl.decode_png_device(big_png, device=dev)
+        big_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        pb.resolve = real_resolve
     if not np.array_equal(big, big_pix):
         raise AssertionError("the large image differs from its source")
     big_launches = counts()
     require_launches("png_path, large image", big_launches,
                      ("phase_a", "compact", "walk", "unfilter"))
-    del big
+    big_walk = walk_work_of(resolves["resolve"])
+    big_walk["bound_ms"] = big_walk["bytes"] / HBM_BYTES_PER_S * 1e3
+    del big, resolves
+    big_parts = decode_breakdown(big_png, dev)
     emit({"phase": "png_path", "images": len(pngs), "make_inputs_s": make_s,
           "compressed_bytes": sum(map(len, pngs)),
           "filtered_bytes": sum(len(c[3]) for c in corpus),
@@ -723,10 +1111,11 @@ def png_and_encode_phases(dev):
           "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
                   for e in top],
           "adler": "ok", "bad_adler_raises": adler_caught,
-          "launches": png_launches,
+          "launches": png_launches, "walk": corpus_walk,
           "big_image": {"side": BIG_SIDE, "png_bytes": len(big_png), "rgba_bytes": big_pix.nbytes,
                        "ms": big_ms, "mbps": big_pix.nbytes / big_ms / 1e3,
-                       "exact": True, "launches": big_launches}})
+                       "exact": True, "launches": big_launches,
+                       "walk": big_walk, "parts": big_parts}})
     del big_pix
 
     # --- encode_path ---------------------------------------------------
@@ -835,7 +1224,7 @@ def fallback_phases(dev, base, streams):
     shapes = {}
     for label, k in (("small", 2), ("path", len(streams))):
         mp = build_merged_plan(streams[:k])
-        st = inf.stage_plan(mp.plan, dev, mp.out_offsets)
+        st = inf.stage_plan(mp.plan, dev)
         shapes[label] = (mp, st, inf.n_segments(mp.plan.out_size))
     vs = {n: [] for n in ("phase_a_tape", "lz77_tape", "lz77_ops", "lz77_match")}
     timed = {}
@@ -946,7 +1335,7 @@ def fallback_phases(dev, base, streams):
     # hand-made list on a random buffer: sources in the window tail, dist 1,
     # period 3, the full length 258, a match reading the one before it.
     one = build_merged_plan(streams[:1])
-    st1 = inf.stage_plan(one.plan, dev, one.out_offsets)
+    st1 = inf.stage_plan(one.plan, dev)
     cells1 = one.plan.num_cells
     tape1, _ = pa.phase_a_tape(st1.pa, st1.slots)
     out_size = one.plan.out_size
@@ -1233,7 +1622,7 @@ def archive_phases(dev, streams):
 
         # Rows 10b and 10c on the v14 glue's own inputs.
         mpf = build_merged_plan(streams[:k])
-        st = inf.stage_plan(mpf.plan, dev, mpf.out_offsets)
+        st = inf.stage_plan(mpf.plan, dev)
         arrays = tp.plan_arrays_v7(mpf.plan, dev)
         seen = {}
         real_c = spy(lg, "compact_v14", seen)
@@ -1244,13 +1633,13 @@ def archive_phases(dev, streams):
         finally:
             lg.compact_v14, lg.resolve_walk_v14 = real_c, real_w
             ig.segment_lims = real_l
-        c_args = seen["compact_v14"][0]
+        c_args = seen["compact_v14"][-1][0]
         got_c = lg.compact_v14(*c_args)
         torch.cuda.synchronize()
         rec = {"shape": label, "cells": int(c_args[5].numel()),
                "max_abs_err": same("compact_v14", got_c,
                                    lg.compact_v14_plain(*c_args))}
-        w_args = seen["resolve_walk_v14"][0]
+        w_args = seen["resolve_walk_v14"][-1][0]
         got_w = lg.resolve_walk_v14(*w_args)
         torch.cuda.synchronize()
         rec_w = {"shape": label, "max_abs_err": same(
@@ -1298,7 +1687,7 @@ def archive_phases(dev, streams):
             seg = 8192
             off = 300_000 // seg * seg
             flat = np.frombuffer(b"".join(datas[:k]), np.uint8)
-            lims = real_l(*seen["segment_lims"][0][:6],
+            lims = real_l(*seen["segment_lims"][-1][0][:6],
                           -(-len(flat) // seg), seg_bytes=seg)[off // seg]
             call = (segment_buffer(flat, off, seg), lims.contiguous(),
                     *w_args[2:])
@@ -1365,7 +1754,7 @@ def archive_phases(dev, streams):
     del body, v9, stored
 
     mpf = build_merged_plan(streams)
-    st = inf.stage_plan(mpf.plan, dev, mpf.out_offsets)
+    st = inf.stage_plan(mpf.plan, dev)
     arrays = tp.plan_arrays_v7(mpf.plan, dev)
     torch.cuda.synchronize()
     reset()
@@ -1588,7 +1977,7 @@ def archive_kernel_phases(dev, streams):
             lg.resolve_groups_v9, lg.resolve_groups_v10 = real9, real10
         flat = np.frombuffer(b"".join(datas[:k]), np.uint8)
         for name, (fn, plain) in groups.items():
-            a = seen[f"resolve_{name}"][0]
+            a = seen[f"resolve_{name}"][-1][0]
             got = fn(*a)
             torch.cuda.synchronize()
             rec = {"shape": label, "streams": k, "n_seg": n_seg,
@@ -1779,7 +2168,7 @@ def main() -> int:
     base = obj_text()
     streams = make_streams(base, N_STREAMS)
     small = build_merged_plan(streams[:2])
-    st_small = inf.stage_plan(small.plan, dev, small.out_offsets)
+    st_small = inf.stage_plan(small.plan, dev)
     s = stages(st_small, small.plan.slots)
     errs = {"phase_a": max_abs_err(s["a_k"], s["a_p"]),
             "compact": max_abs_err(s["c_k"], s["c_p"]),
@@ -1884,7 +2273,7 @@ def main() -> int:
                    e.count / prof_reps] for e in top]})
 
     # --- per-kernel times at the main-path shapes ----------------------
-    st = inf.stage_plan(mp.plan, dev, mp.out_offsets)
+    st = inf.stage_plan(mp.plan, dev)
     slots = mp.plan.slots
     s = stages(st, slots)
     errs_main = {"phase_a": max_abs_err(s["a_k"], s["a_p"]),
@@ -1914,9 +2303,8 @@ def main() -> int:
         "compact": (time_ms(lambda: pb.compact(rec, slots), 10),
                     time_ms(lambda: pb.compact_plain(rec, slots), 3),
                     time_ms(library_compact, 10)),
-        "walk": (time_ms(lambda: pb.walk(out_k, mdst, mmeta, s["s8"], rdst,
-                                         rmeta, rec.lit,
-                                         stream_starts=st.stream_starts), 5),
+        "walk": (time_ms(lambda: pb.walk(out_k, mdst, mmeta, None, rdst,
+                                         rmeta, rec.lit), 5),
                  time_ms(lambda: pb.walk_plain(s["init"].clone(), mdst, mmeta,
                                                rdst, rmeta, rec.lit), 2),
                  None),
@@ -1934,17 +2322,15 @@ def main() -> int:
     # Least time for the same work: bytes each function must move at HBM
     # rate, or its integer operations at the ALU rate, whichever is larger.
     cells_pad = int(st.pa.cellw.shape[1])
-    cnt = s["a_k"][5].long()
-    n_match = int(((cnt >> 16) & 0xFF).sum())
-    n_run = int(((cnt >> 8) & 0xFF).sum())
-    n_lit = int((cnt & 0xFF).sum())
-    mlen_total = int((mmeta.long() >> 16).sum())
+    work = walk_work(s["a_k"][5], s["a_k"][1], slots, mp.plan.out_size)
+    n_match, n_run, n_lit = work["matches"], work["runs"], work["literals"]
+    mlen_total = work["match_bytes"]
+    depths_main = chain_depths(out_k.numel(), mdst, mmeta)
     bytes_ = {
         "phase_a": 4 * (st.pa.cellw.numel() + cells_pad + st.pa.tables.numel()
                         + 5 * slots * cells_pad + 2 * cells_pad),
         "compact": 4 * (4 * rec.dm.numel() + 4 * mdst.numel()),
-        "walk": 4 * (2 * n_run + n_lit + 3 * n_match + mlen_total
-                     + mp.plan.out_size),
+        "walk": work["bytes"],
     }
     ops = {"phase_a": OPS_PER_SYMBOL * (n_lit + 2 * n_match),
            "compact": 0, "walk": 0}
@@ -1971,12 +2357,17 @@ def main() -> int:
     del s, st, rec, out_k, body, run, mdst, mmeta, rdst, rmeta, valid_m, valid_r
     torch.cuda.empty_cache()
 
+    # --- the walk on adversarial shapes -------------------------------
+    emit(walk_phases(dev, base))
+    torch.cuda.empty_cache()
+
     # --- the second slice: PNG decode and the encoder -------------------
     kernels2, times2 = png_and_encode_phases(dev)
     kernels += kernels2
     emit({"phase": "kernel_times", "cells_pad": cells_pad, "slots": slots,
           "matches": n_match, "runs": n_run, "literals": n_lit,
           "match_bytes": mlen_total, "bytes_moved": bytes_,
+          "walk_chain_depths": depths_main,
           "library_call": {"compact": "torch.masked_select of mdst, mmeta, "
                                       "rdst, rmeta (4 calls)",
                            "unfilter": None, "greedy_walk": None},

@@ -225,7 +225,7 @@ def decode_png_corpus_device(datas: list[bytes], verify_crc: bool = True,
         worker thread so it overlaps the previous chunk's device work."""
         mp = build_merged_plan([streams[i] for i in chunk],
                                scanned=[scans[i] for i in chunk])
-        return mp, inf.stage_plan(mp.plan, dev, mp.out_offsets)
+        return mp, inf.stage_plan(mp.plan, dev)
 
     with cf.ThreadPoolExecutor(1) as pool:
         fut = pool.submit(build, chunks[0]) if chunks else None

@@ -45,10 +45,10 @@ _ENTRIES = {
     "dbg_phase_a_tape": ("phase_a", [_P, _P, _P, _I32, _I32, _P, _P]),
     "dbg_compact": ("compact", [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                                 _I32, _P, _P, _P, _P, _P]),
-    "dbg_walk": ("walk", [_P, _I64, _I64, _P, _P, _P, _P, _I32,
-                          _P, _P, _I64, _P, _I64]),
+    "dbg_walk": ("walk", [_P, _I64, _I64, _P, _P, _I64, _P, _P, _I64, _P,
+                          _I64]),
     "dbg_unfilter": ("unfilter", [_P, _P, _I32, _I32, _I32, _I32, _P]),
-    "dbg_greedy_walk": ("greedy_walk", [_P, _P, _I64, _P, _P, _P]),
+    "dbg_greedy_walk": ("greedy_walk", [_P, _P, _I64, _I32, _P, _P, _P, _P]),
     "dbg_lz77_match": ("lz77_match", [_P, _I64, _P, _P, _I32]),
     "dbg_lz77_tape_place": ("lz77_tape", [_P, _I32, _P, _P, _P, _I32, _I32,
                                           _I32, _I32, _P, _P, _P, _P, _P, _P]),

@@ -85,8 +85,6 @@ class StagedPlan:
     stored_val: torch.Tensor
     slots: int
     n_seg: int
-    #: (n_streams,) int32 output offset of each independent stream.
-    stream_starts: torch.Tensor
     #: True when ``slots`` is the scanner's exact bound (no tape overflows).
     slots_exact: bool = True
 
@@ -95,10 +93,9 @@ def n_segments(out_size: int) -> int:
     return _round_pow2(max(1, -(-out_size // SEG_BYTES)), 1)
 
 
-def stage_plan(plan: PlanV3, device: torch.device,
-               stream_starts=(0,)) -> StagedPlan:
-    """Stage an exact-entry plan's device inputs; stream_starts are the
-    output offsets of the independent streams a merged plan holds."""
+def stage_plan(plan: PlanV3, device: torch.device) -> StagedPlan:
+    """Stage an exact-entry plan's device inputs (a merged plan's streams
+    need no boundaries: the walk resolves them as one)."""
     return StagedPlan(
         pa=stage_phase_a_inputs(build_phase_a_inputs(plan), device),
         stored_pos=torch.from_numpy(
@@ -107,8 +104,6 @@ def stage_plan(plan: PlanV3, device: torch.device,
             np.asarray(plan.stored_val, np.uint8)).to(device),
         slots=plan.slots,
         n_seg=n_segments(plan.out_size),
-        stream_starts=torch.tensor(stream_starts, dtype=torch.int32,
-                                   device=device),
         slots_exact=plan.slots_exact,
     )
 
@@ -123,7 +118,7 @@ def flagship_body(st: StagedPlan, tail0=None) -> torch.Tensor:
     ma, mb, ra, rb, lit, cnt, outlen = phase_a(st.pa, st.slots)
     return phase_b.resolve(ma, mb, ra, rb, lit, cnt, outlen, st.pa.bob_cell,
                            st.n_seg, st.stored_pos, st.stored_val, st.slots,
-                           tail0=tail0, stream_starts=st.stream_starts)
+                           tail0=tail0)
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,13 @@ debigulator_tpu/ops/phase_b_v15.py's flagship path).
 * ``compact`` (kernel csrc/compact.cu, replacing ``_compact_kernel``)
   turns the padded tapes into dense dst-sorted record lists, padding
   included exactly as the reference lays it out.
-* ``size8`` is the frontier-batch rule (phase_b_v15.py:931-953).
+* ``size8`` is the reference's frontier-batch rule (phase_b_v15.py:
+  931-953), kept as a contract at that kernel boundary; the walk below
+  does not need it.
 * ``walk`` (kernel csrc/walk.cu, replacing ``_walk_kernel_v16``) places
   the literal runs and resolves the matches over one flat output buffer
-  with the 32 KiB window prologue just before the body.
+  with the 32 KiB window prologue just before the body, as a grid-wide
+  source chase that needs no stream boundaries.
 
 ``resolve`` chains them; its output is the reference's body: n_seg *
 seg_bytes int32 values, one byte each.
@@ -261,24 +264,21 @@ def walk_plain(out, mdst, mmeta, rdst, rmeta, lit):
 
 def walk(out, mdst, mmeta, s8, rdst, rmeta, lit, stream_starts=None):
     """Literal runs + matches into ``out`` in place; plain version for CPU
-    tensors, the CUDA kernel pair for CUDA tensors.  ``s8`` is
-    size8(mdst, mmeta) (the plain version does not need it).
-    ``stream_starts``: sorted output offsets of the independent streams of
-    a merged batch (default: one stream); the kernel walks each stream's
-    slice of the match list on its own CTA."""
-    for t in (out, mdst, mmeta, s8, rdst, rmeta, lit):
+    tensors, the CUDA kernels for CUDA tensors.  ``out`` holds byte values
+    (0..255): the kernel marks unresolved match bytes with negative
+    pointers in place.  ``s8`` (size8) and ``stream_starts`` are accepted
+    for callers of the frontier-batch walk and not read: the chase needs
+    neither batch sizes nor stream boundaries (a DEFLATE match reads only
+    its own stream)."""
+    for t in (out, mdst, mmeta, rdst, rmeta, lit):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("walk inputs must be contiguous int32")
-    if out.device.type == "cpu":
+    if _plain_here(out):
         return walk_plain(out, mdst, mmeta, rdst, rmeta, lit)
-    if stream_starts is None:
-        stream_starts = torch.zeros(1, dtype=torch.int32, device=out.device)
-    bounds = torch.cat([
-        torch.searchsorted(mdst, stream_starts.to(torch.int32)),
-        torch.full((1,), mdst.numel(), dtype=torch.int64, device=out.device)])
-    _kernels.launch("dbg_walk", out, out.numel(), WINDOW, mdst, mmeta, s8,
-                    bounds, stream_starts.numel(), rdst, rmeta, rdst.numel(),
-                    lit, lit.numel())
+    if out.numel() >= 1 << 31:
+        raise ValueError("walk output must hold fewer than 2^31 elements")
+    _kernels.launch("dbg_walk", out, out.numel(), WINDOW, mdst, mmeta,
+                    mdst.numel(), rdst, rmeta, rdst.numel(), lit, lit.numel())
     walk.launches += 1
     return out
 
@@ -300,13 +300,13 @@ def init_body(n_seg: int, stored_pos, stored_val, tail0=None,
 
 
 def resolve(ma, mb, ra, rb, lit, cnt, outlen, bob_cell, n_seg: int,
-            stored_pos, stored_val, slots: int, tail0=None,
-            stream_starts=None) -> torch.Tensor:
+            stored_pos, stored_val, slots: int, tail0=None) -> torch.Tensor:
     """Phase B: the reference's resolve_segmented_v15 contract.  Returns
-    the body (n_seg*SEG_BYTES,) int32, one byte per element."""
+    the body (n_seg*SEG_BYTES,) int32, one byte per element.  A merged
+    batch of streams resolves as one: no match crosses into another
+    stream."""
     rec = prep_records(ma, mb, ra, rb, lit, cnt, outlen, bob_cell, slots)
     mdst, mmeta, rdst, rmeta = compact(rec, slots)
     out = init_body(n_seg, stored_pos, stored_val, tail0, device=ma.device)
-    walk(out, mdst, mmeta, size8(mdst, mmeta), rdst, rmeta, rec.lit,
-         stream_starts=stream_starts)
+    walk(out, mdst, mmeta, None, rdst, rmeta, rec.lit)
     return out[WINDOW:]

@@ -260,7 +260,7 @@ def prepare_merged(mp: MergedPlan, device="cuda"):
     dev = resolve_device(device)
     n_seg = inf.n_segments(plan.out_size)
     if plan.exact_entries:
-        st = inf.stage_plan(plan, dev, stream_starts=mp.out_offsets)
+        st = inf.stage_plan(plan, dev)
         if inf.phase_b_generation() != "v13":
             def call(slots: int):
                 return inf.flagship_body(st), False

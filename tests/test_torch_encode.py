@@ -21,6 +21,12 @@ CASES = {
                                                      dtype=np.uint8)),
     "tiny": b"abc",
     "stride": bytes(np.tile(np.arange(33, dtype=np.uint8), 300)),
+    # 258-long matches at distance 13 (a mined distance) across the card
+    # kernel's chunk boundaries (three chunks and a ragged end), and an
+    # input shorter than one chunk.
+    "cross_chunk": bytes(np.tile(np.random.RandomState(5).randint(
+        0, 256, 13, dtype=np.uint8), 4000))[: 3 * dev.GREEDY_CHUNK + 123],
+    "short": b"short tx" * 300,
 }
 
 
@@ -84,10 +90,20 @@ def _walk_loop(best_len, best_dist):
 
 
 @pytest.mark.parametrize("case", ["none", "to_the_end", "cap258", "mixed",
-                                  "one"])
+                                  "one", "no_merge", "cross_chunk",
+                                  "n_lt_chunk"])
 def test_greedy_walk_plain_edge_shapes(case):
+    """The plain walk against the loop on shapes that stress the card
+    kernel's chunks: no_merge (every len 3: parses from different chunk
+    starts never meet, so every chunk re-walks), 258-long matches that
+    straddle chunk boundaries, and n below one chunk."""
     rng = np.random.default_rng(3)
+    chunk = dev.GREEDY_CHUNK
     n = 2000
+    if case in ("no_merge", "cross_chunk"):
+        n = 3 * chunk + 777  # several chunks and a ragged end
+    elif case == "n_lt_chunk":
+        n = chunk - 5
     bl = np.zeros(n, np.int32)
     bd = np.ones(n, np.int32)
     if case == "to_the_end":
@@ -101,11 +117,62 @@ def test_greedy_walk_plain_edge_shapes(case):
     elif case == "one":
         n = 1
         bl, bd = np.array([0], np.int32), np.array([0], np.int32)
+    elif case == "no_merge":
+        bl[:] = 3
+        bd = rng.integers(1, 32768, n).astype(np.int32)
+    elif case == "cross_chunk":
+        # A 258-long match starting 100, 1 and 257 positions before each
+        # boundary, literals between.
+        for k, back in zip(range(1, 4), (100, 1, 257)):
+            bl[k * chunk - back] = 258
+        bl[n - 258] = 258  # and one that ends exactly at n
+    elif case == "n_lt_chunk":
+        bl = rng.choice([0, 3, 5, 258], n).astype(np.int32)
     pos, meta = dev.greedy_walk(torch.from_numpy(bl), torch.from_numpy(bd))
     want_pos, want_meta = _walk_loop(bl, bd)
     assert pos.dtype == torch.int32 and meta.dtype == torch.int32
     assert pos.tolist() == want_pos and meta.tolist() == want_meta
     assert dev.greedy_walk.launches == 0  # CPU tensors never launch
+
+
+@pytest.mark.parametrize("n", [1, 16384, 16385, 3 * 16384 + 5])
+def test_greedy_walk_card_branch_is_one_launch(monkeypatch, n):
+    """The card's branch of ``greedy_walk``, taken on CPU tensors with the
+    launch recorded instead of made: one launch of dbg_greedy_walk with the
+    arguments the C entry declares, the chunk size the kernel was built
+    for, record buffers of n // 3 + 1, and a zeroed status of one int64
+    word a chunk plus the ticket."""
+    import ctypes
+    import re
+
+    from debigulator_tpu_torch.ops import _kernels
+
+    made = []
+    monkeypatch.setattr(dev, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "launch",
+                        lambda entry, *a: made.append((entry, a)))
+    before = dev.greedy_walk.launches
+    bl = torch.full((n,), 3, dtype=torch.int32)
+    pos, meta = dev.greedy_walk(bl, torch.ones(n, dtype=torch.int32))
+    monkeypatch.undo()
+    assert dev.greedy_walk.launches == before + 1
+    assert [e for e, _ in made] == ["dbg_greedy_walk"]
+    args = made[0][1]
+    argtypes = _kernels._ENTRIES["dbg_greedy_walk"][1]
+    assert len(args) == len(argtypes)
+    for a, at in zip(args, argtypes, strict=True):
+        assert isinstance(a, torch.Tensor) if at is ctypes.c_void_p \
+            else isinstance(a, int)
+    _, _, n_arg, chunk, pos_out, meta_out, count, status = args
+    src = (_kernels.CSRC / "greedy_walk.cu").read_text()
+    assert chunk == dev.GREEDY_CHUNK == int(
+        re.search(r"constexpr int kChunk = (\d+);", src).group(1))
+    assert n_arg == n
+    assert pos_out.numel() == meta_out.numel() == n // 3 + 1
+    assert count.dtype == torch.int32 and count.tolist() == [0]
+    assert status.dtype == torch.int64
+    assert status.numel() == -(-n // chunk) + 1 and not status.any()
+    assert pos.numel() == meta.numel() == 0  # the count read back
 
 
 def test_best_matches_are_real_matches():

@@ -123,7 +123,7 @@ def test_flagship_needs_exact_slots(four):
     streams, _ = four
     mp = tm.build_merged_plan(streams)
     mp.plan.slots_exact = False
-    st = inf.stage_plan(mp.plan, torch.device("cpu"), mp.out_offsets)
+    st = inf.stage_plan(mp.plan, torch.device("cpu"))
     with pytest.raises(ValueError, match="exact slot"):
         inf.flagship_body(st)
 

@@ -17,6 +17,7 @@ from debigulator_tpu.ops import inflate_v3 as v3
 from debigulator_tpu.ops import phase_b_v15 as pb15
 from debigulator_tpu.ops.phase_a_pallas import build_pa_arrays
 from debigulator_tpu.ops.scanner import scan_stream_cells
+from debigulator_tpu.parallel import merged as jm
 from debigulator_tpu_torch.ops import phase_a as tpa
 from debigulator_tpu_torch.ops import phase_b as tpb
 from debigulator_tpu_torch.ops import plan as tp
@@ -55,11 +56,35 @@ def _mixed():
     return st, t + b"\x00" * 4000 + mid + t[::-1]
 
 
+def _nested(blocks=300, width=64, seed=11):
+    """Each block a copy of the one before with one byte changed: the
+    later blocks' matches copy copies (chains ~one hop a block deep)."""
+    rng = np.random.default_rng(seed)
+    cur = bytearray(rng.integers(0, 256, width, dtype=np.uint8).tobytes())
+    out = bytearray()
+    for _ in range(blocks):
+        out += cur
+        cur[int(rng.integers(0, width))] = int(rng.integers(0, 256))
+    return bytes(out)
+
+
+def _merged_pair():
+    """Two streams of one merged batch: text and a zero run."""
+    datas = [_words(2500, 3), b"\x00" * 30_000 + _words(500, 4)]
+    return [_deflate(datas[0]), _deflate(datas[1], 9)], datas
+
+
 CASES = {
     "text": lambda: (_deflate(_words(6000, 2)), _words(6000, 2)),
     "rle": lambda: (_deflate(b"ab" * 3000 + b"z" * 9000, 9),
                     b"ab" * 3000 + b"z" * 9000),
     "mixed_stored": _mixed,
+    # Deep chains for the walk's source chase: a zero run coded as one
+    # literal and dist-1 matches (one hop per 258 bytes), and copies of
+    # copies; then a merged batch, which the kernel resolves as one.
+    "zero_run": lambda: (_deflate(b"\x00" * 120_000, 9), b"\x00" * 120_000),
+    "nested": lambda: (_deflate(_nested(), 9), _nested()),
+    "merged_pair": _merged_pair,
 }
 
 
@@ -67,10 +92,16 @@ class _Case:
     """Plan, Phase A outputs (port, plain) and staged inputs of a stream."""
 
     def __init__(self, name):
-        self.stream, self.data = CASES[name]()
-        blocks, lengths, cells = scan_stream_cells(self.stream, v3.CELL_BITS)
-        self.ref_plan = v3.build_plan_v3(self.stream, blocks, lengths,
-                                         cells=cells)
+        raw, data = CASES[name]()
+        if isinstance(raw, list):  # a merged batch of streams
+            mp = jm.build_merged_plan(raw, records=False)
+            self.ref_plan, self.offsets, self.datas = \
+                mp.plan, mp.out_offsets, data
+        else:
+            blocks, lengths, cells = scan_stream_cells(raw, v3.CELL_BITS)
+            self.ref_plan = v3.build_plan_v3(raw, blocks, lengths,
+                                             cells=cells)
+            self.offsets, self.datas = [0], [data]
         self.plan = tp.plan_from_numpy(dataclasses.asdict(self.ref_plan))
         self.inp = tpa.stage_phase_a_inputs(
             tpa.build_phase_a_inputs(self.plan), torch.device("cpu"))
@@ -291,7 +322,9 @@ def test_resolve_matches_pallas_and_zlib(name):
     pos = torch.from_numpy(plan.stored_pos.astype(np.int32))
     val = torch.from_numpy(plan.stored_val)
     body = tpb.resolve(*c.a, c.inp.bob_cell, n_seg, pos, val, c.slots)
-    assert body[: plan.out_size].to(torch.uint8).numpy().tobytes() == c.data
+    got = body[: plan.out_size].to(torch.uint8).numpy().tobytes()
+    for off, data in zip(c.offsets, c.datas, strict=True):
+        assert got[off : off + len(data)] == data
     pa = build_pa_arrays(c.ref_plan)
     want = _ref_resolve(
         *(jnp.asarray(x.numpy()) for x in c.a),
@@ -333,3 +366,52 @@ def test_walk_plain_handles_window_prologue():
                              tail0=torch.from_numpy(tail))
     got = body[: plan.out_size].to(torch.uint8).numpy().tobytes()
     assert got == data[len(prefix):]
+
+
+@pytest.mark.parametrize("name", ["text", "merged_pair"])
+def test_resolve_card_branch_walks_without_size8(monkeypatch, name):
+    """The card's branch of ``resolve``, taken on CPU tensors with the
+    launches recorded instead of made: compact, then one launch of dbg_walk
+    with the arguments the C entry declares (the whole buffer, the dense
+    lists and their lengths, the literal tape), and no size8 pass: the
+    source chase needs no batch sizes and no stream bounds, also for a
+    merged batch."""
+    import ctypes
+
+    from debigulator_tpu_torch.ops import _kernels
+
+    c = case(name)
+    plan = c.plan
+    n_seg = v3._round_pow2(max(1, -(-plan.out_size // v3.SEG_BYTES)), 1)
+    pos = torch.from_numpy(plan.stored_pos.astype(np.int32))
+    val = torch.from_numpy(plan.stored_val)
+    made = []
+
+    def no_size8(*a, **k):
+        raise AssertionError("size8 computed on the card's path")
+
+    monkeypatch.setattr(tpb, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "launch",
+                        lambda entry, *a: made.append((entry, a)))
+    monkeypatch.setattr(tpb, "size8", no_size8)
+    before = (tpb.compact.launches, tpb.walk.launches)
+    body = tpb.resolve(*c.a, c.inp.bob_cell, n_seg, pos, val, c.slots)
+    monkeypatch.undo()
+    assert (tpb.compact.launches, tpb.walk.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    assert [e for e, _ in made] == ["dbg_compact", "dbg_walk"]
+    args = made[1][1]
+    argtypes = _kernels._ENTRIES["dbg_walk"][1]
+    assert len(args) == len(argtypes)
+    for a, at in zip(args, argtypes, strict=True):
+        assert isinstance(a, torch.Tensor) if at is ctypes.c_void_p \
+            else isinstance(a, int)
+    out, out_len, window, mdst, mmeta, n_m, rdst, rmeta, n_r, lit, n_lit = args
+    assert out_len == out.numel() == tpb.WINDOW + n_seg * v3.SEG_BYTES
+    assert window == tpb.WINDOW
+    assert body.data_ptr() == out.data_ptr() + 4 * tpb.WINDOW
+    dense = made[0][1][10:14]  # compact's outputs feed the walk
+    assert [t.data_ptr() for t in (mdst, mmeta, rdst, rmeta)] == \
+        [t.data_ptr() for t in dense]
+    assert (n_m, n_r) == (mdst.numel(), rdst.numel())
+    assert n_lit == lit.numel() and torch.equal(lit, c.rec.lit)
