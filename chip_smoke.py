@@ -561,10 +561,12 @@ def walk_device_ms(events) -> float:
 
 
 def walk_work(cnt, mb, slots: int, out_size: int) -> dict:
-    """What one walk must move, from Phase A's counts and match metas:
-    the run records (2 words), the literals, the match records (dst and
-    meta, and the length they carry), each match byte's source, and the
-    output written once.  Bytes at 4 per int32 element."""
+    """What one walk must move to and from HBM, from Phase A's counts and
+    match metas: the run records (2 words), the literals, the match
+    records (dst and meta), and each output element written once.  A
+    match's source lies within 32 KiB before it, so it can be held on
+    chip and is not charged; match_bytes (the bytes the matches copy) is
+    reported beside.  Bytes at 4 per int32 element."""
     cnt = cnt.long()
     mc = (cnt >> 16) & 0xFF
     valid = torch.arange(slots, device=mb.device)[:, None] < mc[None, :]
@@ -573,7 +575,7 @@ def walk_work(cnt, mb, slots: int, out_size: int) -> dict:
             "match_bytes": int(((mb.long() >> 16) * valid).sum()),
             "out_bytes": out_size}
     work["bytes"] = 4 * (2 * work["runs"] + work["literals"]
-                         + 3 * work["matches"] + work["match_bytes"] + out_size)
+                         + 2 * work["matches"] + out_size)
     return work
 
 
@@ -615,11 +617,7 @@ def chain_depths(out_len: int, mdst, mmeta) -> dict:
             "buckets": dict(zip(labels, counts))}
 
 
-#: Speculative starts of a greedy-walk chunk (kStarts of greedy_walk.cu).
-GREEDY_STARTS = 8
-
-
-def greedy_fixups(best_len, chunk: int, starts: int = GREEDY_STARTS) -> dict:
+def greedy_fixups(best_len, chunk: int, starts: int) -> dict:
     """How far each chunk of the greedy-walk kernel re-walks in its
     hand-off: from its true entry to the first position where the true
     parse meets one of the chunk's speculative parses (from its first
@@ -693,8 +691,8 @@ def walk_case_streams(base: bytes):
 
 def walk_args(mp, dev) -> dict:
     """A merged plan staged, through Phase A and compact: the walk's
-    inputs (a fresh body, the dense lists, the literal tape), each
-    stream's start, and the work a walk of them must do."""
+    inputs (a fresh body, the dense lists, the literal tape) and the work
+    a walk of them must do."""
     from debigulator_tpu_torch.ops import inflate as inf
     from debigulator_tpu_torch.ops import phase_a as pa
     from debigulator_tpu_torch.ops import phase_b as pb
@@ -706,8 +704,6 @@ def walk_args(mp, dev) -> dict:
     return {"init": pb.init_body(st.n_seg, st.stored_pos, st.stored_val,
                                  device=dev),
             "lists": (mdst, mmeta, rdst, rmeta, rec.lit),
-            "starts": torch.tensor(mp.out_offsets, dtype=torch.int32,
-                                   device=dev),
             "work": walk_work(a[5], a[1], st.slots, mp.plan.out_size)}
 
 
@@ -733,13 +729,6 @@ def greedy_cases(dev, filtered: np.ndarray, stride: int, chunk: int) -> dict:
             "no_merge_len11": (torch.full((n,), 11, dtype=torch.int32,
                                           device=dev), far),
             "cross_chunk": (cross, far), "dists": dists}
-
-
-def corpus_first_image() -> tuple[np.ndarray, int]:
-    """The filtered scanlines of the corpus's first image (1024 x 1024
-    RGBA, numpy seed 0) and its row stride."""
-    pix = smooth_pixels(np.random.default_rng(0), 1024, 1024, 4)
-    return np.frombuffer(filter_scanlines(pix), np.uint8), 1 + 1024 * 4
 
 
 def big_image_png() -> tuple[bytes, bytes, np.ndarray]:
@@ -784,43 +773,6 @@ def decode_breakdown(png: bytes, dev) -> dict:
     out["top"] = [[e.key[:60], e.self_device_time_total / 1e3, e.count]
                   for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]]
     return out
-
-
-def walk_bench(dev, base: bytes) -> dict:
-    """Times of the LZ77 walk and the greedy walk on the card, through
-    wrapper signatures that every version of this package shares (the
-    walk is given size8 and the stream starts, which the frontier-batch
-    design read), so that tools/walk_compare can run this phase against
-    another checkout's package: the walk at the main path's 29 streams and
-    on the adversarial shapes, the greedy walk on the encoder's shape,
-    no_merge and cross_chunk, and the 4096 x 4096 decode taken apart."""
-    from debigulator_tpu_torch.ops import deflate_encode_device as enc
-    from debigulator_tpu_torch.ops import phase_b as pb
-    from debigulator_tpu_torch.parallel.merged import build_merged_plan
-
-    res = {"walk_ms": {}, "greedy_walk_ms": {}}
-    cases = {"gzip_29": make_streams(base, N_STREAMS),
-             **{k: v[0] for k, v in walk_case_streams(base).items()}}
-    for name, streams in cases.items():
-        w = walk_args(build_merged_plan(streams), dev)
-        mdst, mmeta, rdst, rmeta, lit = w["lists"]
-        s8 = pb.size8(mdst, mmeta)
-        out = w["init"].clone()
-        res["walk_ms"][name] = time_ms(lambda: pb.walk(
-            out, mdst, mmeta, s8, rdst, rmeta, lit, stream_starts=w["starts"]), 3)
-        del w, out, s8
-    filtered, stride = corpus_first_image()
-    # The same data on any tree: boundaries of this tree's chunks
-    # (GREEDY_CHUNK, 16384 positions).
-    g = greedy_cases(dev, filtered, stride, 16384)
-    for name in ("rgba1024_filtered", "no_merge", "no_merge_len11",
-                 "cross_chunk"):
-        bl, bd = g[name]
-        res["greedy_walk_ms"][name] = time_ms(lambda: enc.greedy_walk(bl, bd), 3)
-    del g
-    torch.cuda.empty_cache()
-    res["big_image"] = decode_breakdown(big_image_png()[0], dev)
-    return res
 
 
 def walk_phases(dev, base: bytes) -> dict:
@@ -906,6 +858,7 @@ def png_and_encode_phases(dev):
     fields."""
     from debigulator_tpu_torch.models import pipeline as pl
     from debigulator_tpu_torch.models import png_codec
+    from debigulator_tpu_torch.ops import _kernels
     from debigulator_tpu_torch.ops import deflate_encode_device as enc
     from debigulator_tpu_torch.ops import phase_a as pa
     from debigulator_tpu_torch.ops import phase_b as pb
@@ -961,6 +914,8 @@ def png_and_encode_phases(dev):
 
     # --- greedy walk kernel vs plain ----------------------------------
     walks = []
+    chunk = _kernels.constant("dbg_greedy_chunk")
+    starts = _kernels.constant("dbg_greedy_starts")
 
     def check_walk(name, bl, bd, reps=3):
         got = enc.greedy_walk(bl, bd)
@@ -973,7 +928,7 @@ def png_and_encode_phases(dev):
         visits = got[0].numel() + max(0, bl.numel() - mlen)
         rec = {"shape": name, "n": bl.numel(), "records": got[0].numel(),
                "visits": visits, "max_abs_err": err,
-               "fixups": greedy_fixups(bl, enc.GREEDY_CHUNK),
+               "fixups": greedy_fixups(bl, chunk, starts),
                "ms": time_ms(lambda: enc.greedy_walk(bl, bd), reps),
                "plain_ms": time_ms(lambda: enc.greedy_walk_plain(bl, bd), reps),
                # visited lengths, taken distances, records (pos, meta), count
@@ -993,7 +948,7 @@ def png_and_encode_phases(dev):
     enc_filtered = np.frombuffer(corpus[0][3], np.uint8)  # 1024x1024 RGBA
     enc_h, enc_w, enc_ch = corpus[0][4]
     stride = 1 + enc_w * enc_ch
-    g = greedy_cases(dev, enc_filtered, stride, enc.GREEDY_CHUNK)
+    g = greedy_cases(dev, enc_filtered, stride, chunk)
     walk_main = check_walk("rgba1024_filtered", *g["rgba1024_filtered"])
     for name in ("no_merge", "no_merge_len11", "cross_chunk"):
         check_walk(name, *g[name])

@@ -298,14 +298,17 @@ greedy_walk_kernel(const int* __restrict__ best_len,
 
 }  // namespace
 
-// status: n_chunks + 1 int64 words zeroed by the caller (each chunk's
-// hand-off word, then the ticket counter); chunk must equal kChunk.
+// The chunk size and the speculative starts a chunk, for the caller.
+extern "C" int dbg_greedy_chunk() { return kChunk; }
+extern "C" int dbg_greedy_starts() { return kStarts; }
+
+// status: ceil(n / dbg_greedy_chunk()) + 1 int64 words zeroed by the
+// caller (each chunk's hand-off word, then the ticket counter).
 extern "C" int dbg_greedy_walk(const int* best_len, const int* best_dist,
-                               int64_t n, int chunk, int* pos_out,
-                               int* meta_out, int* count_out,
-                               unsigned long long* status,
+                               int64_t n, int* pos_out, int* meta_out,
+                               int* count_out, unsigned long long* status,
                                cudaStream_t stream) {
-  if (chunk != kChunk || n >= (int64_t{1} << 31) - 2 * kChunk) {
+  if (n >= (int64_t{1} << 31) - 2 * kChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t n_chunks = (n + kChunk - 1) / kChunk;

@@ -1,4 +1,5 @@
-"""Resolve the ``device=`` argument of the port's entry points."""
+"""Resolve the ``device=`` argument of the port's entry points, and say
+where a kernel wrapper runs its plain version."""
 
 from __future__ import annotations
 
@@ -17,3 +18,9 @@ def resolve(device="cuda") -> torch.device:
             "device='cuda' requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def plain_here(t: torch.Tensor) -> bool:
+    """A kernel wrapper runs its plain version where its tensors lie on the
+    CPU; on a CUDA tensor it launches its kernel or raises."""
+    return t.device.type == "cpu"

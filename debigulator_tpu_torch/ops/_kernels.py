@@ -48,7 +48,7 @@ _ENTRIES = {
     "dbg_walk": ("walk", [_P, _I64, _I64, _P, _P, _I64, _P, _P, _I64, _P,
                           _I64]),
     "dbg_unfilter": ("unfilter", [_P, _P, _I32, _I32, _I32, _I32, _P]),
-    "dbg_greedy_walk": ("greedy_walk", [_P, _P, _I64, _I32, _P, _P, _P, _P]),
+    "dbg_greedy_walk": ("greedy_walk", [_P, _P, _I64, _P, _P, _P, _P]),
     "dbg_lz77_match": ("lz77_match", [_P, _I64, _P, _P, _I32]),
     "dbg_lz77_tape_place": ("lz77_tape", [_P, _I32, _P, _P, _P, _I32, _I32,
                                           _I32, _I32, _P, _P, _P, _P, _P, _P]),
@@ -78,8 +78,13 @@ _ENTRIES = {
     "dbg_microbench_pb": ("microbench_pb", [_P, _I64, _P, _P, _I32, _I32,
                                             _I32, _I32]),
 }
+#: C entries that take nothing and return a constant of the kernel's
+#: layout -> library.
+_CONSTANTS = {"dbg_greedy_chunk": "greedy_walk",
+              "dbg_greedy_starts": "greedy_walk"}
 
 _FNS: dict = {}
+_VALUES: dict = {}
 _LOCK = threading.Lock()
 
 
@@ -109,6 +114,10 @@ def build() -> float:
                 fn.restype = ctypes.c_int
                 fn.argtypes = [*argtypes, ctypes.c_void_p]
                 _FNS[entry] = fn
+            for entry, lib in _CONSTANTS.items():
+                fn = getattr(libs[lib], entry)
+                fn.restype, fn.argtypes = ctypes.c_int, []
+                _VALUES[entry] = int(fn())
     return time.perf_counter() - t0
 
 
@@ -128,3 +137,10 @@ def launch(entry: str, *args) -> None:
     err = _FNS[entry](*conv, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed (cudaError {err})")
+
+
+def constant(entry: str) -> int:
+    """A constant of a kernel's layout, as its library reports it."""
+    if not _FNS:
+        build()
+    return _VALUES[entry]

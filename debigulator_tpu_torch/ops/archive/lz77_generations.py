@@ -48,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from debigulator_tpu_torch.constants import TOK_MATCH_BIT
+from debigulator_tpu_torch.device import plain_here as _plain_here
 from debigulator_tpu_torch.ops import _kernels
 from debigulator_tpu_torch.ops import lz77 as lz
 from debigulator_tpu_torch.ops.phase_b import _expand
@@ -70,11 +71,6 @@ def _lit_scratch_rows(seg_bytes: int) -> int:
     """Rows of a segment's literal window (row 0 a pad row): the literal
     array of the host-fed decode is padded by this many rows."""
     return seg_bytes // 128 + 8
-
-
-def _plain_here(t: torch.Tensor) -> bool:
-    """A wrapper runs its plain version where its tensors lie on the CPU."""
-    return t.device.type == "cpu"
 
 
 def _check_i32(*tensors) -> None:

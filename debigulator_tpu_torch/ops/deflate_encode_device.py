@@ -26,15 +26,13 @@ import numpy as np
 import torch
 
 from debigulator_tpu_torch import constants as C
+from debigulator_tpu_torch.device import plain_here as _plain_here
 from debigulator_tpu_torch.device import resolve as resolve_device
 from debigulator_tpu_torch.ops import _kernels
 from debigulator_tpu_torch.ops import deflate_encode as enc
 
 #: Static candidate distance ladder (plus the caller's row stride).
 BASE_DISTANCES = (1, 2, 3, 4, 8)
-
-#: Positions a CTA of the greedy-walk kernel walks (its kChunk).
-GREEDY_CHUNK = 16384
 
 #: Sampled-candidate mining: positions sampled / top distances added.
 _MINE_SAMPLE = 1 << 15
@@ -128,18 +126,13 @@ def greedy_walk_plain(best_len: torch.Tensor, best_dist: torch.Tensor):
     return pos.to(torch.int32), meta.to(torch.int32)
 
 
-def _plain_here(t: torch.Tensor) -> bool:
-    """The wrapper runs its plain version where its tensors lie on the CPU."""
-    return t.device.type == "cpu"
-
-
 def greedy_walk(best_len: torch.Tensor, best_dist: torch.Tensor):
     """Greedy LZ77 selection over per-position best matches: (pos, meta)
     int32, one record per taken match in order.  The plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors: chunks of GREEDY_CHUNK
-    positions walk speculatively at once, then hand their true exits on in
-    ticket order (one int64 status word a chunk and the ticket, zeroed
-    here)."""
+    tensors, the CUDA kernel for CUDA tensors: chunks of positions (as
+    many as the kernel's dbg_greedy_chunk reports) walk speculatively at
+    once, then hand their true exits on in ticket order (one int64 status
+    word a chunk and the ticket, zeroed here)."""
     for t in (best_len, best_dist):
         if t.dtype != torch.int32 or not t.is_contiguous() or t.dim() != 1:
             raise ValueError("greedy_walk inputs must be contiguous 1-D int32")
@@ -148,7 +141,8 @@ def greedy_walk(best_len: torch.Tensor, best_dist: torch.Tensor):
     if _plain_here(best_len):
         return greedy_walk_plain(best_len, best_dist)
     n = best_len.shape[0]
-    if n >= (1 << 31) - 2 * GREEDY_CHUNK:
+    chunk = _kernels.constant("dbg_greedy_chunk")
+    if n >= (1 << 31) - 2 * chunk:
         raise ValueError("greedy_walk takes fewer than 2^31 - 2 chunks of "
                          "positions")
     dev = best_len.device
@@ -156,10 +150,9 @@ def greedy_walk(best_len: torch.Tensor, best_dist: torch.Tensor):
     cap = n // C.MIN_MATCH_LENGTH + 1
     rec = torch.empty((2, cap), dtype=torch.int32, device=dev)
     count = torch.zeros(1, dtype=torch.int32, device=dev)
-    status = torch.zeros(-(-n // GREEDY_CHUNK) + 1, dtype=torch.int64,
-                         device=dev)
-    _kernels.launch("dbg_greedy_walk", best_len, best_dist, n, GREEDY_CHUNK,
-                    rec[0], rec[1], count, status)
+    status = torch.zeros(-(-n // chunk) + 1, dtype=torch.int64, device=dev)
+    _kernels.launch("dbg_greedy_walk", best_len, best_dist, n, rec[0], rec[1],
+                    count, status)
     greedy_walk.launches += 1
     k = int(count)  # the one synchronizing readback
     return rec[0, :k], rec[1, :k]

@@ -27,6 +27,7 @@ import dataclasses
 import torch
 
 from debigulator_tpu_torch import constants as C
+from debigulator_tpu_torch.device import plain_here as _plain_here
 from debigulator_tpu_torch.ops import _kernels
 from debigulator_tpu_torch.ops.plan import SEG_BYTES, TC
 
@@ -160,11 +161,6 @@ def compact_plain(rec: Records, slots: int):
         fill, end = _chunk_layout(d, m, base, per_chunk, cap_rows)
         out += _compact_list_plain(d, m, base, fill, end, per_chunk, dense_rows)
     return tuple(out)
-
-
-def _plain_here(t: torch.Tensor) -> bool:
-    """A wrapper runs its plain version where its tensors lie on the CPU."""
-    return t.device.type == "cpu"
 
 
 def compact(rec: Records, slots: int):

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from debigulator_tpu_torch import constants as C
+from debigulator_tpu_torch.device import plain_here as _plain_here
 from debigulator_tpu_torch.ops import _kernels
 
 #: Rows of one band of the CUDA kernel (one warp, a lane a row).
@@ -284,11 +285,6 @@ def unfilter_subfast(filtered: torch.Tensor, height: int, width: int,
     f = fil[:, 1:].reshape(height, width, bpp).to(torch.int64)
     out = torch.where(is_sub, torch.cumsum(f, 1) & 0xFF, f)
     return out.reshape(height, width * bpp).to(torch.uint8)
-
-
-def _plain_here(t: torch.Tensor) -> bool:
-    """A wrapper runs its plain version where its tensors lie on the CPU."""
-    return t.device.type == "cpu"
 
 
 def unfilter(filtered: torch.Tensor, height: int, width: int,

@@ -13,6 +13,11 @@ from debigulator_tpu.ops import deflate_encode_jnp as jax_dev
 from debigulator_tpu_torch.ops import deflate_encode as enc
 from debigulator_tpu_torch.ops import deflate_encode_device as dev
 
+#: Positions a chunk of the card's greedy-walk kernel covers (what
+#: csrc/greedy_walk.cu's dbg_greedy_chunk reports): the shapes below aim at
+#: its boundaries, the plain walk does not depend on it.
+KERNEL_CHUNK = 16384
+
 CASES = {
     "text": b"the quick brown fox jumps over the lazy dog " * 200,
     "zeros": bytes(6000),
@@ -25,7 +30,7 @@ CASES = {
     # kernel's chunk boundaries (three chunks and a ragged end), and an
     # input shorter than one chunk.
     "cross_chunk": bytes(np.tile(np.random.RandomState(5).randint(
-        0, 256, 13, dtype=np.uint8), 4000))[: 3 * dev.GREEDY_CHUNK + 123],
+        0, 256, 13, dtype=np.uint8), 4000))[: 3 * KERNEL_CHUNK + 123],
     "short": b"short tx" * 300,
 }
 
@@ -98,7 +103,7 @@ def test_greedy_walk_plain_edge_shapes(case):
     starts never meet, so every chunk re-walks), 258-long matches that
     straddle chunk boundaries, and n below one chunk."""
     rng = np.random.default_rng(3)
-    chunk = dev.GREEDY_CHUNK
+    chunk = KERNEL_CHUNK
     n = 2000
     if case in ("no_merge", "cross_chunk"):
         n = 3 * chunk + 777  # several chunks and a ragged end
@@ -138,17 +143,24 @@ def test_greedy_walk_plain_edge_shapes(case):
 @pytest.mark.parametrize("n", [1, 16384, 16385, 3 * 16384 + 5])
 def test_greedy_walk_card_branch_is_one_launch(monkeypatch, n):
     """The card's branch of ``greedy_walk``, taken on CPU tensors with the
-    launch recorded instead of made: one launch of dbg_greedy_walk with the
-    arguments the C entry declares, the chunk size the kernel was built
-    for, record buffers of n // 3 + 1, and a zeroed status of one int64
-    word a chunk plus the ticket."""
+    launch recorded instead of made and the kernel's chunk size answered
+    here: one launch of dbg_greedy_walk with the arguments the C entry
+    declares, record buffers of n // 3 + 1, and a zeroed status of one
+    int64 word for each chunk of the size the kernel reports, plus the
+    ticket."""
     import ctypes
-    import re
 
     from debigulator_tpu_torch.ops import _kernels
 
-    made = []
+    made, asked = [], []
+    chunk = 4096  # not the kernel's own: the wrapper must size from the answer
+
+    def constant(entry):
+        asked.append(entry)
+        return chunk
+
     monkeypatch.setattr(dev, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "constant", constant)
     monkeypatch.setattr(_kernels, "launch",
                         lambda entry, *a: made.append((entry, a)))
     before = dev.greedy_walk.launches
@@ -163,10 +175,9 @@ def test_greedy_walk_card_branch_is_one_launch(monkeypatch, n):
     for a, at in zip(args, argtypes, strict=True):
         assert isinstance(a, torch.Tensor) if at is ctypes.c_void_p \
             else isinstance(a, int)
-    _, _, n_arg, chunk, pos_out, meta_out, count, status = args
-    src = (_kernels.CSRC / "greedy_walk.cu").read_text()
-    assert chunk == dev.GREEDY_CHUNK == int(
-        re.search(r"constexpr int kChunk = (\d+);", src).group(1))
+    _, _, n_arg, pos_out, meta_out, count, status = args
+    assert asked == ["dbg_greedy_chunk"]
+    assert _kernels._CONSTANTS["dbg_greedy_chunk"] == "greedy_walk"
     assert n_arg == n
     assert pos_out.numel() == meta_out.numel() == n // 3 + 1
     assert count.dtype == torch.int32 and count.tolist() == [0]

@@ -249,6 +249,18 @@ def test_ctypes_declarations_match_c_entries(entry):
             assert decl.startswith("int ") and at is ctypes.c_int, decl
 
 
+@pytest.mark.parametrize("entry", ["dbg_greedy_chunk", "dbg_greedy_starts"])
+def test_constant_entries_take_nothing(entry):
+    """A constant of a kernel's layout is read by calling its C entry with
+    no arguments (and no stream): the source must declare it so."""
+    from debigulator_tpu_torch.ops import _kernels
+
+    lib = _kernels._CONSTANTS[entry]
+    src = (_kernels.CSRC / _kernels.SOURCES[lib]).read_text()
+    assert f'extern "C" int {entry}() {{' in src
+    assert entry not in _kernels._ENTRIES
+
+
 def _archive_calls():
     """Each archive wrapper on small CPU inputs."""
     from debigulator_tpu_torch.ops.archive import lz77_generations as lg
