@@ -689,6 +689,12 @@ def walk_case_streams(base: bytes):
             "merged": ([z, nst, txt], [zeros, nested, base])}
 
 
+def chain_depths_of(mp, dev) -> dict:
+    """chain_depths of a merged plan's matches, from the walk's lists."""
+    w = walk_args(mp, dev)
+    return chain_depths(w["init"].numel(), *w["lists"][:2])
+
+
 def walk_args(mp, dev) -> dict:
     """A merged plan staged, through Phase A and compact: the walk's
     inputs (a fresh body, the dense lists, the literal tape) and the work
@@ -1286,6 +1292,83 @@ def fallback_phases(dev, base, streams):
                                  "cell_hi": hi, "max_abs_err": err})
         del got7, got9, args7, args9, tapes, tape, cnts
 
+    # Rows 7 and 9 on the walk's adversarial shapes (a zero run of dist-1
+    # chains ~16,000 deep, copies of copies, both merged with a text
+    # stream), each with its chain depths, then a call whose buffer has -1
+    # in its pad and slack rows and whose tapes have -1 in every slot past
+    # a cell's counts.  Every call exact against the plain twin and zlib.
+    for name, (strms, dts) in walk_case_streams(base).items():
+        mpw = build_merged_plan(strms)
+        stw = inf.stage_plan(mpw.plan, dev)
+        n_segw, slots_w = inf.n_segments(mpw.plan.out_size), stw.slots
+        cells_w = mpw.plan.num_cells
+        tape_w, cnts_w = pa.phase_a_tape(stw.pa, slots_w)
+        a7 = inf.tape_v6_inputs(tape_w[:cells_w], cnts_w[:cells_w],
+                                stw.pa.bob_cell[:cells_w], n_segw,
+                                stw.stored_pos, stw.stored_val)
+        a9 = inf.ops_v13_inputs(*pa.phase_a(stw.pa, slots_w), stw.pa.bob_cell,
+                                n_segw, stw.stored_pos, stw.stored_val,
+                                slots_w)
+        depths = chain_depths_of(mpw, dev)
+        for row, args, fn, plain in (
+                ("lz77_tape", a7, lz.resolve_tape_v6, lz.resolve_tape_v6_plain),
+                ("lz77_ops", a9, lz.resolve_ops_v13, lz.resolve_ops_v13_plain)):
+            got = fn(*args)
+            torch.cuda.synchronize()
+            err = same(f"{row} at {name}", (got,), (plain(*args),))
+            body = inf._body_of(got)[: mpw.plan.out_size].to(torch.uint8)
+            body = body.cpu().numpy()
+            for off, data in zip(mpw.out_offsets, dts, strict=True):
+                if body[off : off + len(data)].tobytes() != data:
+                    raise AssertionError(f"{row} at {name}: not bit-exact")
+            vs[row].append({
+                "shape": name, "streams": len(strms),
+                "out_bytes": mpw.plan.out_size, "slots": slots_w,
+                "max_abs_err": err, "depths": depths,
+                "ms": time_ms(lambda: fn(*args), 3),
+                "plain_ms": time_ms(lambda: plain(*args), 1)})
+            del got, body
+        del a7, a9, tape_w, cnts_w, stw
+    mp2, st2, n_seg2 = shapes["small"]
+    cells2, slots2 = mp2.plan.num_cells, st2.slots
+    tape2, cnts2 = pa.phase_a_tape(st2.pa, slots2)
+    a7 = list(inf.tape_v6_inputs(tape2[:cells2], cnts2[:cells2],
+                                 st2.pa.bob_cell[:cells2], n_seg2,
+                                 st2.stored_pos, st2.stored_val))
+    a9 = list(inf.ops_v13_inputs(*pa.phase_a(st2.pa, slots2),
+                                 st2.pa.bob_cell, n_seg2, st2.stored_pos,
+                                 st2.stored_val, slots2))
+
+    def pad_past_counts(tapes, n_valid):
+        """-1 in every slot of the cell-major `tapes` from n_valid on."""
+        pad = torch.arange(slots2, device=dev)[None, :] >= n_valid[:, None]
+        for t in tapes:
+            t.view(-1)[: pad.numel()].view(-1, slots2)[pad] = -1
+
+    c7, c9 = a7[2].view(-1).long(), a9[6].view(-1).long()
+    pad_past_counts(a7[1:2], c7.clamp(max=slots2))
+    pad_past_counts(a9[1:3], c9 >> 16)
+    pad_past_counts(a9[3:5], (c9 >> 8) & 0xFF)
+    pad_past_counts(a9[5:6], c9 & 0xFF)
+    for args in (a7, a9):
+        flat = args[0].view(-1)
+        flat[: lz.PAD] = -1
+        flat[-lz.SLACK_ROWS * 128 :] = -1
+    for row, args, fn, plain in (
+            ("lz77_tape", a7, lz.resolve_tape_v6, lz.resolve_tape_v6_plain),
+            ("lz77_ops", a9, lz.resolve_ops_v13, lz.resolve_ops_v13_plain)):
+        got = fn(*args)
+        torch.cuda.synchronize()
+        err = same(f"{row} with -1 padding", (got,), (plain(*args),))
+        flat = got.view(-1)
+        if bool((flat[: lz.PAD] != -1).any()) or bool(
+                (flat[-lz.SLACK_ROWS * 128 :] != -1).any()):
+            raise AssertionError(f"{row}: the pad or slack rows were stored")
+        check_streams(inf._body_of(got), mp2, f"{row} with -1 padding")
+        vs[row].append({"shape": "minus_one_padding", "streams": 2,
+                        "max_abs_err": err})
+    del a7, a9, tape2, cnts2, got
+
     # Row 8: one stream's match list (the v4 driver's shape), then a
     # hand-made list on a random buffer: sources in the window tail, dist 1,
     # period 3, the full length 258, a match reading the one before it.
@@ -1432,8 +1515,14 @@ def fallback_phases(dev, base, streams):
         del os.environ["DBG_PHASE_B"]
     check_streams(body, mp, "v13")
     require_launches("fallback_paths, v13", d13, ("phase_a", "lz77_ops"))
-    paths["v13"] = {"device_ms": v13_ms, "launches": d13}
-    del body, run
+    # Its Phase B alone: the glue and row 9 on the staged Phase A tapes.
+    tapes = pa.phase_a(st.pa, st.slots)
+    r13_ms = host_ms(lambda: (inf.resolve_ops_segmented_v13(
+        *tapes, st.pa.bob_cell, n_seg, st.stored_pos, st.stored_val,
+        st.slots), torch.cuda.synchronize()), 3)
+    paths["v13"] = {"device_ms": v13_ms, "resolve_ms": r13_ms,
+                    "launches": d13}
+    del body, run, tapes
 
     # v7: the token-tape Phase A and the tape resolver.
     reset()
@@ -1448,8 +1537,14 @@ def fallback_phases(dev, base, streams):
                                             n_seg, mp.plan.num_cells),
                              torch.cuda.synchronize()), 3)
     require_launches("fallback_paths, v7", d7, ("phase_a_tape", "lz77_tape"))
-    paths["v7"] = {"device_ms": v7_ms, "launches": d7}
-    del body
+    # Its Phase B alone: the glue and row 7 on the staged token tape.
+    cells = mp.plan.num_cells
+    tape, cnts = pa.phase_a_tape(st.pa, st.slots)
+    r7_ms = host_ms(lambda: (inf.resolve_tape_segmented_v6(
+        tape[:cells], cnts[:cells], st.pa.bob_cell[:cells], n_seg,
+        st.stored_pos, st.stored_val), torch.cuda.synchronize()), 3)
+    paths["v7"] = {"device_ms": v7_ms, "resolve_ms": r7_ms, "launches": d7}
+    del body, tape, cnts
 
     # v3: one stream, all tensor ops, no kernel of the port.
     reset()

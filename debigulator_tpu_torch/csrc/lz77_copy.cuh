@@ -1,7 +1,11 @@
-// In-order LZ77 match application for Hopper, shared by the three
-// resolvers of ops/lz77.py (lz77_match.cu, lz77_tape.cu, lz77_ops.cu), by
-// the flat match-list walk of the archive resolvers (lz77_chunks.cu) and
-// by the group walks (groups_v9.cu, and groups_v11.cu's segment lookup).
+// In-order LZ77 match application for Hopper.  Its users: the match-list
+// resolver of ops/lz77.py (lz77_match.cu: copy_match, leading_ok), the flat
+// match-list walk of the archive resolvers (lz77_chunks.cu: clip_match and
+// walk_cells_kernel), the group walks (groups_v9.cu: leading_ok,
+// segment_of; groups_v11.cu: segment_of) and the two segment resolvers'
+// placement (lz77_tape.cu, lz77_ops.cu: clip_match only; their matches are
+// resolved by the grid-wide chase of chase.cuh, which keeps copy_match's
+// overlap rule).
 //
 // A DEFLATE match copies `len` bytes from `dist` bytes back; matches must
 // take effect in stream order because a source may be bytes an earlier
@@ -19,11 +23,11 @@
 //    run of matches (or of cells) whose sources do not reach into what the
 //    batch itself writes; the batch copies in parallel, then one
 //    __syncthreads() makes its bytes visible to the next;
-//  * the cell walk runs one CTA per independent range of cells: a range
-//    starts at a cell from which on no match reads below that cell's first
-//    output position (every stream of a merged batch starts one), so the
-//    ranges share no bytes.  The wrapper finds the starts between the two
-//    launches (a suffix minimum over the cells' lowest source positions).
+//  * the chunk walk runs one CTA per independent range of chunks: a range
+//    starts at a chunk from which on no match reads below that chunk's
+//    first output position (every stream of a merged batch starts one), so
+//    the ranges share no bytes.  The wrapper finds the starts between the
+//    two launches.
 //
 // What bounds it on the H100: latency.  A range's batches are serialised,
 // each costs about two L2 round trips, and a range uses one of 132 SMs.

@@ -9,19 +9,28 @@
 // << 8 | lit_count.  Cell c's first byte lands at cbase[c] + base_adj, and
 // stores are clipped to the body [body_start, body_end).
 //
-// Two launches:
-//  (a) place_kernel, a thread per cell: copies the cell's runs from its
-//      lit row (values as they are, no mask) and lists its matches, head-
-//      and tail-clipped, with their count, the highest and lowest source
-//      bytes they read and the cell's first position.  Runs read no output, so the
-//      cells run in any order.
-//  (b) lz77::walk_cells_kernel: the matches in stream order, one CTA per
-//      independent range of cells (the wrapper finds the ranges between
-//      the launches).
+// Two entries, no read-back between them:
+//  (a) place_kernel (dbg_lz77_ops_place), a thread per cell: copies the
+//      cell's runs from its lit row (values as they are, no mask) and
+//      lists its matches, head- and tail-clipped (lz77::clip_match), with
+//      their count.  Runs read no output, so the cells run in any order.
+//  (b) chase::launch_cells (dbg_lz77_ops_chase, chase.cuh), as in
+//      lz77_tape.cu: the bitmap zeroed, a pointer for every match byte,
+//      the grid-wide chase over the body.
+//
+// Where it could go wrong, and what the design does (as lz77_tape.cu):
+// the per-cell lists' padding is never read; literal values are stored
+// unmasked and the caller's buffer may hold any int32, so pointers live in
+// a side array flagged by a bitmap, never in the buffer, and a chase
+// follows a pointer only while it moves down; a segment's window prologue
+// lies outside the bitmap and is final, and the pad and slack rows are
+// never stored.
 //
 // What bounds it on the H100: (a) bytes, the records and literals read
-// once and one int32 written per literal; (b) latency (lz77_copy.cuh).
+// once and one int32 written per literal; (b) bytes and latency
+// (chase.cuh).
 
+#include "chase.cuh"
 #include "lz77_copy.cuh"
 
 namespace {
@@ -38,8 +47,7 @@ __global__ void place_kernel(int* out, int body_end,
                              const int* __restrict__ cbase, int cell_lo,
                              int n_cells, int base_adj, int slots,
                              int* __restrict__ mpos, int* __restrict__ mmeta,
-                             int* __restrict__ kc, int* __restrict__ rmax,
-                             int* __restrict__ rmin, int* __restrict__ thr) {
+                             int* __restrict__ kc) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n_cells) return;
   const int cell = cell_lo + c;
@@ -49,7 +57,6 @@ __global__ void place_kernel(int* out, int body_end,
   const int64_t rec = static_cast<int64_t>(cell) * slots;
   const int64_t at = static_cast<int64_t>(c) * slots;
   const int cb = cbase[cell] + base_adj;
-  thr[c] = cb;
 
   for (int j = 0; j < n_run; ++j) {
     const int dst = cb + ra[rec + j];
@@ -64,8 +71,6 @@ __global__ void place_kernel(int* out, int body_end,
   }
 
   int k = 0;
-  int hi = INT_MIN;
-  int lo = INT_MAX;
   for (int j = 0; j < n_match; ++j) {
     int dst = cb + ma[rec + j];
     const int b = mb[rec + j];
@@ -74,14 +79,10 @@ __global__ void place_kernel(int* out, int body_end,
     if (eff > 0) {
       mpos[at + k] = dst;
       mmeta[at + k] = (eff << 16) | dist;
-      hi = max(hi, dst - dist + min(eff, dist));
-      lo = min(lo, dst - dist);
       ++k;
     }
   }
   kc[c] = k;
-  rmax[c] = hi;
-  rmin[c] = lo;
 }
 
 }  // namespace
@@ -91,21 +92,21 @@ extern "C" int dbg_lz77_ops_place(int* out, int body_end, const int* ma,
                                   const int* lit, int64_t n_lit, const int* cnt,
                                   const int* cbase, int cell_lo, int n_cells,
                                   int base_adj, int slots, int* mpos,
-                                  int* mmeta, int* kc, int* rmax, int* rmin,
-                                  int* thr, cudaStream_t stream) {
+                                  int* mmeta, int* kc, cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (n_cells + threads - 1) / threads;
   place_kernel<<<blocks, threads, 0, stream>>>(
       out, body_end, ma, mb, ra, rb, lit, n_lit, cnt, cbase, cell_lo, n_cells,
-      base_adj, slots, mpos, mmeta, kc, rmax, rmin, thr);
+      base_adj, slots, mpos, mmeta, kc);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dbg_lz77_ops_walk(int* out, int body_end, const int* mpos,
-                                 const int* mmeta, const int* kc,
-                                 const int* rmax, const int* thr,
-                                 const int64_t* bounds, int n_ranges,
-                                 int slots, cudaStream_t stream) {
-  return lz77::launch_walk_cells(out, body_end, mpos, mmeta, kc, rmax, thr,
-                                 bounds, n_ranges, slots, stream);
+// ptr: body_end - (PAD + WINDOW) ints, bits: a bit per body byte, rounded up
+// to whole 32-bit words; both scratch.
+extern "C" int dbg_lz77_ops_chase(int* out, int body_end, const int* mpos,
+                                  const int* mmeta, const int* kc, int n_cells,
+                                  int slots, int* ptr, unsigned* bits,
+                                  cudaStream_t stream) {
+  return chase::launch_cells(out, kBodyStart, body_end, mpos, mmeta, kc,
+                             n_cells, slots, ptr, bits, stream);
 }

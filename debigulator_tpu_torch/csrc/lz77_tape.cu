@@ -6,19 +6,34 @@
 // at buffer position cbase[c] + base_adj (base_adj = PAD + WINDOW -
 // seg_off), and stores are clipped to the body [body_start, body_end).
 //
-// Two launches:
-//  (a) place_kernel, a thread per cell of [cell_lo, cell_lo + n_cells):
-//      walks the cell's tokens, stores its literals (masked with 0x1FF as
-//      the reference does), and writes the cell's matches, head- and
-//      tail-clipped, to a per-cell list with their count, the highest
-//      source byte they read and the cell's first position.  Literals read
-//      no output, so the cells run in any order.
-//  (b) lz77::walk_cells_kernel: the matches in stream order, one CTA per
-//      independent range of cells (the wrapper finds the ranges between
-//      the launches).
+// Two entries, no read-back between them:
+//  (a) place_kernel (dbg_lz77_tape_place), a thread per cell of
+//      [cell_lo, cell_lo + n_cells): walks the cell's tokens, stores its
+//      literals (masked with 0x1FF as the reference does), and writes the
+//      cell's matches, head- and tail-clipped (lz77::clip_match), to a
+//      per-cell list with their count.  Literals read no output, so the
+//      cells run in any order.
+//  (b) chase::launch_cells (dbg_lz77_tape_chase, chase.cuh): the bitmap
+//      zeroed, a pointer for every match byte, then the grid-wide chase
+//      over the body.  No stream order and no ranges of cells: every match
+//      byte's chain of sources runs strictly down to a literal, a stored
+//      byte or a window byte.
+//
+// Where it could go wrong, and what the design does:
+//  * the per-cell lists are mostly padding (slots entries a cell, kc[c]
+//    valid): the pointer pass numbers the valid records of 32 cells at a
+//    time and never reads the rest;
+//  * the caller's buffer may hold any int32 (tests pad it and the tape
+//    with -1): pointers live in a side array flagged by a bitmap, never in
+//    the buffer, and a chase follows a pointer only while it moves down,
+//    so an overflowed tape (a count past `slots`, read as `slots`; every
+//    caller discards its result) ends too;
+//  * a segment (seg_off > 0, cell_lo > 0) reads sources in the window
+//    prologue [PAD, PAD + WINDOW): the bitmap covers the body only, so the
+//    prologue is final, and the pad and slack rows are never stored.
 //
 // What bounds it on the H100: (a) bytes, 4 * slots + 8 read per cell and
-// one int32 written per literal; (b) latency (lz77_copy.cuh).
+// one int32 written per literal; (b) bytes and latency (chase.cuh).
 //
 // The same file holds the first tape resolver (v1), replacing the TPU
 // kernel _lz77_kernel (debigulator_tpu/ops/archive/lz77_generations.py:49)
@@ -30,6 +45,7 @@
 // (a) and (b) above run over the whole tape with a zero window before it.
 // (v1a) is bound by bytes, the tape read once.
 
+#include "chase.cuh"
 #include "lz77_copy.cuh"
 
 namespace {
@@ -43,8 +59,7 @@ __global__ void place_kernel(int* out, int body_end,
                              const int* __restrict__ cbase, int cell_lo,
                              int n_cells, int base_adj, int slots,
                              int* __restrict__ mpos, int* __restrict__ mmeta,
-                             int* __restrict__ kc, int* __restrict__ rmax,
-                             int* __restrict__ rmin, int* __restrict__ thr) {
+                             int* __restrict__ kc) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n_cells) return;
   const int cell = cell_lo + c;
@@ -52,10 +67,7 @@ __global__ void place_kernel(int* out, int body_end,
   const int* __restrict__ row = tape + static_cast<int64_t>(cell) * slots;
   const int64_t at = static_cast<int64_t>(c) * slots;
   int cur = cbase[cell] + base_adj;
-  thr[c] = cur;
   int k = 0;
-  int hi = INT_MIN;
-  int lo = INT_MAX;
   for (int j = 0; j < cnt; ++j) {
     const int tok = row[j];
     if (tok >= kMatchBit) {
@@ -66,8 +78,6 @@ __global__ void place_kernel(int* out, int body_end,
       if (eff > 0) {
         mpos[at + k] = dst;
         mmeta[at + k] = (eff << 16) | dist;
-        hi = max(hi, dst - dist + min(eff, dist));
-        lo = min(lo, dst - dist);
         ++k;
       }
       cur += len;
@@ -77,8 +87,6 @@ __global__ void place_kernel(int* out, int body_end,
     }
   }
   kc[c] = k;
-  rmax[c] = hi;
-  rmin[c] = lo;
 }
 
 // Output bytes of each cell's first min(count, slots) tokens.
@@ -116,21 +124,21 @@ extern "C" int dbg_lz77_tape_place(int* out, int body_end, const int* tape,
                                    const int* counts, const int* cbase,
                                    int cell_lo, int n_cells, int base_adj,
                                    int slots, int* mpos, int* mmeta, int* kc,
-                                   int* rmax, int* rmin, int* thr,
                                    cudaStream_t stream) {
   const int threads = 128;
   const int blocks = (n_cells + threads - 1) / threads;
   place_kernel<<<blocks, threads, 0, stream>>>(
       out, body_end, tape, counts, cbase, cell_lo, n_cells, base_adj, slots,
-      mpos, mmeta, kc, rmax, rmin, thr);
+      mpos, mmeta, kc);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dbg_lz77_tape_walk(int* out, int body_end, const int* mpos,
-                                  const int* mmeta, const int* kc,
-                                  const int* rmax, const int* thr,
-                                  const int64_t* bounds, int n_ranges,
-                                  int slots, cudaStream_t stream) {
-  return lz77::launch_walk_cells(out, body_end, mpos, mmeta, kc, rmax, thr,
-                                 bounds, n_ranges, slots, stream);
+// ptr: body_end - (PAD + WINDOW) ints, bits: a bit per body byte, rounded up
+// to whole 32-bit words; both scratch.
+extern "C" int dbg_lz77_tape_chase(int* out, int body_end, const int* mpos,
+                                   const int* mmeta, const int* kc,
+                                   int n_cells, int slots, int* ptr,
+                                   unsigned* bits, cudaStream_t stream) {
+  return chase::launch_cells(out, kBodyStart, body_end, mpos, mmeta, kc,
+                             n_cells, slots, ptr, bits, stream);
 }

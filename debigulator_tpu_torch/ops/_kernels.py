@@ -31,9 +31,11 @@ SOURCES = {"phase_a": "phase_a.cu", "compact": "compact.cu", "walk": "walk.cu",
            "walk_v14": "walk_v14.cu", "groups_v9": "groups_v9.cu",
            "microbench_pb": "microbench_pb.cu"}
 #: Headers a source includes: hashed with it, so an edit rebuilds it.
-HEADERS = {name: ["lz77_copy.cuh"]
-           for name in ("lz77_match", "lz77_tape", "lz77_ops", "lz77_chunks",
-                        "groups_v11", "groups_v9")}
+HEADERS = {"walk": ["chase.cuh"], "lz77_tape": ["lz77_copy.cuh", "chase.cuh"],
+           "lz77_ops": ["lz77_copy.cuh", "chase.cuh"],
+           **{name: ["lz77_copy.cuh"]
+              for name in ("lz77_match", "lz77_chunks", "groups_v11",
+                           "groups_v9")}}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -51,14 +53,14 @@ _ENTRIES = {
     "dbg_greedy_walk": ("greedy_walk", [_P, _P, _I64, _P, _P, _P, _P]),
     "dbg_lz77_match": ("lz77_match", [_P, _I64, _P, _P, _I32]),
     "dbg_lz77_tape_place": ("lz77_tape", [_P, _I32, _P, _P, _P, _I32, _I32,
-                                          _I32, _I32, _P, _P, _P, _P, _P, _P]),
-    "dbg_lz77_tape_walk": ("lz77_tape", [_P, _I32, _P, _P, _P, _P, _P, _P,
-                                         _I32, _I32]),
+                                          _I32, _I32, _P, _P, _P]),
+    "dbg_lz77_tape_chase": ("lz77_tape", [_P, _I32, _P, _P, _P, _I32, _I32,
+                                          _P, _P]),
     "dbg_lz77_ops_place": ("lz77_ops", [_P, _I32, _P, _P, _P, _P, _P, _I64, _P,
-                                        _P, _I32, _I32, _I32, _I32, _P, _P, _P,
-                                        _P, _P, _P]),
-    "dbg_lz77_ops_walk": ("lz77_ops", [_P, _I32, _P, _P, _P, _P, _P, _P,
-                                       _I32, _I32]),
+                                        _P, _I32, _I32, _I32, _I32, _P, _P,
+                                        _P]),
+    "dbg_lz77_ops_chase": ("lz77_ops", [_P, _I32, _P, _P, _P, _I32, _I32, _P,
+                                        _P]),
     "dbg_lz77_tape_v1_len": ("lz77_tape", [_P, _P, _I32, _I32, _P]),
     "dbg_lz77_chunks_place": ("lz77_chunks", [_P, _P, _P, _P, _I32, _I32, _I32,
                                               _I32, _I32, _P, _P, _P, _P, _P]),

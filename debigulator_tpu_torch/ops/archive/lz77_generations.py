@@ -458,9 +458,12 @@ def resolve_tape_v1(tape, counts, out_size: int) -> torch.Tensor:
     cell's first byte the sum of the lengths of the cells before it.
 
     CUDA kernels (csrc/lz77_tape.cu): a thread per cell sums its token
-    lengths (``tape_v1_len_kernel``), an exclusive prefix sum gives each
-    cell's first byte, then the v6 placement and in-order walk run over
-    the whole tape (pad row, zero window, body).
+    lengths (``tape_v1_len_kernel``), an exclusive prefix sum on the card
+    gives each cell's first byte, then the v6 placement and the grid-wide
+    chase (csrc/chase.cuh) run over the whole tape (pad row, zero window,
+    body).  Nothing is read back between the launches: the total is
+    checked after the last one (stores are clipped to the body, so a tape
+    of the wrong length writes nothing outside it).
     """
     tape = torch.as_tensor(tape).contiguous()
     counts = torch.as_tensor(counts).contiguous()
@@ -471,18 +474,17 @@ def resolve_tape_v1(tape, counts, out_size: int) -> torch.Tensor:
         return resolve_tape_v1_plain(tape, counts, out_size)
     cells, slots = tape.shape
     cell_len = torch.zeros(cells, dtype=torch.int32, device=tape.device)
-    if cells:
-        _kernels.launch("dbg_lz77_tape_v1_len", tape, counts, cells, slots,
-                        cell_len)
-    _check_total(cell_len, out_size)
     out = torch.zeros(BODY_START + out_size, dtype=torch.int32,
                       device=tape.device)
     if cells:
+        _kernels.launch("dbg_lz77_tape_v1_len", tape, counts, cells, slots,
+                        cell_len)
         cbase = (torch.cumsum(cell_len, 0, dtype=torch.int32)
                  - cell_len).contiguous()
-        lz.tape_place_walk(out, BODY_START + out_size, tape, counts, cbase, 0,
-                           cells, BODY_START, slots)
+        lz.tape_place_chase(out, BODY_START + out_size, tape, counts, cbase,
+                            0, cells, BODY_START, slots)
         resolve_tape_v1.launches += 1
+    _check_total(cell_len, out_size)
     return out[BODY_START:].to(torch.uint8)
 
 

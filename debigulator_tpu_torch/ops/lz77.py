@@ -8,8 +8,8 @@ launch count, with the reference's arguments:
   front-compacted match list in order to a buffer whose literals and
   stored bytes are already placed (driver v4).
 * ``resolve_tape_v6`` (replaces ``_tape_kernel_v6`` :317): one segment of
-  Phase B from the token tape: literals stored, matches resolved in stream
-  order (drivers v5 and v7).
+  Phase B from the token tape: literals stored, matches resolved as the
+  stream order gives them (drivers v5 and v7).
 * ``resolve_ops_v13`` (replaces ``_op_kernel_v13`` :581): one segment of
   Phase B from Phase A's match, run and literal tapes (driver v13).
 
@@ -24,11 +24,16 @@ buffer and leave ``out_init`` as it was.
 
 The TPU kernels' (rows, 128) lane arithmetic, SMEM staging chunks, match
 list caps and speculative groups of 8 answer Mosaic's constraints and are
-not carried over.  On the card each resolver is a placement pass over all
-cells (literals read no output, so any order) and a pass that applies the
-matches in stream order, a warp per match or per cell, batching the ones
-whose sources are already final; the segment resolvers run one CTA per
-independent range of cells (csrc/lz77_copy.cuh).
+not carried over.  On the card each resolver starts with a placement pass
+over all cells (literals read no output, so any order).  The match-list
+resolver then applies its matches in stream order, a warp per match,
+batching the ones whose sources are already final (csrc/lz77_copy.cuh).
+The segment resolvers list each cell's clipped matches instead and hand
+them to the grid-wide source chase of csrc/chase.cuh: a pointer for every
+match byte to the byte it copies (in a side array flagged by a bitmap, so
+the buffer may hold any int32), then every body byte chased to its root,
+with no stream order, no ranges of cells and no read-back between the
+launches.
 
 The plain versions place literals, point every match byte at its source
 byte and follow the pointers by doubling (``ptr = ptr[ptr]``) until
@@ -42,6 +47,7 @@ import torch
 
 from debigulator_tpu_torch import constants as C
 from debigulator_tpu_torch.constants import TOK_MATCH_BIT
+from debigulator_tpu_torch.device import plain_here as _plain_here
 from debigulator_tpu_torch.ops import _kernels
 from debigulator_tpu_torch.ops.phase_b import _expand
 
@@ -123,7 +129,7 @@ def resolve_matches_v4(out_init, pos, meta, n_matches=None):
         raise ValueError("pos and meta must have one shape")
     n = pos.numel() if n_matches is None else min(_scalar(n_matches),
                                                   pos.numel())
-    if out_init.device.type == "cpu":
+    if _plain_here(out_init):
         return resolve_matches_v4_plain(out_init, pos, meta, n)
     out = out_init.clone()
     if n > 0:
@@ -149,29 +155,15 @@ def _segment(out_init, cell_lo, cell_hi, seg_off, cells_tot: int):
     return lo, max(hi, lo), BODY_START - _scalar(seg_off), body_end
 
 
-def _scratch(n: int, slots: int, device):
-    """What the placement kernel leaves for the walk: the per-cell match
-    lists (position, meta) and per cell the match count, the highest and
-    lowest source positions read and the cell's first output position."""
+def _chase_scratch(n: int, slots: int, body_end: int, device):
+    """What the placement kernel leaves for the chase, the per-cell match
+    lists (position, meta) and per cell the match count, and the chase's
+    own scratch: a source pointer and a bit for every body byte."""
+    n_body = body_end - BODY_START
     return (torch.empty((2, n * slots), dtype=torch.int32, device=device),
-            torch.empty((4, n), dtype=torch.int32, device=device))
-
-
-def _independent_ranges(kc, rmin, thr) -> torch.Tensor:
-    """Cell ranges the walk may run side by side, as (n_ranges + 1,) int64
-    bounds.  A range may start at a cell from which on no match reads below
-    that cell's first output position: the stream order of the matches
-    before it then no longer matters to it.  Every stream of a merged batch
-    starts one.  Starts with no match since the previous start are dropped.
-    One read-back (the number of ranges is the walk's grid)."""
-    n = kc.numel()
-    start = suffix_min(rmin) >= thr
-    start[0] = True
-    cells = torch.nonzero(start)[:, 0]
-    before = (torch.cumsum(kc, 0) - kc)[cells]
-    first = torch.ones_like(cells, dtype=torch.bool)
-    first[1:] = before[1:] != before[:-1]
-    return torch.cat([cells[first], cells.new_full((1,), n)])
+            torch.empty(n, dtype=torch.int32, device=device),
+            torch.empty(n_body, dtype=torch.int32, device=device),
+            torch.empty(-(-n_body // 32), dtype=torch.int32, device=device))
 
 
 def suffix_min(x: torch.Tensor) -> torch.Tensor:
@@ -189,18 +181,17 @@ def _clip_matches(dst, mlen, body_end: int):
     return dst, torch.minimum(eff, (body_end - dst).clamp(min=0))
 
 
-def tape_place_walk(out, body_end: int, tape, counts, cbase, lo: int, n: int,
-                    base_adj: int, slots: int) -> None:
+def tape_place_chase(out, body_end: int, tape, counts, cbase, lo: int,
+                     n: int, base_adj: int, slots: int) -> None:
     """The kernels of csrc/lz77_tape.cu over cells [lo, lo + n) (n > 0) of
     a token tape, in place on ``out``: placement (literals stored, clipped
-    matches listed), the independent ranges, the in-order walk."""
-    mlist, (kc, rmax, rmin, thr) = _scratch(n, slots, out.device)
+    matches listed), then the chase (a pointer for every match byte, every
+    body byte chased to its root).  Two launches, nothing read back."""
+    mlist, kc, ptr, bits = _chase_scratch(n, slots, body_end, out.device)
     _kernels.launch("dbg_lz77_tape_place", out, body_end, tape, counts, cbase,
-                    lo, n, base_adj, slots, mlist[0], mlist[1], kc, rmax,
-                    rmin, thr)
-    bounds = _independent_ranges(kc, rmin, thr)
-    _kernels.launch("dbg_lz77_tape_walk", out, body_end, mlist[0], mlist[1],
-                    kc, rmax, thr, bounds, bounds.numel() - 1, slots)
+                    lo, n, base_adj, slots, mlist[0], mlist[1], kc)
+    _kernels.launch("dbg_lz77_tape_chase", out, body_end, mlist[0], mlist[1],
+                    kc, n, slots, ptr, bits)
 
 
 def resolve_tape_v6_plain(out_init, tape2d, counts, cbase, cell_lo, cell_hi,
@@ -237,10 +228,11 @@ def resolve_tape_v6(out_init, tape2d, counts, cbase, cell_lo, cell_hi,
     is read as ``slots``.
 
     CUDA kernels (csrc/lz77_tape.cu): a thread per cell stores the cell's
-    literals and lists its clipped matches; the matches are then applied
-    in stream order, a warp per cell, 32 cells a batch, one CTA per
-    independent range of cells (``_independent_ranges``,
-    csrc/lz77_copy.cuh).
+    literals and lists its clipped matches; then the grid-wide chase of
+    csrc/chase.cuh resolves every match byte of the body to the byte at
+    the root of its chain of sources (a literal, a stored byte, the window
+    prologue or a byte of ``out_init``).  Two launches with nothing read
+    back between them; ``out_init`` may hold any int32 values.
     """
     _check_i32(out_init, tape2d, counts, cbase)
     if slots not in (8, 16, 32, 64, 128):
@@ -248,7 +240,7 @@ def resolve_tape_v6(out_init, tape2d, counts, cbase, cell_lo, cell_hi,
     cells_tot = counts.numel()
     if cbase.numel() != cells_tot or tape2d.numel() != cells_tot * slots:
         raise ValueError("tape, counts and cbase do not cover the same cells")
-    if out_init.device.type == "cpu":
+    if _plain_here(out_init):
         return resolve_tape_v6_plain(out_init, tape2d, counts, cbase, cell_lo,
                                      cell_hi, seg_off, slots)
     lo, hi, base_adj, body_end = _segment(out_init, cell_lo, cell_hi, seg_off,
@@ -256,8 +248,8 @@ def resolve_tape_v6(out_init, tape2d, counts, cbase, cell_lo, cell_hi,
     out = out_init.clone()
     n = hi - lo
     if n:
-        tape_place_walk(out, body_end, tape2d, counts, cbase, lo, n, base_adj,
-                        slots)
+        tape_place_chase(out, body_end, tape2d, counts, cbase, lo, n,
+                         base_adj, slots)
         resolve_tape_v6.launches += 1
     return out
 
@@ -315,7 +307,8 @@ def resolve_ops_v13(out_init, ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, cbase2d,
 
     CUDA kernels (csrc/lz77_ops.cu): a thread per cell copies the cell's
     runs and lists its clipped matches; the matches then go through the
-    same in-order CTA as ``resolve_tape_v6``.
+    same grid-wide chase as ``resolve_tape_v6`` (csrc/chase.cuh).  Two
+    launches with nothing read back between them.
     """
     _check_i32(out_init, ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, cbase2d)
     if slots not in (8, 16, 32, 64, 128):
@@ -325,7 +318,7 @@ def resolve_ops_v13(out_init, ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, cbase2d,
             t.numel() < cells_tot * slots
             for t in (ma2d, mb2d, ra2d, rb2d, lit2d)):
         raise ValueError("tapes, cnt and cbase do not cover the same cells")
-    if out_init.device.type == "cpu":
+    if _plain_here(out_init):
         return resolve_ops_v13_plain(out_init, ma2d, mb2d, ra2d, rb2d, lit2d,
                                      cnt2d, cbase2d, cell_lo, cell_hi, seg_off,
                                      slots)
@@ -334,14 +327,12 @@ def resolve_ops_v13(out_init, ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, cbase2d,
     out = out_init.clone()
     n = hi - lo
     if n:
-        mlist, (kc, rmax, rmin, thr) = _scratch(n, slots, out.device)
+        mlist, kc, ptr, bits = _chase_scratch(n, slots, body_end, out.device)
         _kernels.launch("dbg_lz77_ops_place", out, body_end, ma2d, mb2d, ra2d,
                         rb2d, lit2d, lit2d.numel(), cnt2d, cbase2d, lo, n,
-                        base_adj, slots, mlist[0], mlist[1], kc, rmax, rmin,
-                        thr)
-        bounds = _independent_ranges(kc, rmin, thr)
-        _kernels.launch("dbg_lz77_ops_walk", out, body_end, mlist[0], mlist[1],
-                        kc, rmax, thr, bounds, bounds.numel() - 1, slots)
+                        base_adj, slots, mlist[0], mlist[1], kc)
+        _kernels.launch("dbg_lz77_ops_chase", out, body_end, mlist[0],
+                        mlist[1], kc, n, slots, ptr, bits)
         resolve_ops_v13.launches += 1
     return out
 

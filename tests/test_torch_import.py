@@ -218,8 +218,8 @@ def _c_params(entry: str) -> list[str]:
 @pytest.mark.parametrize("entry", ["dbg_phase_a", "dbg_compact", "dbg_walk",
                                    "dbg_unfilter", "dbg_greedy_walk",
                                    "dbg_phase_a_tape", "dbg_lz77_match",
-                                   "dbg_lz77_tape_place", "dbg_lz77_tape_walk",
-                                   "dbg_lz77_ops_place", "dbg_lz77_ops_walk",
+                                   "dbg_lz77_tape_place", "dbg_lz77_tape_chase",
+                                   "dbg_lz77_ops_place", "dbg_lz77_ops_chase",
                                    "dbg_lz77_tape_v1_len",
                                    "dbg_lz77_chunks_place",
                                    "dbg_lz77_chunks_walk",

@@ -9,6 +9,7 @@ body (head clip) or run past its end (tail clip), and sources inside a
 stored block.  On the CPU the port's wrappers run their plain versions.
 """
 
+import ctypes
 import functools
 import zlib
 
@@ -18,15 +19,17 @@ import pytest
 import torch
 
 from debigulator_tpu.ops import lz77_pallas as lz
+from debigulator_tpu_torch.ops import _kernels
 from debigulator_tpu_torch.ops import lz77 as tlz
 from debigulator_tpu_torch.ops import phase_a as tpa
 from debigulator_tpu_torch.ops import plan as tp
+from debigulator_tpu_torch.ops.archive import lz77_generations as tlg
 from debigulator_tpu_torch.ops.scanner import scan_stream_cells
 from torch_stream_cases import STREAMS
 
 SEG = 4096  # body bytes of one test segment
 WIN_ROWS = lz.WINDOW // 128
-CASES = ["dynamic", "mixed", "rle"]
+CASES = ["dynamic", "mixed", "rle", "far", "stored"]
 
 
 def test_constants_match_the_reference():
@@ -259,3 +262,124 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         tlz.resolve_ops_v13(out, lst[:4], lst, lst, lst, lst, lst[:1],
                             lst[:1], 0, 128, 0, 8)
+
+
+# ---------------------------------------------------------------------------
+# The card's branch of the segment resolvers, taken on CPU tensors with the
+# launches recorded instead of made
+# ---------------------------------------------------------------------------
+
+#: Host reads of a device tensor; any of them between two launches would
+#: stall the card's stream.
+READ_BACKS = [(torch.Tensor, n) for n in ("item", "tolist", "cpu", "numpy",
+                                         "__int__", "__index__", "__bool__",
+                                         "__float__", "nonzero")] + \
+    [(torch, "nonzero")]
+
+
+def _card_call(name, cells: int, lo: int, hi: int):
+    """(wrapper, thunk) for a call of one segment resolver on small CPU
+    inputs: 16 slots a cell, every cell of one literal and one match, a
+    buffer whose pad row, slack rows and tape padding hold -1."""
+    slots = 16
+    rng = np.random.default_rng(1)
+    body = 4096
+    init = rng.integers(0, 256, tlz.BODY_START + body + 4 * 128).astype(
+        np.int32)
+    init[: tlz.PAD] = init[tlz.BODY_START + body :] = -1
+    init = torch.from_numpy(init).view(-1, 128)
+    pos = torch.from_numpy((np.arange(cells) * 8).astype(np.int32))
+    cnt = torch.full((cells,), 2, dtype=torch.int32)
+    if name == "resolve_tape_v6":
+        tape = torch.full((cells, slots), -1, dtype=torch.int32)
+        tape[:, 0] = 65
+        tape[:, 1] = tlz.TOK_MATCH_BIT | (7 << 16) | 1
+        return tlz.resolve_tape_v6, lambda: tlz.resolve_tape_v6(
+            init, tape.view(-1, 128), cnt.view(-1, 128), pos.view(-1, 128),
+            lo, hi, 0, slots)
+    if name == "resolve_ops_v13":
+        one = torch.zeros((cells, slots), dtype=torch.int32)
+        ma, mb, ra, rb, lit = (one.clone() for _ in range(5))
+        ma[:, 0] = 1
+        mb[:, 0] = (7 << 16) | 1
+        rb[:, 0] = 1
+        lit[:, 0] = 66
+        packed = torch.full((cells,), (1 << 16) | (1 << 8) | 1,
+                            dtype=torch.int32)
+        return tlz.resolve_ops_v13, lambda: tlz.resolve_ops_v13(
+            init, *(t.view(-1, 128) for t in (ma, mb, ra, rb, lit)),
+            packed.view(-1, 128), pos.view(-1, 128), lo, hi, 0, slots)
+    tape = torch.full((hi - lo, slots), -1, dtype=torch.int32)
+    tape[:, 0] = 67
+    tape[:, 1] = tlz.TOK_MATCH_BIT | (7 << 16) | 1
+    counts = torch.full((hi - lo,), 2, dtype=torch.int32)
+    return tlg.resolve_tape_v1, lambda: tlg.resolve_tape_v1(
+        tape, counts, 8 * (hi - lo))
+
+
+CARD_ENTRIES = {
+    "resolve_tape_v6": ["dbg_lz77_tape_place", "dbg_lz77_tape_chase"],
+    "resolve_ops_v13": ["dbg_lz77_ops_place", "dbg_lz77_ops_chase"],
+    "resolve_tape_v1": ["dbg_lz77_tape_v1_len", "dbg_lz77_tape_place",
+                        "dbg_lz77_tape_chase"],
+}
+
+
+@pytest.mark.parametrize("empty", [False, True])
+@pytest.mark.parametrize("name", list(CARD_ENTRIES))
+def test_segment_resolvers_card_branch(monkeypatch, name, empty):
+    """On the card each resolver is its launches and nothing read back
+    between them: the entries in order, each with its declared argument
+    count and types, the chase fed the placement's lists and scratch of one
+    pointer and one bit per body byte, the count moved by one.  An empty
+    range of cells launches nothing and leaves the count."""
+    cells = 256
+    lo, hi = (40, 40) if empty else (3, 200)
+    fn, call = _card_call(name, cells, lo, hi)
+    events = []
+
+    def record(entry, *a):
+        events.append(("launch", entry, a))
+        if entry == "dbg_lz77_tape_v1_len":  # the lengths the kernel gives
+            a[4].copy_(tlg._cell_lengths_plain(a[0], a[1]).to(torch.int32))
+
+    def reader(owner, attr):
+        real = getattr(owner, attr)
+
+        def read(*a, **k):
+            events.append(("read", attr, None))
+            return real(*a, **k)
+        return read
+
+    for owner, attr in READ_BACKS:
+        monkeypatch.setattr(owner, attr, reader(owner, attr))
+    for mod in (tlz, tlg):
+        monkeypatch.setattr(mod, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "launch", record)
+    before = fn.launches
+    call()
+    monkeypatch.undo()
+    launched = [i for i, e in enumerate(events) if e[0] == "launch"]
+    if empty:
+        assert not launched and fn.launches == before
+        return
+    assert fn.launches == before + 1
+    assert [events[i][1] for i in launched] == CARD_ENTRIES[name]
+    assert all(e[0] == "launch" for e in events[launched[0] : launched[-1]])
+    if name != "resolve_tape_v1":  # v1 checks its total after the launches
+        assert not any(e[0] == "read" for e in events)
+    for i in launched:
+        _, entry, args = events[i]
+        argtypes = _kernels._ENTRIES[entry][1]
+        assert len(args) == len(argtypes), entry
+        for a, at in zip(args, argtypes, strict=True):
+            assert isinstance(a, torch.Tensor) if at is ctypes.c_void_p \
+                else type(a) is int, entry
+    place, chase = (events[i][2] for i in launched[-2:])
+    out, body_end, mpos, mmeta, kc, n, slots, ptr, bits = chase
+    assert out is place[0] and body_end == place[1]
+    assert [(t.data_ptr(), t.shape) for t in (mpos, mmeta, kc)] == \
+        [(t.data_ptr(), t.shape) for t in place[-3:]]
+    assert n == hi - lo == kc.numel() and mpos.numel() == n * slots
+    assert ptr.numel() == body_end - tlz.BODY_START
+    assert bits.numel() == -(-ptr.numel() // 32)
