@@ -48,13 +48,18 @@ Each phase prints one JSON line:
   lz77_match_vs_plain: the token-tape Phase A and the three LZ77 resolvers
   of the other decode drivers, at two streams, on a segment cut from the
   middle of a body (window tail, head and tail clip) and at the main path's
-  29 streams; the match-list resolver on one stream and on a hand-made list;
+  29 streams (the two segment resolvers' device time by operation); the
+  segment resolvers also on the walk's shapes (zero run, copies of copies,
+  both merged with a text stream; chain-depth histograms, ms, plain ms)
+  and on a buffer and tapes padded with -1; the match-list resolver on
+  one stream and on a hand-made list;
 * fallback_paths: the same 29 streams through the speculative drivers
   (Python scans, no cell entries: the merged plan through prepare_merged ->
   v5, one stream through inflate_device under DBG_NO_NATIVE=1 -> v4), the
   v13 driver (DBG_PHASE_B=v13), the v7 driver and one stream through the
   all-tensor-op v3, every stream checked against zlib; sweeps of the entry
-  fixpoint, graph / chase / resolve ms, peak memory;
+  fixpoint, graph / chase / resolve ms, peak memory; v7's and v13's device
+  ms and their Phase B (glue and resolver) ms;
 * groups_v11_vs_plain, compact_v14_vs_plain, walk_v14_vs_plain,
   tape_v1_vs_plain: the archived generations' kernels at two streams, on
   one 512 KiB segment of the host-fed packing and an 8 KiB segment of the
@@ -552,6 +557,22 @@ def stages(st, slots):
 
 #: The walk's three kernels (csrc/walk.cu) as torch.profiler names them.
 WALK_KERNEL_NAMES = ("::run_kernel(", "::pointer_kernel(", "::chase_kernel(")
+
+
+def device_parts(fn, reps: int = 3) -> list:
+    """Device ms a call of each operation `fn` runs, by torch.profiler over
+    `reps` calls after one warm-up: [[name, ms], ...], longest first."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return [[e.key[:60], e.self_device_time_total / 1e3 / reps]
+            for e in sorted(events, key=lambda e: -e.self_device_time_total)]
 
 
 def walk_device_ms(events) -> float:
@@ -1227,6 +1248,7 @@ def fallback_phases(dev, base, streams):
             rec["ms"] = time_ms(lambda: lz.resolve_tape_v6(*args7), reps)
             rec["plain_ms"] = time_ms(
                 lambda: lz.resolve_tape_v6_plain(*args7), 1)
+            rec["parts"] = device_parts(lambda: lz.resolve_tape_v6(*args7))
             # The buffer read and written once, the valid tokens, and
             # each cell's count and base.
             rec["tokens"] = int(args7[2].clamp(max=slots).sum())
@@ -1250,6 +1272,7 @@ def fallback_phases(dev, base, streams):
             rec["ms"] = time_ms(lambda: lz.resolve_ops_v13(*args9), reps)
             rec["plain_ms"] = time_ms(
                 lambda: lz.resolve_ops_v13_plain(*args9), 1)
+            rec["parts"] = device_parts(lambda: lz.resolve_ops_v13(*args9))
             # As row 7, with the valid records of the five tapes: two
             # words a match, two a run, one a literal.
             cnt9 = args9[6].long()

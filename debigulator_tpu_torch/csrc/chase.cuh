@@ -38,20 +38,25 @@
 //    caller and row 9 stores its literals unmasked, so any int32 may be a
 //    final value (a tape or buffer padded with -1, for one).  A bitmap
 //    over the body marks the match bytes (zeroed first: body / 8 bytes,
-//    not a pass over the buffer) and a side array holds their pointers;
-//    the buffer itself only ever holds values.  A hop loads the source's
-//    bit, its pointer and its value together; a source outside the body
-//    (the window prologue of a segment, the pad row) has no bit and is
-//    final.  The chase follows a pointer only while it moves strictly
-//    down, so it ends on any input, an overflowed tape included.
+//    not a pass over the buffer) and a side array holds each match byte's
+//    state in one 64-bit word: its pointer while it is chased, its value
+//    once resolved, so a chase that reaches a resolved byte stops there
+//    as the in-place chase does.  The buffer itself only ever holds
+//    values.  A hop loads the source's bit, its state and its value
+//    together; a source outside the body (the window prologue of a
+//    segment, the pad row) has no bit and is final.  The chase follows a
+//    pointer only while it moves strictly down, so it ends on any input,
+//    an overflowed tape included.
 //
 // The segment resolvers' matches come as per-cell lists, `slots` entries a
 // cell with kc[c] of them valid (87% of the 8.4 M slots are padding at the
-// 29-stream shape).  `cells_pointer_kernel` never reads the padding: a warp
-// takes 32 cells, a prefix sum of their counts numbers their valid
-// records, and each round of 32 records is fetched by a shuffle search for
-// the cell, so an empty cell costs its count's load and nothing more.
-//
+// 29-stream shape), and a few cells may hold most of the bytes (a zero run
+// is 512 cells of 32 matches of 258 bytes).  `cells_pointer_kernel` takes
+// the records 32 at a time in one numbering across all cells (the
+// inclusive prefix sums of kc, made on the card between the launches) and
+// finds each record's cell by a binary search, so the padding is never
+// read and the bytes spread evenly over the warps.
+
 // What bounds it on the H100: bytes and latency, across all 132 SMs.  The
 // pointer pass reads each valid record once and writes a pointer per match
 // byte (plus, flagged, one bitmap word per 32 bytes through a warp-wide
@@ -168,14 +173,27 @@ struct InPlaceChain {
 };
 
 // Flagged: bit e of `bits` marks body element body_start + e as a match
-// byte, whose pointer (a buffer position) is ptr[e]; `out` holds values
-// only.
+// byte, and ptr[e] holds its state in one 64-bit word, read and written
+// whole: a pointer (a buffer position, in the low word) while it is being
+// chased, then its value (in the high word, the low word kDone).  `out`
+// holds values only.
+constexpr unsigned kDone = 0xFFFFFFFFu;
+
 __device__ __forceinline__ bool flag_of(const unsigned* bits, int64_t e) {
   return (__ldg(bits + (e >> 5)) >> (e & 31)) & 1u;
 }
 
+__device__ __forceinline__ unsigned long long pointer_entry(int64_t s) {
+  return static_cast<unsigned>(s);
+}
+
+__device__ __forceinline__ unsigned long long value_entry(int val) {
+  return static_cast<unsigned long long>(static_cast<unsigned>(val)) << 32 |
+         kDone;
+}
+
 struct FlagStore {
-  int* ptr;
+  unsigned long long* ptr;
   unsigned* bits;
   int64_t body_start;
   int lane;
@@ -185,7 +203,7 @@ struct FlagStore {
                                              int64_t s) const {
     const int64_t e = d - body_start;
     ok = ok && e >= 0;
-    if (ok) ptr[e] = static_cast<int>(s);
+    if (ok) ptr[e] = pointer_entry(s);
     const int word = ok ? static_cast<int>(e >> 5) : -1;
     const unsigned peers = __match_any_sync(kFull, word);
     const unsigned m = __reduce_or_sync(peers, ok ? 1u << (e & 31) : 0u);
@@ -195,18 +213,18 @@ struct FlagStore {
 
 struct FlagChain {
   int* out;
-  int* ptr;
+  unsigned long long* ptr;
   const unsigned* bits;
   int64_t body_start;
   struct Hop {
-    int next;  // the source's pointer, where it has its bit
-    int val;   // the source's value, where it has none
+    unsigned long long entry;  // the source's state, where it has its bit
+    int val;                   // the source's value, where it has none
     bool flag;
   };
   __device__ __forceinline__ bool start(int64_t j, int& v) const {
     const int64_t e = j - body_start;
     if (!flag_of(bits, e)) return false;
-    v = ptr[e];
+    v = static_cast<int>(static_cast<unsigned>(ptr[e]));
     return true;
   }
   __device__ __forceinline__ Hop load(int p) const {
@@ -214,66 +232,74 @@ struct FlagChain {
     Hop h;
     h.val = __ldcg(out + p);
     h.flag = e >= 0 && flag_of(bits, e);
-    h.next = e >= 0 ? __ldcg(ptr + e) : p;
+    h.entry = e >= 0 ? __ldcg(ptr + e) : 0;
     return h;
   }
   __device__ __forceinline__ bool step(int64_t j, int& v, const Hop& h) const {
-    if (h.flag && h.next < v) {  // a shorter pointer: publish it
-      v = h.next;
-      __stcg(ptr + (j - body_start), v);
-      return true;
+    int val = h.val;
+    if (h.flag) {
+      const unsigned low = static_cast<unsigned>(h.entry);
+      if (low == kDone) {
+        val = static_cast<int>(h.entry >> 32);  // resolved already
+      } else if (static_cast<int>(low) < v) {
+        v = static_cast<int>(low);  // a shorter pointer: publish it
+        __stcg(ptr + (j - body_start), pointer_entry(v));
+        return true;
+      }
     }
-    __stcg(out + j, h.val);  // v is a root: its value is final
+    // v is a root (or, never on the lists the placement writes, a
+    // pointer that does not move down: the chase stops all the same).
+    __stcg(out + j, val);
+    __stcg(ptr + (j - body_start), value_entry(val));
     return false;
   }
 };
 
-// The match bytes of per-cell lists: cell c of n_cells holds kc[c] records
+// The match bytes of per-cell lists: cell c of n_cells holds its records
 // at mpos/mmeta[c * slots ...] (buffer position, len << 16 | dist), already
-// clipped to the body [body_start, body_end).  A warp takes 32 cells at a
-// time and numbers their valid records; padding is never read.
+// clipped to the body [body_start, body_end); kinc holds the inclusive
+// prefix sums of the cells' record counts (kinc[n_cells - 1] records in
+// all, read here).  A warp takes 32 records at a time, numbered across all
+// cells, and each lane finds its record's cell by a binary search of
+// kinc: the work is spread evenly however the records fall on the cells,
+// and padding is never read.
 __global__ void __launch_bounds__(kThreads)
 cells_pointer_kernel(const int* __restrict__ mpos,
-                     const int* __restrict__ mmeta, const int* __restrict__ kc,
-                     int n_cells, int slots, int body_start, int body_end,
-                     int* __restrict__ ptr, unsigned* __restrict__ bits) {
+                     const int* __restrict__ mmeta,
+                     const int* __restrict__ kinc, int n_cells, int slots,
+                     int body_start, int body_end,
+                     unsigned long long* __restrict__ ptr,
+                     unsigned* __restrict__ bits) {
   const int lane = threadIdx.x & 31;
   const FlagStore store{ptr, bits, body_start, lane};
+  const int64_t total = kinc[n_cells - 1];
   const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
   for (int64_t g = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-       g * 32 < n_cells; g += warps) {
-    const int64_t c = g * 32 + lane;
-    const int k = c < n_cells ? kc[c] : 0;
-    int incl = k;
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl += v;
-    }
-    const int excl = incl - k;
-    const int total = __shfl_sync(kFull, incl, 31);
-    for (int b = 0; b < total; b += 32) {
-      const int q = b + lane;
-      int r = 0;  // the last cell whose records start at or before q
-      for (int step = 16; step > 0; step >>= 1) {
-        if (__shfl_sync(kFull, excl, r + step) <= q) r += step;
+       g * 32 < total; g += warps) {
+    const int64_t q = g * 32 + lane;
+    int dst = 0, meta = 0;
+    if (q < total) {
+      int lo = 0, hi = n_cells;  // the first cell whose prefix passes q
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (__ldg(kinc + mid) <= q) lo = mid + 1;
+        else hi = mid;
       }
-      const int first = __shfl_sync(kFull, excl, r);
-      int dst = 0, meta = 0;
-      if (q < total) {
-        const int64_t at = (g * 32 + r) * slots + (q - first);
-        dst = mpos[at];
-        meta = mmeta[at];
-      }
-      const int dist = meta & 0xFFFF;
-      const int len = dist != 0 && meta > 0 ? meta >> 16 : 0;
-      spread_bytes(lane, 0, dst, len, dist, body_end, store);
+      const int64_t at = static_cast<int64_t>(lo) * slots + q -
+                         (lo > 0 ? __ldg(kinc + lo - 1) : 0);
+      dst = mpos[at];
+      meta = mmeta[at];
     }
+    const int dist = meta & 0xFFFF;
+    const int len = dist != 0 && meta > 0 ? meta >> 16 : 0;
+    spread_bytes(lane, 0, dst, len, dist, body_end, store);
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-flag_chase_kernel(int* out, int* ptr, const unsigned* __restrict__ bits,
-                  int body_start, int body_end) {
+flag_chase_kernel(int* out, unsigned long long* ptr,
+                  const unsigned* __restrict__ bits, int body_start,
+                  int body_end) {
   const int64_t j0 = body_start +
                      static_cast<int64_t>(blockIdx.x) * kThreads * kChase +
                      threadIdx.x;
@@ -282,19 +308,21 @@ flag_chase_kernel(int* out, int* ptr, const unsigned* __restrict__ bits,
 
 // Resolve the listed matches of n_cells cells into `out` over the body
 // [body_start, body_end): zero the bitmap, the pointer pass, the chase.
-// ptr: body_end - body_start ints, bits: (that + 31) / 32 words, scratch.
+// ptr: body_end - body_start 64-bit words, bits: (that + 31) / 32 words,
+// both scratch.
 inline int launch_cells(int* out, int body_start, int body_end,
-                        const int* mpos, const int* mmeta, const int* kc,
-                        int n_cells, int slots, int* ptr, unsigned* bits,
-                        cudaStream_t stream) {
+                        const int* mpos, const int* mmeta, const int* kinc,
+                        int n_cells, int slots, unsigned long long* ptr,
+                        unsigned* bits, cudaStream_t stream) {
   const int64_t n_body = static_cast<int64_t>(body_end) - body_start;
   if (n_cells <= 0 || n_body <= 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err = cudaMemsetAsync(bits, 0, (n_body + 31) / 32 * 4, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int64_t blocks = (n_cells + 32 * kWarps - 1) / (32 * kWarps);
+  const int64_t most = static_cast<int64_t>(n_cells) * slots;  // records
+  int64_t blocks = (most + 32 * kWarps - 1) / (32 * kWarps);
   if (blocks > kPointerBlocks) blocks = kPointerBlocks;
   cells_pointer_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      mpos, mmeta, kc, n_cells, slots, body_start, body_end, ptr, bits);
+      mpos, mmeta, kinc, n_cells, slots, body_start, body_end, ptr, bits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t per = static_cast<int64_t>(kThreads) * kChase;

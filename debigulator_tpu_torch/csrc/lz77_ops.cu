@@ -15,13 +15,15 @@
 //      lists its matches, head- and tail-clipped (lz77::clip_match), with
 //      their count.  Runs read no output, so the cells run in any order.
 //  (b) chase::launch_cells (dbg_lz77_ops_chase, chase.cuh), as in
-//      lz77_tape.cu: the bitmap zeroed, a pointer for every match byte,
-//      the grid-wide chase over the body.
+//      lz77_tape.cu: after the prefix sum of the counts, the bitmap
+//      zeroed, a pointer for every match byte, the grid-wide chase over
+//      the body.
 //
 // Where it could go wrong, and what the design does (as lz77_tape.cu):
-// the per-cell lists' padding is never read; literal values are stored
-// unmasked and the caller's buffer may hold any int32, so pointers live in
-// a side array flagged by a bitmap, never in the buffer, and a chase
+// the per-cell lists' padding is never read and their records spread
+// evenly over the warps; literal values are stored unmasked and the
+// caller's buffer may hold any int32, so pointers live in a side array of
+// states flagged by a bitmap, never in the buffer, and a chase
 // follows a pointer only while it moves down; a segment's window prologue
 // lies outside the bitmap and is final, and the pad and slack rows are
 // never stored.
@@ -101,12 +103,14 @@ extern "C" int dbg_lz77_ops_place(int* out, int body_end, const int* ma,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptr: body_end - (PAD + WINDOW) ints, bits: a bit per body byte, rounded up
-// to whole 32-bit words; both scratch.
+// kinc: inclusive prefix sums of kc.  state: a 64-bit word per body byte
+// (body_end - PAD - WINDOW), bits: a bit per body byte, rounded up to whole
+// 32-bit words; both scratch.
 extern "C" int dbg_lz77_ops_chase(int* out, int body_end, const int* mpos,
-                                  const int* mmeta, const int* kc, int n_cells,
-                                  int slots, int* ptr, unsigned* bits,
+                                  const int* mmeta, const int* kinc,
+                                  int n_cells, int slots,
+                                  unsigned long long* state, unsigned* bits,
                                   cudaStream_t stream) {
-  return chase::launch_cells(out, kBodyStart, body_end, mpos, mmeta, kc,
-                             n_cells, slots, ptr, bits, stream);
+  return chase::launch_cells(out, kBodyStart, body_end, mpos, mmeta, kinc,
+                             n_cells, slots, state, bits, stream);
 }

@@ -13,19 +13,22 @@
 //      cell's matches, head- and tail-clipped (lz77::clip_match), to a
 //      per-cell list with their count.  Literals read no output, so the
 //      cells run in any order.
-//  (b) chase::launch_cells (dbg_lz77_tape_chase, chase.cuh): the bitmap
-//      zeroed, a pointer for every match byte, then the grid-wide chase
-//      over the body.  No stream order and no ranges of cells: every match
-//      byte's chain of sources runs strictly down to a literal, a stored
-//      byte or a window byte.
+//  (b) chase::launch_cells (dbg_lz77_tape_chase, chase.cuh), after the
+//      wrapper's prefix sum of the counts on the card: the bitmap zeroed,
+//      a pointer for every match byte, then the grid-wide chase over the
+//      body.  No stream order and no ranges of cells: every match byte's
+//      chain of sources runs strictly down to a literal, a stored byte or
+//      a window byte.
 //
 // Where it could go wrong, and what the design does:
 //  * the per-cell lists are mostly padding (slots entries a cell, kc[c]
-//    valid): the pointer pass numbers the valid records of 32 cells at a
-//    time and never reads the rest;
+//    valid) and a few cells may hold most bytes (a zero run): the pointer
+//    pass numbers the valid records across all cells, takes them 32 a
+//    warp and never reads the rest;
 //  * the caller's buffer may hold any int32 (tests pad it and the tape
-//    with -1): pointers live in a side array flagged by a bitmap, never in
-//    the buffer, and a chase follows a pointer only while it moves down,
+//    with -1): pointers live in a side array of states flagged by a
+//    bitmap, never in the buffer, and a chase follows a pointer only while
+//    it moves down,
 //    so an overflowed tape (a count past `slots`, read as `slots`; every
 //    caller discards its result) ends too;
 //  * a segment (seg_off > 0, cell_lo > 0) reads sources in the window
@@ -133,12 +136,14 @@ extern "C" int dbg_lz77_tape_place(int* out, int body_end, const int* tape,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptr: body_end - (PAD + WINDOW) ints, bits: a bit per body byte, rounded up
-// to whole 32-bit words; both scratch.
+// kinc: inclusive prefix sums of kc.  state: a 64-bit word per body byte
+// (body_end - PAD - WINDOW), bits: a bit per body byte, rounded up to whole
+// 32-bit words; both scratch.
 extern "C" int dbg_lz77_tape_chase(int* out, int body_end, const int* mpos,
-                                   const int* mmeta, const int* kc,
-                                   int n_cells, int slots, int* ptr,
-                                   unsigned* bits, cudaStream_t stream) {
-  return chase::launch_cells(out, kBodyStart, body_end, mpos, mmeta, kc,
-                             n_cells, slots, ptr, bits, stream);
+                                   const int* mmeta, const int* kinc,
+                                   int n_cells, int slots,
+                                   unsigned long long* state, unsigned* bits,
+                                   cudaStream_t stream) {
+  return chase::launch_cells(out, kBodyStart, body_end, mpos, mmeta, kinc,
+                             n_cells, slots, state, bits, stream);
 }

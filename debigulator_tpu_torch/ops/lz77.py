@@ -158,12 +158,22 @@ def _segment(out_init, cell_lo, cell_hi, seg_off, cells_tot: int):
 def _chase_scratch(n: int, slots: int, body_end: int, device):
     """What the placement kernel leaves for the chase, the per-cell match
     lists (position, meta) and per cell the match count, and the chase's
-    own scratch: a source pointer and a bit for every body byte."""
+    own scratch: a 64-bit state (pointer, then value) and a bit for every
+    body byte."""
     n_body = body_end - BODY_START
     return (torch.empty((2, n * slots), dtype=torch.int32, device=device),
             torch.empty(n, dtype=torch.int32, device=device),
-            torch.empty(n_body, dtype=torch.int32, device=device),
+            torch.empty(n_body, dtype=torch.int64, device=device),
             torch.empty(-(-n_body // 32), dtype=torch.int32, device=device))
+
+
+def _chase(entry: str, out, body_end: int, mlist, kc, n: int, slots: int,
+           state, bits) -> None:
+    """The chase's launch: the match records numbered across all cells by
+    the inclusive prefix sums of the cells' counts, made on the card."""
+    kinc = torch.cumsum(kc, 0, dtype=torch.int32)
+    _kernels.launch(entry, out, body_end, mlist[0], mlist[1], kinc, n, slots,
+                    state, bits)
 
 
 def suffix_min(x: torch.Tensor) -> torch.Tensor:
@@ -187,11 +197,11 @@ def tape_place_chase(out, body_end: int, tape, counts, cbase, lo: int,
     a token tape, in place on ``out``: placement (literals stored, clipped
     matches listed), then the chase (a pointer for every match byte, every
     body byte chased to its root).  Two launches, nothing read back."""
-    mlist, kc, ptr, bits = _chase_scratch(n, slots, body_end, out.device)
+    mlist, kc, state, bits = _chase_scratch(n, slots, body_end, out.device)
     _kernels.launch("dbg_lz77_tape_place", out, body_end, tape, counts, cbase,
                     lo, n, base_adj, slots, mlist[0], mlist[1], kc)
-    _kernels.launch("dbg_lz77_tape_chase", out, body_end, mlist[0], mlist[1],
-                    kc, n, slots, ptr, bits)
+    _chase("dbg_lz77_tape_chase", out, body_end, mlist, kc, n, slots, state,
+           bits)
 
 
 def resolve_tape_v6_plain(out_init, tape2d, counts, cbase, cell_lo, cell_hi,
@@ -327,12 +337,13 @@ def resolve_ops_v13(out_init, ma2d, mb2d, ra2d, rb2d, lit2d, cnt2d, cbase2d,
     out = out_init.clone()
     n = hi - lo
     if n:
-        mlist, kc, ptr, bits = _chase_scratch(n, slots, body_end, out.device)
+        mlist, kc, state, bits = _chase_scratch(n, slots, body_end,
+                                                out.device)
         _kernels.launch("dbg_lz77_ops_place", out, body_end, ma2d, mb2d, ra2d,
                         rb2d, lit2d, lit2d.numel(), cnt2d, cbase2d, lo, n,
                         base_adj, slots, mlist[0], mlist[1], kc)
-        _kernels.launch("dbg_lz77_ops_chase", out, body_end, mlist[0],
-                        mlist[1], kc, n, slots, ptr, bits)
+        _chase("dbg_lz77_ops_chase", out, body_end, mlist, kc, n, slots,
+               state, bits)
         resolve_ops_v13.launches += 1
     return out
 

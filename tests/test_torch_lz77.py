@@ -376,10 +376,12 @@ def test_segment_resolvers_card_branch(monkeypatch, name, empty):
             assert isinstance(a, torch.Tensor) if at is ctypes.c_void_p \
                 else type(a) is int, entry
     place, chase = (events[i][2] for i in launched[-2:])
-    out, body_end, mpos, mmeta, kc, n, slots, ptr, bits = chase
+    out, body_end, mpos, mmeta, kinc, n, slots, state, bits = chase
     assert out is place[0] and body_end == place[1]
-    assert [(t.data_ptr(), t.shape) for t in (mpos, mmeta, kc)] == \
-        [(t.data_ptr(), t.shape) for t in place[-3:]]
-    assert n == hi - lo == kc.numel() and mpos.numel() == n * slots
-    assert ptr.numel() == body_end - tlz.BODY_START
-    assert bits.numel() == -(-ptr.numel() // 32)
+    assert [(t.data_ptr(), t.shape) for t in (mpos, mmeta)] == \
+        [(t.data_ptr(), t.shape) for t in place[-3:-1]]
+    assert n == hi - lo == kinc.numel() and mpos.numel() == n * slots
+    assert torch.equal(kinc, torch.cumsum(place[-1], 0, dtype=torch.int32))
+    assert state.dtype == torch.int64
+    assert state.numel() == body_end - tlz.BODY_START
+    assert bits.numel() == -(-state.numel() // 32)
