@@ -16,9 +16,8 @@
 //  (b) chase::launch_cells (dbg_lz77_tape_chase, chase.cuh), after the
 //      wrapper's prefix sum of the counts on the card: the bitmap zeroed,
 //      a pointer for every match byte, then the grid-wide chase over the
-//      body.  No stream order and no ranges of cells: every match byte's
-//      chain of sources runs strictly down to a literal, a stored byte or
-//      a window byte.
+//      body.  No stream order: every match byte's chain of sources runs
+//      strictly down to a literal, a stored byte or a window byte.
 //
 // Where it could go wrong, and what the design does:
 //  * the per-cell lists are mostly padding (slots entries a cell, kc[c]

@@ -8,8 +8,8 @@ launch count, with the reference's arguments:
   front-compacted match list in order to a buffer whose literals and
   stored bytes are already placed (driver v4).
 * ``resolve_tape_v6`` (replaces ``_tape_kernel_v6`` :317): one segment of
-  Phase B from the token tape: literals stored, matches resolved as the
-  stream order gives them (drivers v5 and v7).
+  Phase B from the token tape: literals stored, matches resolved (drivers
+  v5 and v7).
 * ``resolve_ops_v13`` (replaces ``_op_kernel_v13`` :581): one segment of
   Phase B from Phase A's match, run and literal tapes (driver v13).
 
@@ -32,8 +32,7 @@ The segment resolvers list each cell's clipped matches instead and hand
 them to the grid-wide source chase of csrc/chase.cuh: a pointer for every
 match byte to the byte it copies (in a side array flagged by a bitmap, so
 the buffer may hold any int32), then every body byte chased to its root,
-with no stream order, no ranges of cells and no read-back between the
-launches.
+with no stream order and no read-back between the launches.
 
 The plain versions place literals, point every match byte at its source
 byte and follow the pointers by doubling (``ptr = ptr[ptr]``) until
