@@ -6,7 +6,9 @@ returned buffer (pad row, window, body, slack) must be equal, bit for bit.
 Bodies are cut into small segments so that a few KB of output already
 cross segment edges: a non-zero window tail, matches that begin before the
 body (head clip) or run past its end (tail clip), and sources inside a
-stored block.  On the CPU the port's wrappers run their plain versions.
+stored block.  On the CPU the port's wrappers run their plain versions;
+the card's branch of the segment resolvers is taken on CPU tensors with
+the launches and every host read recorded.
 """
 
 import ctypes
