@@ -1,6 +1,7 @@
 // Phase A for Hopper: per-cell Huffman decode, in two kernels that share
 // one decode step: phase_a_kernel (match / literal-run / literal tapes) and
-// phase_a_tape_kernel (one token tape; described at its definition).
+// phase_a_tape_kernel (one token tape; described at its definition), and a
+// third, lut_kernel, that builds the first-level decode table both read.
 //
 // phase_a_kernel replaces the TPU kernel _phase_a13_kernel (debigulator_tpu/ops/
 // phase_a_pallas.py:480, decode graph in _graph_to_scratch :87).  The TPU
@@ -12,12 +13,21 @@
 //
 // What bounds it on the H100: bytes.  Per cell it reads 16 bytes of
 // stream words + entry and 4 bytes of block id, and writes 5 tapes of
-// `slots` int32 plus two int32 -- 340 bytes at 16 slots.  Slot j of cell c
-// is written at j * cells_pad + c, so a warp's 32 stores of one slot land
-// on 128 contiguous bytes.  The per-block decode tables (416 int32) are
-// read through L1: neighbouring cells share a block, so a warp's table
-// reads broadcast.  Unused slots are zero-filled by the same thread, so the
-// wrapper allocates with torch.empty and no memset runs.
+// `slots` int32 plus two int32 -- 328 bytes at 16 slots, mostly the zeros
+// of unused slots.  Two things keep it near that bound:
+//  * The decode step reads one int32 of the first-level table (lut_kernel,
+//    2 x 2^K entries a block, indexed by the window's low K bits in stream
+//    order) through L1, and the same word for a litlen or a distance
+//    symbol, so lanes in different modes take one path.  Only a code
+//    longer than K bits, or a prefix whose K bits do not decide the
+//    canonical probe, runs the probe over the block's 47 table words.
+//  * A CTA of n cells (n = 2048 / slots, in 32..256) stages its five tapes
+//    slot-major in shared memory, [5][slots][n], zero-filled first; a lane
+//    stores its records there (lane t at column t, so a warp's stores hit
+//    32 banks whatever its counts), and after a barrier the CTA writes each
+//    of the 5 * slots rows' n contiguous int32 with 16-byte stores.  The
+//    staging takes 20 * slots * n bytes (40 KB, 80 KB at 128 slots), so
+//    shared memory, not threads, caps the cells in flight on an SM.
 //
 // Semantics carried bit for bit from the reference:
 //  * 15-length canonical probe in its lim-compare / telescoped-offset form;
@@ -38,6 +48,13 @@ constexpr int kTabLL = 96;
 constexpr int kTabD = 384;
 constexpr int kKindShift = 25;
 constexpr int kNone = 0, kLit = 1, kDist = 2;
+// First-level table entry: the aug bits the decode step reads (litlen 0-14,
+// distance 0-18) in bits 0-19, the code length in bits 20-23, and bit 24
+// set where the entry decides the probe.  An undecided entry is 0.
+constexpr int kLutAugMask = 0xFFFFF;
+constexpr int kLutLenShift = 20;
+constexpr int kLutFinal = 1 << 24;
+constexpr int kMaxSmem = 48 * 1024;
 
 __device__ __forceinline__ uint32_t window_at(uint32_t w0, uint32_t w1,
                                               uint32_t w2, int p) {
@@ -73,28 +90,66 @@ __device__ __forceinline__ int probe(const int* __restrict__ par,
   return (off >= 0 && off < width) ? off : -1;
 }
 
+// One first-level entry per thread: block g >> (K + 1), mode bit K, window
+// bits g & (2^K - 1).  Those K window bits are the top K bits of the
+// reversed 15-bit code, so the entry covers the codes rev_lo..rev_hi that
+// share them.  Every comparison rev >= lim_l of a length l <= K has the
+// same answer over that range (lim_l's low 15 - l bits are zero), so the
+// probe at rev_hi decides the whole range when its length is <= K and no
+// longer length's limit lies at or below rev_hi.  Anything else (a longer
+// code, an unmatched one, a limit inside the range) stays 0.
+__global__ void lut_kernel(const int* __restrict__ tables, int64_t total,
+                           int k, int* __restrict__ lut) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= total) return;
+  const int mode = static_cast<int>(g >> k) & 1;
+  const int* __restrict__ tab = tables + (g >> (k + 1)) * kTabW;
+  const int* __restrict__ par = tab + 48 * mode;
+  const uint32_t top = __brev(static_cast<uint32_t>(g) & ((1u << k) - 1)) >> (32 - k);
+  const uint32_t rev_hi = (top << (15 - k)) | ((1u << (15 - k)) - 1);
+  int len;
+  const int off = probe(par, rev_hi, mode ? 32 : 288, &len);
+  bool final = len <= k;
+  for (int l = k + 1; l <= 15; ++l) {
+    final = final && static_cast<int>(rev_hi) < ((par[16 + l] + par[l]) << (15 - l));
+  }
+  const int aug = off >= 0 ? tab[(mode ? kTabD : kTabLL) + off] : 0;
+  lut[g] = final ? (kLutFinal | (len << kLutLenShift) | (aug & kLutAugMask)) : 0;
+}
+
 // One decode step of a cell's chain at bit position `pos` in litlen
 // (mode 0) or distance (mode 1) state: the next position and the packed
-// emission (kind << 25 | pending length << 16 | payload).  Shared by both
-// Phase A kernels.
+// emission (kind << 25 | pending length << 16 | payload).  `lut` is the
+// block's 2 x 2^k first-level table, `tab` its probe rows and aug columns.
+// Shared by both Phase A kernels.
 __device__ __forceinline__ void decode_step(const int* __restrict__ tab,
+                                            const int* lut, int k,
                                             uint32_t w0, uint32_t w1,
                                             uint32_t w2, int pos, int mode,
                                             int* nx_out, int* mt_out) {
   const uint32_t win = window_at(w0, w1, w2, pos);
-  const uint32_t rev = __brev(win & 0x7FFFu) >> 17;
-  int len;
+  const int* entry = lut + ((mode << k) | static_cast<int>(win & ((1u << k) - 1)));
+#ifdef DBG_PHASE_A_LUT_SMEM
+  const int e = *entry;
+#else
+  const int e = __ldg(entry);
+#endif
+  int len, aug;
+  if (e & kLutFinal) {
+    len = (e >> kLutLenShift) & 0xF;
+    aug = e & kLutAugMask;
+  } else {
+    const uint32_t rev = __brev(win & 0x7FFFu) >> 17;
+    const int off = probe(tab + 48 * mode, rev, mode ? 32 : 288, &len);
+    aug = off >= 0 ? tab[(mode ? kTabD : kTabLL) + off] : 0;
+  }
   if (mode == 1) {
-    const int off = probe(tab + 48, rev, 32, &len);
-    const int aug = off >= 0 ? tab[kTabD + off] : 0;
     const int dbase = aug & 0x7FFF;
     const int deb = (aug >> 15) & 0xF;
     const int dextra = static_cast<int>(win >> len) & ((1 << deb) - 1);
     *nx_out = pos + len + deb;
     *mt_out = (kDist << kKindShift) | (dbase + dextra);
   } else {
-    const int off = probe(tab, rev, 288, &len);
-    const int aug = off >= 0 ? tab[kTabLL + off] : 0;
     const int lval = aug & 0x1FF;
     const int leb = (aug >> 9) & 0xF;
     const int is_len = (aug >> 13) & 1;
@@ -108,46 +163,109 @@ __device__ __forceinline__ void decode_step(const int* __restrict__ tab,
   }
 }
 
-__global__ void phase_a_kernel(const int* __restrict__ cellw,
-                               const int* __restrict__ cell_block,
-                               const int* __restrict__ tables, int cells_pad,
-                               int slots, int* __restrict__ ma,
-                               int* __restrict__ mb, int* __restrict__ ra,
-                               int* __restrict__ rb, int* __restrict__ lit,
-                               int* __restrict__ cnt,
-                               int* __restrict__ outlen) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cells_pad) return;
-  const uint32_t w0 = static_cast<uint32_t>(cellw[c]);
-  const uint32_t w1 = static_cast<uint32_t>(cellw[cells_pad + c]);
-  const uint32_t w2 = static_cast<uint32_t>(cellw[2 * cells_pad + c]);
+// The cell's start state and its block's tables.
+struct CellIn {
+  uint32_t w0, w1, w2;
+  int pos, mode, pend;
+  const int* tab;
+  const int* lut;
+};
+
+#ifdef DBG_PHASE_A_LUT_SMEM
+// Variant: stage the first-level tables of the CTA's first two blocks in
+// shared memory after the tapes; other blocks read global memory.
+constexpr int kLutStage = 2;
+__device__ __forceinline__ const int* stage_lut(
+    int* slut, const int* __restrict__ lut, const int* __restrict__ cell_block,
+    int c0, int n, int k) {
+  const int b0 = cell_block[c0];
+  const int span = cell_block[c0 + n - 1] - b0 + 1;
+  const int nstage = span < 1 ? 1 : (span > kLutStage ? kLutStage : span);
+  const int4* src = reinterpret_cast<const int4*>(
+      lut + (static_cast<int64_t>(b0) << (k + 1)));
+  int4* dst = reinterpret_cast<int4*>(slut);
+  for (int i = threadIdx.x; i < (nstage << (k + 1)) / 4; i += n) dst[i] = src[i];
+  return slut;
+}
+#endif
+
+__device__ __forceinline__ CellIn load_cell(
+    const int* __restrict__ cellw, const int* __restrict__ cell_block,
+    const int* __restrict__ tables, const int* __restrict__ lut, int k,
+    int cells_pad, int c, const int* slut, int b0) {
+  CellIn in;
+  in.w0 = static_cast<uint32_t>(cellw[c]);
+  in.w1 = static_cast<uint32_t>(cellw[cells_pad + c]);
+  in.w2 = static_cast<uint32_t>(cellw[2 * cells_pad + c]);
   const int row3 = cellw[3 * cells_pad + c];
   const int el = (row3 & 0xFF) - 1;
-  int pos = el >= 0 ? (el >> 1) : kInactive;
-  int mode = el >= 0 ? (el & 1) : 0;
-  int pend = (row3 >> 9) & 0x1FF;
-  const int* __restrict__ tab =
-      tables + static_cast<int64_t>(cell_block[c]) * kTabW;
+  in.pos = el >= 0 ? (el >> 1) : kInactive;
+  in.mode = el >= 0 ? (el & 1) : 0;
+  in.pend = (row3 >> 9) & 0x1FF;
+  const int blk = cell_block[c];
+  in.tab = tables + static_cast<int64_t>(blk) * kTabW;
+  in.lut = lut + (static_cast<int64_t>(blk) << (k + 1));
+#ifdef DBG_PHASE_A_LUT_SMEM
+  if (static_cast<unsigned>(blk - b0) < static_cast<unsigned>(kLutStage)) {
+    in.lut = slut + ((blk - b0) << (k + 1));
+  }
+#endif
+  return in;
+}
 
+__global__ void phase_a_kernel(const int* __restrict__ cellw,
+                               const int* __restrict__ cell_block,
+                               const int* __restrict__ tables,
+                               const int* __restrict__ lut, int k,
+                               int cells_pad, int slots,
+                               int* __restrict__ tape,
+                               int* __restrict__ cnt,
+                               int* __restrict__ outlen) {
+  extern __shared__ int4 stage4[];
+  int* stage = reinterpret_cast<int*>(stage4);
+  const int n = blockDim.x;
+  const int t = threadIdx.x;
+  const int c0 = blockIdx.x * n;
+  const int c = c0 + t;
+  // Five tapes x slots rows x n columns; int4 q of row r is q of its n/4.
+  const int vec = 5 * slots * n / 4;
+  for (int i = t; i < vec; i += n) stage4[i] = make_int4(0, 0, 0, 0);
+  const int* slut = nullptr;
+  int b0 = 0;
+#ifdef DBG_PHASE_A_LUT_SMEM
+  slut = stage_lut(stage + 5 * slots * n, lut, cell_block, c0, n, k);
+  b0 = cell_block[c0];
+#endif
+  const CellIn in = load_cell(cellw, cell_block, tables, lut, k, cells_pad, c,
+                              slut, b0);
+  __syncthreads();
+  // Row j of tape q at stage[(q * slots + j) * n + t].
+  int* ma = stage + t;
+  int* mb = ma + slots * n;
+  int* ra = mb + slots * n;
+  int* rb = ra + slots * n;
+  int* lit = rb + slots * n;
+
+  int pos = in.pos, mode = in.mode, pend = in.pend;
   int mc = 0, rc = 0, litc = 0, cur = 0;
   int run_dst = 0, run_lit0 = 0, run_len = 0;
   while (pos < kCellBits) {
     int nx, mt;
-    decode_step(tab, w0, w1, w2, pos, mode, &nx, &mt);
+    decode_step(in.tab, in.lut, k, in.w0, in.w1, in.w2, pos, mode, &nx, &mt);
     const int kind = mt >> kKindShift;
     const int payload = mt & 0xFFFF;
     const int pd = (mt >> 16) & 0x1FF;
     if (kind == kDist) {
       if (run_len > 0) {  // a match closes the open literal run
         if (rc < slots) {
-          ra[rc * cells_pad + c] = run_dst;
-          rb[rc * cells_pad + c] = (run_lit0 << 16) | run_len;
+          ra[rc * n] = run_dst;
+          rb[rc * n] = (run_lit0 << 16) | run_len;
         }
         ++rc;
       }
       if (mc < slots) {
-        ma[mc * cells_pad + c] = cur;
-        mb[mc * cells_pad + c] = (pend << 16) | payload;
+        ma[mc * n] = cur;
+        mb[mc * n] = (pend << 16) | payload;
       }
       ++mc;
       run_len = 0;
@@ -155,7 +273,7 @@ __global__ void phase_a_kernel(const int* __restrict__ cellw,
       pend = 0;
     } else {
       if (kind == kLit) {
-        if (litc < slots) lit[litc * cells_pad + c] = payload;
+        if (litc < slots) lit[litc * n] = payload;
         if (run_len == 0) {
           run_dst = cur;
           run_lit0 = litc;
@@ -172,22 +290,24 @@ __global__ void phase_a_kernel(const int* __restrict__ cellw,
   }
   if (run_len > 0) {
     if (rc < slots) {
-      ra[rc * cells_pad + c] = run_dst;
-      rb[rc * cells_pad + c] = (run_lit0 << 16) | run_len;
+      ra[rc * n] = run_dst;
+      rb[rc * n] = (run_lit0 << 16) | run_len;
     }
     ++rc;
   }
-  for (int j = mc; j < slots; ++j) {
-    ma[j * cells_pad + c] = 0;
-    mb[j * cells_pad + c] = 0;
-  }
-  for (int j = rc; j < slots; ++j) {
-    ra[j * cells_pad + c] = 0;
-    rb[j * cells_pad + c] = 0;
-  }
-  for (int j = litc; j < slots; ++j) lit[j * cells_pad + c] = 0;
   cnt[c] = (mc << 16) | (rc << 8) | litc;
   outlen[c] = cur;
+  __syncthreads();
+  // Row r of the five tapes starts at tape + r * cells_pad; the CTA's
+  // segment of it is n int32 from column c0, 16-byte aligned because
+  // cells_pad and c0 are multiples of n.
+  const int shift = __ffs(n / 4) - 1;
+  for (int i = t; i < vec; i += n) {
+    const int r = i >> shift;
+    int4* dst = reinterpret_cast<int4*>(
+        tape + static_cast<int64_t>(r) * cells_pad + c0);
+    dst[i - (r << shift)] = stage4[i];
+  }
 }
 
 // Token-tape Phase A, replacing the TPU kernel _phase_a_kernel
@@ -199,43 +319,52 @@ __global__ void phase_a_kernel(const int* __restrict__ cellw,
 // caller's overflow flag, and nothing is written past the row.
 //
 // What bounds it on the H100: bytes, 20 read and 4 * slots + 4 written per
-// cell.  A thread owns a row of slots * 4 bytes, so a warp's stores of one
-// slot are strided; the whole row is still written exactly once.
+// cell.  The CTA's n cells own n * slots contiguous int32 of the tape, so
+// the rows are staged in shared memory, [n][slots + 1] pre-filled with -1
+// (the padding column spreads a warp's stores of different rows over the
+// banks), and written out after a barrier with 16-byte stores.
 __global__ void phase_a_tape_kernel(const int* __restrict__ cellw,
                                     const int* __restrict__ cell_block,
                                     const int* __restrict__ tables,
+                                    const int* __restrict__ lut, int k,
                                     int cells_pad, int slots,
                                     int* __restrict__ tape,
                                     int* __restrict__ counts) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cells_pad) return;
-  const uint32_t w0 = static_cast<uint32_t>(cellw[c]);
-  const uint32_t w1 = static_cast<uint32_t>(cellw[cells_pad + c]);
-  const uint32_t w2 = static_cast<uint32_t>(cellw[2 * cells_pad + c]);
-  const int row3 = cellw[3 * cells_pad + c];
-  const int el = (row3 & 0xFF) - 1;
-  int pos = el >= 0 ? (el >> 1) : kInactive;
-  int mode = el >= 0 ? (el & 1) : 0;
-  int pend = (row3 >> 9) & 0x1FF;
-  const int* __restrict__ tab =
-      tables + static_cast<int64_t>(cell_block[c]) * kTabW;
-  int* __restrict__ row = tape + static_cast<int64_t>(c) * slots;
+  extern __shared__ int4 stage4[];
+  int* stage = reinterpret_cast<int*>(stage4);
+  const int n = blockDim.x;
+  const int t = threadIdx.x;
+  const int c0 = blockIdx.x * n;
+  const int c = c0 + t;
+  const int w = slots + 1;
+  for (int i = t; i < n * w / 4; i += n) stage4[i] = make_int4(-1, -1, -1, -1);
+  const int* slut = nullptr;
+  int b0 = 0;
+#ifdef DBG_PHASE_A_LUT_SMEM
+  slut = stage_lut(stage + n * w, lut, cell_block, c0, n, k);
+  b0 = cell_block[c0];
+#endif
+  const CellIn in = load_cell(cellw, cell_block, tables, lut, k, cells_pad, c,
+                              slut, b0);
+  __syncthreads();
+  int* row = stage + t * w;
 
-  int cnt = 0;
+  int pos = in.pos, mode = in.mode, pend = in.pend;
+  int cn = 0;
   while (pos < kCellBits) {
     int nx, mt;
-    decode_step(tab, w0, w1, w2, pos, mode, &nx, &mt);
+    decode_step(in.tab, in.lut, k, in.w0, in.w1, in.w2, pos, mode, &nx, &mt);
     const int kind = mt >> kKindShift;
     const int payload = mt & 0xFFFF;
     const int pd = (mt >> 16) & 0x1FF;
     if (kind == kDist) {
-      if (cnt < slots) row[cnt] = (1 << 30) | (pend << 16) | payload;
-      ++cnt;
+      if (cn < slots) row[cn] = (1 << 30) | (pend << 16) | payload;
+      ++cn;
       pend = 0;
     } else {
       if (kind == kLit) {
-        if (cnt < slots) row[cnt] = payload;
-        ++cnt;
+        if (cn < slots) row[cn] = payload;
+        ++cn;
       }
       if (pd > 0) pend = pd;
     }
@@ -243,30 +372,79 @@ __global__ void phase_a_tape_kernel(const int* __restrict__ cellw,
     mode = mode == 1 ? 0 : mo;
     pos = nx;
   }
-  for (int j = cnt; j < slots; ++j) row[j] = -1;
-  counts[c] = cnt;
+  counts[c] = cn;
+  __syncthreads();
+  // int4 i holds flat elements 4i..4i+3 of the CTA's n x slots region:
+  // one cell's slots (slots is a multiple of 4).
+  const int shift = __ffs(slots) - 1;
+  int4* dst = reinterpret_cast<int4*>(tape + static_cast<int64_t>(c0) * slots);
+  for (int i = t; i < n * slots / 4; i += n) {
+    const int e = 4 * i;
+    const int* src = stage + (e >> shift) * w + (e & (slots - 1));
+    dst[i] = make_int4(src[0], src[1], src[2], src[3]);
+  }
+}
+
+// Cells a CTA of either Phase A kernel takes at `slots`: a power of two
+// that divides cells_pad (a multiple of 512).
+int cta_cells(int slots) {
+  const int n = 2048 / slots;
+  return n < 32 ? 32 : (n > 256 ? 256 : n);
+}
+
+int lut_smem(int k, int slots) {
+#ifdef DBG_PHASE_A_LUT_SMEM
+  return 4 * (kLutStage << (k + 1));
+#else
+  (void)k;
+  (void)slots;
+  return 0;
+#endif
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= static_cast<size_t>(kMaxSmem)) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace
 
+extern "C" int dbg_phase_a_lut(const int* tables, int nb, int k, int* lut,
+                               cudaStream_t stream) {
+  const int64_t total = static_cast<int64_t>(nb) << (k + 1);
+  if (total == 0) return 0;
+  const int threads = 256;
+  lut_kernel<<<static_cast<unsigned>((total + threads - 1) / threads), threads,
+               0, stream>>>(tables, total, k, lut);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int dbg_phase_a_tape(const int* cellw, const int* cell_block,
-                                const int* tables, int cells_pad, int slots,
-                                int* tape, int* counts, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (cells_pad + threads - 1) / threads;
-  phase_a_tape_kernel<<<blocks, threads, 0, stream>>>(
-      cellw, cell_block, tables, cells_pad, slots, tape, counts);
+                                const int* tables, const int* lut, int k,
+                                int cells_pad, int slots, int* tape,
+                                int* counts, cudaStream_t stream) {
+  if (cells_pad == 0) return 0;
+  const int n = cta_cells(slots);
+  const size_t smem = 4ull * n * (slots + 1) + lut_smem(k, slots);
+  const cudaError_t err = allow_smem(phase_a_tape_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  phase_a_tape_kernel<<<cells_pad / n, n, smem, stream>>>(
+      cellw, cell_block, tables, lut, k, cells_pad, slots, tape, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int dbg_phase_a(const int* cellw, const int* cell_block,
-                           const int* tables, int cells_pad, int slots,
-                           int* ma, int* mb, int* ra, int* rb, int* lit,
-                           int* cnt, int* outlen, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (cells_pad + threads - 1) / threads;
-  phase_a_kernel<<<blocks, threads, 0, stream>>>(
-      cellw, cell_block, tables, cells_pad, slots, ma, mb, ra, rb, lit, cnt,
-      outlen);
+                           const int* tables, const int* lut, int k,
+                           int cells_pad, int slots, int* tape, int* cnt,
+                           int* outlen, cudaStream_t stream) {
+  if (cells_pad == 0) return 0;
+  const int n = cta_cells(slots);
+  const size_t smem = 20ull * slots * n + lut_smem(k, slots);
+  const cudaError_t err = allow_smem(phase_a_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  phase_a_kernel<<<cells_pad / n, n, smem, stream>>>(
+      cellw, cell_block, tables, lut, k, cells_pad, slots, tape, cnt, outlen);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,9 +42,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: C entry -> (library, argument types; the stream argument comes last).
 _ENTRIES = {
-    "dbg_phase_a": ("phase_a", [_P, _P, _P, _I32, _I32,
-                                _P, _P, _P, _P, _P, _P, _P]),
-    "dbg_phase_a_tape": ("phase_a", [_P, _P, _P, _I32, _I32, _P, _P]),
+    "dbg_phase_a_lut": ("phase_a", [_P, _I32, _I32, _P]),
+    "dbg_phase_a": ("phase_a", [_P, _P, _P, _P, _I32, _I32, _I32, _P, _P,
+                                _P]),
+    "dbg_phase_a_tape": ("phase_a", [_P, _P, _P, _P, _I32, _I32, _I32, _P,
+                                     _P]),
     "dbg_compact": ("compact", [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                                 _I32, _P, _P, _P, _P, _P]),
     "dbg_walk": ("walk", [_P, _I64, _I64, _P, _P, _I64, _P, _P, _I64, _P,

@@ -23,12 +23,14 @@ the f32 parameter matmul): each cell carries its block id and the per-block
 tables are indexed by it directly, which also lifts the page-locality
 limit of the JAX package's input packing (``build_pa_arrays``).
 
-CUDA kernel (csrc/phase_a.cu): one thread per cell decodes its chain
-sequentially; the entries are exact, so no all-positions decode graph is
-built.  Bound on the H100: the slot-major tape writes (5 x slots x 4 bytes
-per cell) dominate the bytes moved; a thread's table reads hit L1 because
-neighbouring cells share a block, and slot j of cell c lands at
-j*cells_pad + c, so a warp's stores coalesce.
+CUDA kernels (csrc/phase_a.cu): one launch builds every block's
+first-level decode table (``decode_lut_plain`` is its plain twin), then one
+thread per cell decodes its chain sequentially; the entries are exact, so
+no all-positions decode graph is built.  Bound on the H100: the slot-major
+tape writes (5 x slots x 4 bytes per cell, mostly zeros) dominate the
+bytes moved.  A decode step reads one table word; a CTA stages its tapes
+in shared memory and writes each slot row's segment with 16-byte stores,
+so the staging, 20 x slots bytes a cell, caps the cells in flight.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from debigulator_tpu_torch.constants import (
     META_KIND_SHIFT,
     TOK_MATCH_BIT,
 )
+from debigulator_tpu_torch.device import plain_here as _plain_here
 from debigulator_tpu_torch.ops import _kernels
 from debigulator_tpu_torch.ops.plan import CELL_BITS, TC, PlanV3
 
@@ -54,6 +57,12 @@ INACTIVE = 127
 #: Per-block table row: ll count/first/base (48), d count/first/base (48),
 #: litlen aug (288), dist aug (32).
 TAB_LL, TAB_D, TAB_W = 96, 384, 416
+#: First-level decode table: window bits it is indexed by (K).
+LUT_BITS = 10
+#: A table entry: aug bits 0-19 (all the decode step reads), the code
+#: length in bits 20-23, LUT_FINAL where the K bits decide the probe;
+#: an undecided entry is 0.
+LUT_AUG_MASK, LUT_LEN_SHIFT, LUT_FINAL = 0xFFFFF, 20, 1 << 24
 
 
 @dataclasses.dataclass
@@ -167,6 +176,60 @@ def _lookup(tab_flat, cb, col0, width, offset, unmatched):
     ok = (offset >= 0) & (offset < width) & ~unmatched
     idx = cb * TAB_W + col0 + offset.clamp(0, width - 1)
     return torch.where(ok, tab_flat[idx], 0)
+
+
+def _probe_mode(rev: torch.Tensor, par: torch.Tensor, tab_flat, cb, mode: int):
+    """(length, offset, unmatched, aug) of the litlen (mode 0) or distance
+    (mode 1) probe; par is (96, blocks) broadcast against rev."""
+    row0, col0, width = ((0, TAB_LL, 288), (48, TAB_D, 32))[mode]
+    length, offset, unmatched = _probe(rev, par, row0)
+    return (length, offset, unmatched,
+            _lookup(tab_flat, cb, col0, width, offset, unmatched))
+
+
+def decode_lut_plain(tables: torch.Tensor, k: int = LUT_BITS) -> torch.Tensor:
+    """Plain PyTorch first-level decode table: (nb, 2, 2^k) int32, entry
+    [b, mode, w] for the window whose low k bits (stream order) are w.
+
+    Those k bits are the top k bits of the reversed 15-bit code, so the
+    entry covers the codes rev_lo..rev_hi sharing them.  A comparison
+    rev >= lim_l of a length l <= k has one answer over that range, so the
+    probe at rev_hi is the probe of every code in it when its length is
+    <= k and every longer length's limit lies above rev_hi; that entry is
+    LUT_FINAL | length << 20 | aug.  Any other entry is 0."""
+    nb = tables.shape[0]
+    dev = tables.device
+    w = torch.arange(1 << k, device=dev, dtype=torch.long)
+    rev_hi = (_rev15(w) | ((1 << (C.MAX_BITS - k)) - 1))[:, None]
+    rev_hi = rev_hi.expand(-1, nb).contiguous()
+    par = tables[:, :96].long().T
+    cb = torch.arange(nb, device=dev, dtype=torch.long)
+    tab_flat = tables.reshape(-1).long()
+    modes = []
+    for mode in (0, 1):
+        length, _, unmatched, aug = _probe_mode(rev_hi, par, tab_flat, cb, mode)
+        final = ~unmatched & (length <= k)
+        for l in range(k + 1, C.MAX_BITS + 1):
+            lim = (par[48 * mode + 16 + l] + par[48 * mode + l]) << (C.MAX_BITS - l)
+            final &= rev_hi < lim
+        entry = LUT_FINAL | (length << LUT_LEN_SHIFT) | (aug & LUT_AUG_MASK)
+        modes.append(torch.where(final, entry, 0).T)  # (nb, 2^k)
+    return torch.stack(modes, 1).to(torch.int32)
+
+
+def lut_step_plain(lut: torch.Tensor, tables: torch.Tensor, k: int,
+                   blk: torch.Tensor, mode: int, win: torch.Tensor):
+    """The kernels' table lookup: (length, aug bits the decode step reads,
+    final) of the windows ``win`` (int64, low 15 bits used) of blocks
+    ``blk`` in ``mode``, from the table entry where it is final, else from
+    the canonical probe."""
+    e = lut[blk, mode, win & ((1 << k) - 1)].long()
+    par = tables[:, :96].long()[blk].T
+    length, _, _, aug = _probe_mode(_rev15(win & 0x7FFF), par,
+                                    tables.reshape(-1).long(), blk, mode)
+    final = (e & LUT_FINAL) != 0
+    return (torch.where(final, (e >> LUT_LEN_SHIFT) & 0xF, length),
+            torch.where(final, e, aug) & LUT_AUG_MASK, final)
 
 
 def _cell_graph(cellw: torch.Tensor, cell_block: torch.Tensor,
@@ -305,20 +368,34 @@ def _check_inputs(inputs: PhaseAInputs, slots: int):
     return cellw, cell_block, tables, cells_pad
 
 
+def decode_lut(tables: torch.Tensor, k: int = LUT_BITS) -> torch.Tensor:
+    """The first-level decode table (``decode_lut_plain``'s contract) on
+    the device of ``tables``: one launch of the table kernel on the card."""
+    if not 1 <= k <= C.MAX_BITS:
+        raise ValueError(f"table bits must be in [1, 15], got {k}")
+    if _plain_here(tables):
+        return decode_lut_plain(tables, k)
+    nb = tables.shape[0]
+    lut = torch.empty((nb, 2, 1 << k), dtype=torch.int32, device=tables.device)
+    _kernels.launch("dbg_phase_a_lut", tables, nb, k, lut)
+    return lut
+
+
 def phase_a(inputs: PhaseAInputs, slots: int):
     """Phase A on the device of ``inputs``: the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors.  Returns (ma, mb, ra, rb,
-    lit, cnt, outlen) as the reference's phase_a13_pallas does."""
+    tensors; for CUDA tensors the table kernel, then the Phase A kernel.
+    Returns (ma, mb, ra, rb, lit, cnt, outlen) as the reference's
+    phase_a13_pallas does."""
     cellw, cell_block, tables, cells_pad = _check_inputs(inputs, slots)
-    if cellw.device.type == "cpu":
+    if _plain_here(cellw):
         return phase_a_plain(cellw, cell_block, tables, slots)
     dev = cellw.device
+    lut = decode_lut(tables, LUT_BITS)
     tape = torch.empty((5, slots, cells_pad), dtype=torch.int32, device=dev)
     cnt = torch.empty(cells_pad, dtype=torch.int32, device=dev)
     outlen = torch.empty(cells_pad, dtype=torch.int32, device=dev)
-    _kernels.launch(
-        "dbg_phase_a", cellw, cell_block, tables, cells_pad, slots,
-        tape[0], tape[1], tape[2], tape[3], tape[4], cnt, outlen)
+    _kernels.launch("dbg_phase_a", cellw, cell_block, tables, lut, LUT_BITS,
+                    cells_pad, slots, tape, cnt, outlen)
     phase_a.launches += 1
     return (tape[0], tape[1], tape[2], tape[3], tape[4], cnt, outlen)
 
@@ -377,21 +454,22 @@ def phase_a_tape(inputs: PhaseAInputs, slots: int):
     ``slots`` (the caller's overflow flag); the row then holds the first
     ``slots`` tokens.
 
-    CUDA kernel (csrc/phase_a.cu, ``phase_a_tape_kernel``): one thread per
-    cell with the decode it shares with ``phase_a_kernel``.  Bound on the
-    H100 by bytes: 20 bytes read and ``4 * slots + 4`` written per cell.
-    The tape is cell-major as the resolvers want it, so a warp's stores of
-    one slot are ``slots * 4`` bytes apart; the rows are written through a
-    per-thread loop all the same, and the time is in PERF.md.
+    CUDA kernels (csrc/phase_a.cu): the table kernel, then
+    ``phase_a_tape_kernel``, one thread per cell with the decode step it
+    shares with ``phase_a_kernel``.  Bound on the H100 by bytes: 20 bytes
+    read and ``4 * slots + 4`` written per cell.  The tape is cell-major as
+    the resolvers want it, so a CTA stages its cells' rows in shared memory
+    and writes its contiguous ``cells x slots`` region with 16-byte stores.
     """
     cellw, cell_block, tables, cells_pad = _check_inputs(inputs, slots)
-    if cellw.device.type == "cpu":
+    if _plain_here(cellw):
         return phase_a_tape_plain(cellw, cell_block, tables, slots)
     dev = cellw.device
+    lut = decode_lut(tables, LUT_BITS)
     tape = torch.empty((cells_pad, slots), dtype=torch.int32, device=dev)
     counts = torch.empty(cells_pad, dtype=torch.int32, device=dev)
-    _kernels.launch("dbg_phase_a_tape", cellw, cell_block, tables, cells_pad,
-                    slots, tape, counts)
+    _kernels.launch("dbg_phase_a_tape", cellw, cell_block, tables, lut,
+                    LUT_BITS, cells_pad, slots, tape, counts)
     phase_a_tape.launches += 1
     return tape, counts
 
