@@ -10,6 +10,13 @@ Each phase prints one JSON line:
 
 * card, build;
 * kernels_vs_plain: Phase A, compact and the walk at ~1.1 MB of output;
+* phase_a_vs_plain: both Phase A kernels at every slots value 8-128 (16
+  on the main path's plan, the rest on a two-stream plan) and the
+  first-level decode table kernel on both plans' tables and on synthetic
+  code sets (incomplete, over-subscribed, one 1-bit code, all codes of 15
+  bits, no distance codes, rows that follow no canonical code), each
+  bit-exact against its plain version, with the share of table entries
+  left to the canonical probe;
 * main_path: 29 distinct raw DEFLATE streams of about 562 KB each (the
   shape of bench.py's workload, synthetic OBJ-like text made from a fixed
   seed) through build_merged_plan -> prepare_merged -> run on "cuda", every
@@ -42,17 +49,18 @@ Each phase prints one JSON line:
   inputs that stress its look-back (every chunk empty, a fill carried from
   599 chunks back, every record valid, one chunk);
 * kernel_times (the library yardstick of compact is masked_select of each
-  of the four arrays it compacts), entry_points (two-member gzip, the
+  of the four arrays it compacts; Phase A's device time by kernel: the
+  table build and the decode), entry_points (two-member gzip, the
   chunked long-stream decode, a stored/dynamic mix);
 * phase_a_tape_vs_plain, lz77_tape_vs_plain, lz77_ops_vs_plain,
   lz77_match_vs_plain: the token-tape Phase A and the three LZ77 resolvers
   of the other decode drivers, at two streams, on a segment cut from the
   middle of a body (window tail, head and tail clip) and at the main path's
-  29 streams (the two segment resolvers' device time by operation); the
-  segment resolvers also on the walk's shapes (zero run, copies of copies,
-  both merged with a text stream; chain-depth histograms, ms, plain ms)
-  and on a buffer and tapes padded with -1; the match-list resolver on
-  one stream and on a hand-made list;
+  29 streams (row 6's and the two segment resolvers' device time by
+  operation); the segment resolvers also on the walk's shapes (zero run,
+  copies of copies, both merged with a text stream; chain-depth
+  histograms, ms, plain ms) and on a buffer and tapes padded with -1;
+  the match-list resolver on one stream and on a hand-made list;
 * fallback_paths: the same 29 streams through the speculative drivers
   (Python scans, no cell entries: the merged plan through prepare_merged ->
   v5, one stream through inflate_device under DBG_NO_NATIVE=1 -> v4), the
@@ -610,6 +618,42 @@ def stages(st, slots):
     torch.cuda.synchronize()
     return {"a_k": a_k, "a_p": a_p, "rec": rec, "c_k": c_k, "c_p": c_p,
             "init": init, "w_k": w_k, "w_p": w_p}
+
+
+def phase_a_phase(dev, st_path, small_plan) -> dict:
+    """Rows 1 and 6 against their plain versions at every slots value the
+    wrappers take (16 on the main path's plan, the others on a two-stream
+    plan, where 8 overflows), and the table kernel against
+    decode_lut_plain on both plans' tables and on synthetic code sets."""
+    from debigulator_tpu_torch.ops import inflate as inf
+    from debigulator_tpu_torch.ops import phase_a as pa
+
+    st_small = inf.stage_plan(small_plan, dev)
+    rows = []
+    for slots in (8, 16, 32, 64, 128):
+        x = (st_path if slots == 16 else st_small).pa
+        err1 = same("phase_a", pa.phase_a(x, slots), pa.phase_a_plain(
+            x.cellw, x.cell_block, x.tables, slots))
+        tape, counts = pa.phase_a_tape(x, slots)
+        err6 = same("phase_a_tape", (tape, counts), pa.phase_a_tape_plain(
+            x.cellw, x.cell_block, x.tables, slots))
+        rows.append({"slots": slots, "cells_pad": int(x.cellw.shape[1]),
+                     "max_abs_err": {"phase_a": err1, "phase_a_tape": err6},
+                     "overflowed_cells": int((counts > slots).sum())})
+    tables = {"gzip_29": st_path.pa.tables, "gzip_2": st_small.pa.tables,
+              **{k: torch.from_numpy(v).to(dev)
+                 for k, v in synthetic_lut_tables().items()}}
+    luts = {}
+    for name, tab in tables.items():
+        got = pa.decode_lut(tab, pa.LUT_BITS)
+        want = pa.decode_lut_plain(tab, pa.LUT_BITS)
+        luts[name] = {"blocks": int(tab.shape[0]),
+                      "max_abs_err": same("decode_lut", (got,), (want,)),
+                      "non_final_share": float(
+                          ((got & pa.LUT_FINAL) == 0).double().mean())}
+    torch.cuda.synchronize()
+    return {"phase": "phase_a_vs_plain", "bit_exact": True,
+            "lut_bits": pa.LUT_BITS, "slots": rows, "decode_lut": luts}
 
 
 #: The walk's three kernels (csrc/walk.cu) as torch.profiler names them.
@@ -1281,6 +1325,7 @@ def fallback_phases(dev, base, streams):
             rec["ms"] = time_ms(lambda: pa.phase_a_tape(st.pa, slots), 10)
             rec["plain_ms"] = time_ms(lambda: pa.phase_a_tape_plain(
                 st.pa.cellw, st.pa.cell_block, st.pa.tables, slots), 1)
+            rec["parts"] = device_parts(lambda: pa.phase_a_tape(st.pa, slots))
             rec["bytes"] = 4 * (st.pa.cellw.numel() + tape.shape[0]
                                 + st.pa.tables.numel() + tape.numel()
                                 + cnts.numel())
@@ -2441,6 +2486,8 @@ def main() -> int:
     }
     if not torch.equal(out_k, s["w_k"]):
         raise AssertionError("repeated walk changed its output")
+    phase_a_parts = device_parts(lambda: pa.phase_a(st.pa, slots))
+    emit(phase_a_phase(dev, st, small.plan))
     compact_repeats = [time_ms(lambda: pb.compact(rec, slots), 10)
                        for _ in range(5)]
     compact_one_array_ms = time_ms(
@@ -2501,6 +2548,7 @@ def main() -> int:
           "library_call": {"compact": "torch.masked_select of mdst, mmeta, "
                                       "rdst, rmeta (4 calls)",
                            "unfilter": None, "greedy_walk": None},
+          "phase_a_parts": phase_a_parts,
           "compact_ms_repeats": compact_repeats,
           "compact_library_one_array_ms": compact_one_array_ms,
           **times2})

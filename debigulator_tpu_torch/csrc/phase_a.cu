@@ -17,10 +17,12 @@
 // of unused slots.  Two things keep it near that bound:
 //  * The decode step reads one int32 of the first-level table (lut_kernel,
 //    2 x 2^K entries a block, indexed by the window's low K bits in stream
-//    order) through L1, and the same word for a litlen or a distance
-//    symbol, so lanes in different modes take one path.  Only a code
-//    longer than K bits, or a prefix whose K bits do not decide the
-//    canonical probe, runs the probe over the block's 47 table words.
+//    order; the wrapper's K is 9) through L1, and the same word for a
+//    litlen or a distance symbol, so lanes in different modes take one
+//    path.  Only a code longer than K bits, or a prefix whose K bits do
+//    not decide the canonical probe, runs the probe over the block's 47
+//    table words.  Staging the table in shared memory per CTA was
+//    measured and was slower: it takes shared memory from the tapes.
 //  * A CTA of n cells (n = 2048 / slots, in 32..256) stages its five tapes
 //    slot-major in shared memory, [5][slots][n], zero-filled first; a lane
 //    stores its records there (lane t at column t, so a warp's stores hit
@@ -105,16 +107,18 @@ __global__ void lut_kernel(const int* __restrict__ tables, int64_t total,
   const int mode = static_cast<int>(g >> k) & 1;
   const int* __restrict__ tab = tables + (g >> (k + 1)) * kTabW;
   const int* __restrict__ par = tab + 48 * mode;
-  const uint32_t top = __brev(static_cast<uint32_t>(g) & ((1u << k) - 1)) >> (32 - k);
+  const uint32_t mask = (1u << k) - 1;
+  const uint32_t top = __brev(static_cast<uint32_t>(g) & mask) >> (32 - k);
   const uint32_t rev_hi = (top << (15 - k)) | ((1u << (15 - k)) - 1);
+  const int r = static_cast<int>(rev_hi);
   int len;
   const int off = probe(par, rev_hi, mode ? 32 : 288, &len);
   bool final = len <= k;
   for (int l = k + 1; l <= 15; ++l) {
-    final = final && static_cast<int>(rev_hi) < ((par[16 + l] + par[l]) << (15 - l));
+    final = final && r < ((par[16 + l] + par[l]) << (15 - l));
   }
   const int aug = off >= 0 ? tab[(mode ? kTabD : kTabLL) + off] : 0;
-  lut[g] = final ? (kLutFinal | (len << kLutLenShift) | (aug & kLutAugMask)) : 0;
+  lut[g] = final ? kLutFinal | (len << kLutLenShift) | (aug & kLutAugMask) : 0;
 }
 
 // One decode step of a cell's chain at bit position `pos` in litlen
@@ -123,17 +127,12 @@ __global__ void lut_kernel(const int* __restrict__ tables, int64_t total,
 // block's 2 x 2^k first-level table, `tab` its probe rows and aug columns.
 // Shared by both Phase A kernels.
 __device__ __forceinline__ void decode_step(const int* __restrict__ tab,
-                                            const int* lut, int k,
+                                            const int* __restrict__ lut, int k,
                                             uint32_t w0, uint32_t w1,
                                             uint32_t w2, int pos, int mode,
                                             int* nx_out, int* mt_out) {
   const uint32_t win = window_at(w0, w1, w2, pos);
-  const int* entry = lut + ((mode << k) | static_cast<int>(win & ((1u << k) - 1)));
-#ifdef DBG_PHASE_A_LUT_SMEM
-  const int e = *entry;
-#else
-  const int e = __ldg(entry);
-#endif
+  const int e = __ldg(lut + ((mode << k) | (win & ((1u << k) - 1))));
   int len, aug;
   if (e & kLutFinal) {
     len = (e >> kLutLenShift) & 0xF;
@@ -171,28 +170,10 @@ struct CellIn {
   const int* lut;
 };
 
-#ifdef DBG_PHASE_A_LUT_SMEM
-// Variant: stage the first-level tables of the CTA's first two blocks in
-// shared memory after the tapes; other blocks read global memory.
-constexpr int kLutStage = 2;
-__device__ __forceinline__ const int* stage_lut(
-    int* slut, const int* __restrict__ lut, const int* __restrict__ cell_block,
-    int c0, int n, int k) {
-  const int b0 = cell_block[c0];
-  const int span = cell_block[c0 + n - 1] - b0 + 1;
-  const int nstage = span < 1 ? 1 : (span > kLutStage ? kLutStage : span);
-  const int4* src = reinterpret_cast<const int4*>(
-      lut + (static_cast<int64_t>(b0) << (k + 1)));
-  int4* dst = reinterpret_cast<int4*>(slut);
-  for (int i = threadIdx.x; i < (nstage << (k + 1)) / 4; i += n) dst[i] = src[i];
-  return slut;
-}
-#endif
-
 __device__ __forceinline__ CellIn load_cell(
     const int* __restrict__ cellw, const int* __restrict__ cell_block,
     const int* __restrict__ tables, const int* __restrict__ lut, int k,
-    int cells_pad, int c, const int* slut, int b0) {
+    int cells_pad, int c) {
   CellIn in;
   in.w0 = static_cast<uint32_t>(cellw[c]);
   in.w1 = static_cast<uint32_t>(cellw[cells_pad + c]);
@@ -205,11 +186,6 @@ __device__ __forceinline__ CellIn load_cell(
   const int blk = cell_block[c];
   in.tab = tables + static_cast<int64_t>(blk) * kTabW;
   in.lut = lut + (static_cast<int64_t>(blk) << (k + 1));
-#ifdef DBG_PHASE_A_LUT_SMEM
-  if (static_cast<unsigned>(blk - b0) < static_cast<unsigned>(kLutStage)) {
-    in.lut = slut + ((blk - b0) << (k + 1));
-  }
-#endif
   return in;
 }
 
@@ -227,17 +203,11 @@ __global__ void phase_a_kernel(const int* __restrict__ cellw,
   const int t = threadIdx.x;
   const int c0 = blockIdx.x * n;
   const int c = c0 + t;
-  // Five tapes x slots rows x n columns; int4 q of row r is q of its n/4.
+  // Five tapes x slots rows x n columns: int4 i is int4 i % (n / 4) of
+  // row i / (n / 4).
   const int vec = 5 * slots * n / 4;
   for (int i = t; i < vec; i += n) stage4[i] = make_int4(0, 0, 0, 0);
-  const int* slut = nullptr;
-  int b0 = 0;
-#ifdef DBG_PHASE_A_LUT_SMEM
-  slut = stage_lut(stage + 5 * slots * n, lut, cell_block, c0, n, k);
-  b0 = cell_block[c0];
-#endif
-  const CellIn in = load_cell(cellw, cell_block, tables, lut, k, cells_pad, c,
-                              slut, b0);
+  const CellIn in = load_cell(cellw, cell_block, tables, lut, k, cells_pad, c);
   __syncthreads();
   // Row j of tape q at stage[(q * slots + j) * n + t].
   int* ma = stage + t;
@@ -338,14 +308,7 @@ __global__ void phase_a_tape_kernel(const int* __restrict__ cellw,
   const int c = c0 + t;
   const int w = slots + 1;
   for (int i = t; i < n * w / 4; i += n) stage4[i] = make_int4(-1, -1, -1, -1);
-  const int* slut = nullptr;
-  int b0 = 0;
-#ifdef DBG_PHASE_A_LUT_SMEM
-  slut = stage_lut(stage + n * w, lut, cell_block, c0, n, k);
-  b0 = cell_block[c0];
-#endif
-  const CellIn in = load_cell(cellw, cell_block, tables, lut, k, cells_pad, c,
-                              slut, b0);
+  const CellIn in = load_cell(cellw, cell_block, tables, lut, k, cells_pad, c);
   __syncthreads();
   int* row = stage + t * w;
 
@@ -392,20 +355,11 @@ int cta_cells(int slots) {
   return n < 32 ? 32 : (n > 256 ? 256 : n);
 }
 
-int lut_smem(int k, int slots) {
-#ifdef DBG_PHASE_A_LUT_SMEM
-  return 4 * (kLutStage << (k + 1));
-#else
-  (void)k;
-  (void)slots;
-  return 0;
-#endif
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= static_cast<size_t>(kMaxSmem)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
 
@@ -427,7 +381,7 @@ extern "C" int dbg_phase_a_tape(const int* cellw, const int* cell_block,
                                 int* counts, cudaStream_t stream) {
   if (cells_pad == 0) return 0;
   const int n = cta_cells(slots);
-  const size_t smem = 4ull * n * (slots + 1) + lut_smem(k, slots);
+  const size_t smem = 4ull * n * (slots + 1);
   const cudaError_t err = allow_smem(phase_a_tape_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   phase_a_tape_kernel<<<cells_pad / n, n, smem, stream>>>(
@@ -441,7 +395,7 @@ extern "C" int dbg_phase_a(const int* cellw, const int* cell_block,
                            int* outlen, cudaStream_t stream) {
   if (cells_pad == 0) return 0;
   const int n = cta_cells(slots);
-  const size_t smem = 20ull * slots * n + lut_smem(k, slots);
+  const size_t smem = 20ull * slots * n;
   const cudaError_t err = allow_smem(phase_a_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   phase_a_kernel<<<cells_pad / n, n, smem, stream>>>(

@@ -57,8 +57,11 @@ INACTIVE = 127
 #: Per-block table row: ll count/first/base (48), d count/first/base (48),
 #: litlen aug (288), dist aug (32).
 TAB_LL, TAB_D, TAB_W = 96, 384, 416
-#: First-level decode table: window bits it is indexed by (K).
-LUT_BITS = 10
+#: First-level decode table: window bits it is indexed by (K).  9, not
+#: 10: a 4 KB table a block, and on the H100 at the 29 gzip streams both
+#: kernels ran a little faster than at 10 (PERF.md section 6), though 10
+#: leaves fewer entries to the probe (0.13% against 0.20%).
+LUT_BITS = 9
 #: A table entry: aug bits 0-19 (all the decode step reads), the code
 #: length in bits 20-23, LUT_FINAL where the K bits decide the probe;
 #: an undecided entry is 0.
@@ -178,7 +181,8 @@ def _lookup(tab_flat, cb, col0, width, offset, unmatched):
     return torch.where(ok, tab_flat[idx], 0)
 
 
-def _probe_mode(rev: torch.Tensor, par: torch.Tensor, tab_flat, cb, mode: int):
+def _probe_mode(rev: torch.Tensor, par: torch.Tensor, tab_flat, cb,
+                mode: int):
     """(length, offset, unmatched, aug) of the litlen (mode 0) or distance
     (mode 1) probe; par is (96, blocks) broadcast against rev."""
     row0, col0, width = ((0, TAB_LL, 288), (48, TAB_D, 32))[mode]
@@ -210,8 +214,8 @@ def decode_lut_plain(tables: torch.Tensor, k: int = LUT_BITS) -> torch.Tensor:
         length, _, unmatched, aug = _probe_mode(rev_hi, par, tab_flat, cb, mode)
         final = ~unmatched & (length <= k)
         for l in range(k + 1, C.MAX_BITS + 1):
-            lim = (par[48 * mode + 16 + l] + par[48 * mode + l]) << (C.MAX_BITS - l)
-            final &= rev_hi < lim
+            row = 48 * mode + l
+            final &= rev_hi < ((par[row + 16] + par[row]) << (C.MAX_BITS - l))
         entry = LUT_FINAL | (length << LUT_LEN_SHIFT) | (aug & LUT_AUG_MASK)
         modes.append(torch.where(final, entry, 0).T)  # (nb, 2^k)
     return torch.stack(modes, 1).to(torch.int32)
