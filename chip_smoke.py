@@ -49,18 +49,20 @@ Each phase prints one JSON line:
   inputs that stress its look-back (every chunk empty, a fill carried from
   599 chunks back, every record valid, one chunk);
 * kernel_times (the library yardstick of compact is masked_select of each
-  of the four arrays it compacts; Phase A's device time by kernel: the
-  table build and the decode), entry_points (two-member gzip, the
+  of the four arrays it compacts; Phase A's device time by kernel, the
+  table build and the decode, and a call's device time without its host
+  launch cost, replayed from a CUDA graph), entry_points (two-member gzip, the
   chunked long-stream decode, a stored/dynamic mix);
 * phase_a_tape_vs_plain, lz77_tape_vs_plain, lz77_ops_vs_plain,
   lz77_match_vs_plain: the token-tape Phase A and the three LZ77 resolvers
   of the other decode drivers, at two streams, on a segment cut from the
   middle of a body (window tail, head and tail clip) and at the main path's
   29 streams (row 6's and the two segment resolvers' device time by
-  operation); the segment resolvers also on the walk's shapes (zero run,
-  copies of copies, both merged with a text stream; chain-depth
-  histograms, ms, plain ms) and on a buffer and tapes padded with -1;
-  the match-list resolver on one stream and on a hand-made list;
+  operation; row 6's call also replayed from a CUDA graph); the segment
+  resolvers also on the walk's shapes (zero run, copies of copies, both
+  merged with a text stream; chain-depth histograms, ms, plain ms) and on
+  a buffer and tapes padded with -1; the match-list resolver on one
+  stream and on a hand-made list;
 * fallback_paths: the same 29 streams through the speculative drivers
   (Python scans, no cell entries: the merged plan through prepare_merged ->
   v5, one stream through inflate_device under DBG_NO_NATIVE=1 -> v4), the
@@ -237,6 +239,17 @@ def time_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def replay_ms(fn, reps: int = 20) -> float:
+    """Device ms of one call of `fn` without its host launch cost: the call
+    captured once in a CUDA graph, CUDA events around `reps` replays."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps)
 
 
 def host_ms(fn, reps: int = 3) -> float:
@@ -1323,9 +1336,10 @@ def fallback_phases(dev, base, streams):
                "max_abs_err": same("phase_a_tape", (tape, cnts), want)}
         if label == "path":
             rec["ms"] = time_ms(lambda: pa.phase_a_tape(st.pa, slots), 10)
+            rec["parts"] = device_parts(lambda: pa.phase_a_tape(st.pa, slots))
+            rec["replay_ms"] = replay_ms(lambda: pa.phase_a_tape(st.pa, slots))
             rec["plain_ms"] = time_ms(lambda: pa.phase_a_tape_plain(
                 st.pa.cellw, st.pa.cell_block, st.pa.tables, slots), 1)
-            rec["parts"] = device_parts(lambda: pa.phase_a_tape(st.pa, slots))
             rec["bytes"] = 4 * (st.pa.cellw.numel() + tape.shape[0]
                                 + st.pa.tables.numel() + tape.numel()
                                 + cnts.numel())
@@ -2487,6 +2501,7 @@ def main() -> int:
     if not torch.equal(out_k, s["w_k"]):
         raise AssertionError("repeated walk changed its output")
     phase_a_parts = device_parts(lambda: pa.phase_a(st.pa, slots))
+    phase_a_replay_ms = replay_ms(lambda: pa.phase_a(st.pa, slots))
     emit(phase_a_phase(dev, st, small.plan))
     compact_repeats = [time_ms(lambda: pb.compact(rec, slots), 10)
                        for _ in range(5)]
@@ -2549,6 +2564,7 @@ def main() -> int:
                                       "rdst, rmeta (4 calls)",
                            "unfilter": None, "greedy_walk": None},
           "phase_a_parts": phase_a_parts,
+          "phase_a_replay_ms": phase_a_replay_ms,
           "compact_ms_repeats": compact_repeats,
           "compact_library_one_array_ms": compact_one_array_ms,
           **times2})

@@ -131,7 +131,7 @@ def launch(entry: str, *args) -> None:
     conv = []
     for a in args:
         if isinstance(a, torch.Tensor):
-            if a.device.type != "cuda" or not a.is_contiguous():
+            if not a.is_cuda or not a.is_contiguous():
                 raise ValueError(f"{entry}: tensors must be contiguous CUDA tensors")
             conv.append(a.data_ptr())
         else:
