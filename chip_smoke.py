@@ -675,7 +675,9 @@ WALK_KERNEL_NAMES = ("::run_kernel(", "::pointer_kernel(", "::chase_kernel(")
 
 def device_parts(fn, reps: int = 3) -> list:
     """Device ms a call of each operation `fn` runs, by torch.profiler over
-    `reps` calls after one warm-up: [[name, ms], ...], longest first."""
+    `reps` calls after one warm-up: [[name, ms, launches a call], ...],
+    longest first.  Launches below the call's own show that the profiler
+    lost records."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
@@ -685,7 +687,8 @@ def device_parts(fn, reps: int = 3) -> list:
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    return [[e.key[:60], e.self_device_time_total / 1e3 / reps]
+    return [[e.key[:60], e.self_device_time_total / 1e3 / reps,
+             e.count / reps]
             for e in sorted(events, key=lambda e: -e.self_device_time_total)]
 
 
