@@ -4,7 +4,7 @@
 (the twin of the kernels' lookup: the table entry where it is final, else
 the canonical probe) are held exactly against the plain probe ``_probe``
 and its aug lookup, at all 2^15 windows in both modes, for the tables the
-JAX package's plan builder gives ``test_torch_phase_a.py``'s streams and
+JAX package's ``build_plan_v3`` gives ``test_torch_phase_a.py``'s streams and
 for synthetic code sets.  A card-branch test holds each Phase A wrapper to
 its launches on the card.
 """
