@@ -11,12 +11,14 @@ Each phase prints one JSON line:
 * card, build;
 * kernels_vs_plain: Phase A, compact and the walk at ~1.1 MB of output;
 * phase_a_vs_plain: both Phase A kernels at every slots value 8-128 (16
-  on the main path's plan, the rest on a two-stream plan) and the
-  first-level decode table kernel on both plans' tables and on synthetic
-  code sets (incomplete, over-subscribed, one 1-bit code, all codes of 15
-  bits, no distance codes, rows that follow no canonical code), each
-  bit-exact against its plain version, with the share of table entries
-  left to the canonical probe;
+  on the main path's plan; all on a two-stream plan and on a zero run
+  merged with text, whose cells hold up to 32 tokens) and the first-level
+  decode table kernel on the plans' tables and on synthetic code sets
+  (incomplete, over-subscribed, one 1-bit code, all codes of 15 bits, no
+  distance codes, rows that follow no canonical code), each bit-exact
+  against its plain version, with the share of table entries left to the
+  canonical probe; both kernels' ms, device ms (replayed from a CUDA
+  graph) and bound at every slots value on the main path's plan;
 * main_path: 29 distinct raw DEFLATE streams of about 562 KB each (the
   shape of bench.py's workload, synthetic OBJ-like text made from a fixed
   seed) through build_merged_plan -> prepare_merged -> run on "cuda", every
@@ -40,7 +42,8 @@ Each phase prints one JSON line:
   decode_png_corpus_device, decode_png_device and decode_png_batch, every
   image equal to its source pixels, then one 4096x4096 RGBA image through
   decode_png_device; the walk's work, bound and device ms inside the
-  corpus call and inside the large image's call, and the large image's
+  corpus call and inside the large image's call, Phase A's slots and
+  device ms inside the corpus call, and the large image's
   call taken apart (host steps, top device operations);
 * encode_path: deflate_fixed_device on the filtered rows of a 1024x1024
   RGBA image (checked with zlib), then encode_png on the card and
@@ -111,6 +114,7 @@ import subprocess
 import sys
 import time
 import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -158,63 +162,6 @@ def obj_text(seed: int = 0, size: int = BASE_BYTES) -> bytes:
         parts.append(chunk)
         total += len(chunk)
     return "".join(parts).encode()[:size]
-
-
-def tables_of_lengths(ll_lengths, d_lengths) -> np.ndarray:
-    """One Phase A table row (TAB_W int32) from litlen and distance code
-    lengths: count / first / base rows as the plan builds them, but with no
-    check that the code fits, and distinct aug words (so an equal aug is an
-    equal offset)."""
-    row = np.zeros(416, np.int64)
-    for r0, col0, width, lens in ((0, 96, 288, ll_lengths),
-                                  (48, 384, 32, d_lengths)):
-        count = np.bincount(np.asarray(lens, np.int64), minlength=16)[:16]
-        count[0] = 0
-        code = 0
-        for bits in range(1, 16):
-            code = (code + count[bits - 1]) << 1
-            row[r0 + 16 + bits] = code
-        row[r0 : r0 + 16] = count
-        row[r0 + 33 : r0 + 48] = np.cumsum(count)[:-1]
-        row[col0 : col0 + width] = np.arange(width) * 1777 + 3
-    return row.astype(np.int32)
-
-
-def synthetic_lut_tables() -> dict:
-    """Code sets the first-level decode table must get right beyond a
-    plan's: name -> (1, 416) int32 table rows."""
-    rng = np.random.default_rng(3)
-    z_ll, z_d = np.zeros(288, np.int64), np.zeros(32, np.int64)
-    incomplete = (z_ll.copy(), z_d.copy())
-    incomplete[0][[0, 1, 2, 3]] = [2, 4, 4, 4]
-    incomplete[0][[65, 66, 67, 256, 257]] = 12
-    incomplete[0][[70, 71]] = 14
-    incomplete[1][[0, 4, 5, 6]] = [1, 11, 11, 11]
-    # Over-subscribed past the table's bits: one code at each length up to
-    # 11 (or 14), then more codes than the last length leaves room for.
-    over = (z_ll.copy(), z_d.copy())
-    over[0][:15] = list(range(1, 12)) + [12] * 4
-    over[1][:17] = list(range(1, 15)) + [14] * 3
-    single = (z_ll.copy(), z_d.copy())
-    single[0][65] = 1
-    single[1][3] = 1
-    fixed_ll = np.array([8] * 144 + [9] * 112 + [7] * 24 + [8] * 8)
-    cases = {
-        "incomplete": tables_of_lengths(*incomplete),
-        "over_subscribed": tables_of_lengths(*over),
-        "single_1bit": tables_of_lengths(*single),
-        "all_15bit": tables_of_lengths(np.full(288, 15), np.full(32, 15)),
-        "empty_distance": tables_of_lengths(fixed_ll, z_d),
-    }
-    # count / first / base rows that follow no canonical code, so that the
-    # probe's comparisons need not fail in order of length.
-    rnd = tables_of_lengths(fixed_ll, np.full(30, 5))
-    for r0 in (0, 48):
-        rnd[r0 : r0 + 16] = rng.integers(0, 6, 16)
-        rnd[r0 + 16 : r0 + 32] = rng.integers(0, 200, 16)
-        rnd[r0 + 32 : r0 + 48] = rng.integers(0, 300, 16)
-    cases["random_rows"] = rnd
-    return {k: v[None, :] for k, v in cases.items()}
 
 
 def make_streams(base: bytes, k: int) -> list[bytes]:
@@ -635,42 +582,70 @@ def stages(st, slots):
 
 def phase_a_phase(dev, st_path, small_plan) -> dict:
     """Rows 1 and 6 against their plain versions at every slots value the
-    wrappers take (16 on the main path's plan, the others on a two-stream
-    plan, where 8 overflows), and the table kernel against
-    decode_lut_plain on both plans' tables and on synthetic code sets."""
+    wrappers take: 16 on the main path's plan; all of them on a two-stream
+    plan, where 8 overflows, and on a 4 MiB zero run merged with 300 KB of
+    text, whose dense cells hold more tokens than the 16 slots the kernels
+    stage.  Both timed at every slots value on the main path's plan
+    (tools/phase_a_slots.sweep), and the table kernel against
+    decode_lut_plain on the plans' tables and on synthetic code sets."""
+    from debigulator_tpu_torch.ops import _kernels
     from debigulator_tpu_torch.ops import inflate as inf
     from debigulator_tpu_torch.ops import phase_a as pa
+    from debigulator_tpu_torch.parallel.merged import build_merged_plan
+    from debigulator_tpu_torch.tools.phase_a_slots import SLOTS, sweep
 
-    st_small = inf.stage_plan(small_plan, dev)
+    sys.path.append(str(Path(__file__).resolve().parent / "tests"))
+    from torch_lut_cases import synthetic_lut_tables
+
+    lut_bits = _kernels.constant("dbg_phase_a_lut_bits")
+    if lut_bits != pa.LUT_BITS:
+        raise AssertionError(f"the table kernel has {lut_bits} bits, "
+                             f"ops.phase_a.LUT_BITS {pa.LUT_BITS}")
+    dense = []
+    for data, level in ((bytes(4 << 20), 9), (obj_text(size=300_000), 6)):
+        c = zlib.compressobj(level, zlib.DEFLATED, -15)
+        dense.append(c.compress(data) + c.flush())
+    staged = {"gzip_29": st_path, "gzip_2": inf.stage_plan(small_plan, dev),
+              "dense": inf.stage_plan(build_merged_plan(dense).plan, dev)}
     rows = []
-    for slots in (8, 16, 32, 64, 128):
-        x = (st_path if slots == 16 else st_small).pa
-        err1 = same("phase_a", pa.phase_a(x, slots), pa.phase_a_plain(
-            x.cellw, x.cell_block, x.tables, slots))
-        tape, counts = pa.phase_a_tape(x, slots)
-        err6 = same("phase_a_tape", (tape, counts), pa.phase_a_tape_plain(
-            x.cellw, x.cell_block, x.tables, slots))
-        rows.append({"slots": slots, "cells_pad": int(x.cellw.shape[1]),
-                     "max_abs_err": {"phase_a": err1, "phase_a_tape": err6},
-                     "overflowed_cells": int((counts > slots).sum())})
-    tables = {"gzip_29": st_path.pa.tables, "gzip_2": st_small.pa.tables,
-              **{k: torch.from_numpy(v).to(dev)
-                 for k, v in synthetic_lut_tables().items()}}
+    for label, st in staged.items():
+        x = st.pa
+        for slots in (16,) if label == "gzip_29" else SLOTS:
+            err1 = same("phase_a", pa.phase_a(x, slots), pa.phase_a_plain(
+                x.cellw, x.cell_block, x.tables, slots))
+            tape, counts = pa.phase_a_tape(x, slots)
+            err6 = same("phase_a_tape", (tape, counts), pa.phase_a_tape_plain(
+                x.cellw, x.cell_block, x.tables, slots))
+            rows.append({"plan": label, "slots": slots,
+                         "cells_pad": int(x.cellw.shape[1]),
+                         "max_abs_err": {"phase_a": err1, "phase_a_tape": err6},
+                         "max_cell_tokens": int(counts.max()),
+                         "cells_over_16": int((counts > 16).sum()),
+                         "overflowed_cells": int((counts > slots).sum())})
+            del tape, counts
+    torch.cuda.empty_cache()
+    timed = sweep(st_path.pa)
+    tables = {label: st.pa.tables for label, st in staged.items()}
+    tables.update({k: torch.from_numpy(v).to(dev)
+                   for k, v in synthetic_lut_tables().items()})
     luts = {}
     for name, tab in tables.items():
-        got = pa.decode_lut(tab, pa.LUT_BITS)
-        want = pa.decode_lut_plain(tab, pa.LUT_BITS)
+        got = pa.decode_lut(tab)
+        want = pa.decode_lut_plain(tab)
         luts[name] = {"blocks": int(tab.shape[0]),
                       "max_abs_err": same("decode_lut", (got,), (want,)),
                       "non_final_share": float(
                           ((got & pa.LUT_FINAL) == 0).double().mean())}
     torch.cuda.synchronize()
     return {"phase": "phase_a_vs_plain", "bit_exact": True,
-            "lut_bits": pa.LUT_BITS, "slots": rows, "decode_lut": luts}
+            "lut_bits": lut_bits, "slots": rows, "timed_gzip_29": timed,
+            "decode_lut": luts}
 
 
 #: The walk's three kernels (csrc/walk.cu) as torch.profiler names them.
 WALK_KERNEL_NAMES = ("::run_kernel(", "::pointer_kernel(", "::chase_kernel(")
+#: Row 1's two kernels (csrc/phase_a.cu) as torch.profiler names them.
+PHASE_A_KERNEL_NAMES = ("::lut_kernel(", "::phase_a_kernel(")
 
 
 def device_parts(fn, reps: int = 3) -> list:
@@ -1167,6 +1142,7 @@ def png_and_encode_phases(dev):
         "stage_ms": host_ms(lambda: (inf.stage_plan(mp.plan, dev),
                                      torch.cuda.synchronize())),
     }
+    corpus_slots = mp.plan.slots
     del mp, scans
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -1179,6 +1155,9 @@ def png_and_encode_phases(dev):
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
     corpus_walk["ms_in_call"] = walk_device_ms(dev_events)
+    corpus_phase_a = {"slots": corpus_slots, "ms_in_call": sum(
+        e.self_device_time_total for e in dev_events
+        if any(k in e.key for k in PHASE_A_KERNEL_NAMES)) / 1e3}
     corpus_walk["bound_ms"] = corpus_walk["bytes"] / HBM_BYTES_PER_S * 1e3
     reset()
     resolves = {}
@@ -1211,6 +1190,7 @@ def png_and_encode_phases(dev):
                   for e in top],
           "adler": "ok", "bad_adler_raises": adler_caught,
           "launches": png_launches, "walk": corpus_walk,
+          "phase_a": corpus_phase_a,
           "big_image": {"side": BIG_SIDE, "png_bytes": len(big_png), "rgba_bytes": big_pix.nbytes,
                        "ms": big_ms, "mbps": big_pix.nbytes / big_ms / 1e3,
                        "exact": True, "launches": big_launches,

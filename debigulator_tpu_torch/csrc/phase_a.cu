@@ -16,20 +16,24 @@
 // `slots` int32 plus two int32 -- 328 bytes at 16 slots, mostly the zeros
 // of unused slots.  Two things keep it near that bound:
 //  * The decode step reads one int32 of the first-level table (lut_kernel,
-//    2 x 2^K entries a block, indexed by the window's low K bits in stream
-//    order; the wrapper's K is 9) through L1, and the same word for a
-//    litlen or a distance symbol, so lanes in different modes take one
-//    path.  Only a code longer than K bits, or a prefix whose K bits do
-//    not decide the canonical probe, runs the probe over the block's 47
-//    table words.  Staging the table in shared memory per CTA was
-//    measured and was slower: it takes shared memory from the tapes.
-//  * A CTA of n cells (n = 2048 / slots, in 32..256) stages its five tapes
-//    slot-major in shared memory, [5][slots][n], zero-filled first; a lane
-//    stores its records there (lane t at column t, so a warp's stores hit
-//    32 banks whatever its counts), and after a barrier the CTA writes each
-//    of the 5 * slots rows' n contiguous int32 with 16-byte stores.  The
-//    staging takes 20 * slots * n bytes (40 KB, 80 KB at 128 slots), so
-//    shared memory, not threads, caps the cells in flight on an SM.
+//    2 x 2^kLutBits entries a block, indexed by the window's low kLutBits
+//    bits in stream order) through L1, and the same word for a litlen or a
+//    distance symbol, so lanes in different modes take one path.  Only a
+//    code longer than kLutBits, or a prefix whose bits do not decide the
+//    canonical probe, runs the probe over the block's 47 table words.
+//    Staging the table in shared memory per CTA was measured and was
+//    slower: it takes shared memory from the tapes.
+//  * A CTA of n cells stages the first rs = min(slots, kStageSlots) slots
+//    of its five tapes slot-major in shared memory, [5][rs][n], zero-filled
+//    first; a lane stores its records there (lane t at column t, so a
+//    warp's stores hit 32 banks whatever its counts), and after a barrier
+//    the CTA writes each of the 5 * rs rows' n contiguous int32 with
+//    16-byte stores.  Slots rs..slots-1 (slots 32-128, which only a plan
+//    with a cell of more than 16 tokens asks for) are zeroed with 16-byte
+//    stores before that barrier's twin at the start, and the few records
+//    that land there are stored directly.  n = 2048 / rs, so the staging
+//    is 40 KB a CTA at any slots value and 5 CTAs (640 or 1280 threads)
+//    fit on an SM: shared memory, not slots, caps the cells in flight.
 //
 // Semantics carried bit for bit from the reference:
 //  * 15-length canonical probe in its lim-compare / telescoped-offset form;
@@ -56,7 +60,15 @@ constexpr int kNone = 0, kLit = 1, kDist = 2;
 constexpr int kLutAugMask = 0xFFFFF;
 constexpr int kLutLenShift = 20;
 constexpr int kLutFinal = 1 << 24;
-constexpr int kMaxSmem = 48 * 1024;
+// Window bits the first-level table is indexed by: 9, not 10, because a
+// block's table is then 4 KB and on the H100 at the 29 gzip streams both
+// kernels ran a little faster than at 10, though 10 leaves fewer entries
+// to the probe (0.13% against 0.20%).
+constexpr int kLutBits = 9;
+constexpr uint32_t kLutMask = (1u << kLutBits) - 1;
+// Slots of each tape a CTA stages in shared memory (at most); later slots
+// go to global memory directly.
+constexpr int kStageSlots = 16;
 
 __device__ __forceinline__ uint32_t window_at(uint32_t w0, uint32_t w1,
                                               uint32_t w2, int p) {
@@ -92,29 +104,30 @@ __device__ __forceinline__ int probe(const int* __restrict__ par,
   return (off >= 0 && off < width) ? off : -1;
 }
 
-// One first-level entry per thread: block g >> (K + 1), mode bit K, window
-// bits g & (2^K - 1).  Those K window bits are the top K bits of the
-// reversed 15-bit code, so the entry covers the codes rev_lo..rev_hi that
-// share them.  Every comparison rev >= lim_l of a length l <= K has the
-// same answer over that range (lim_l's low 15 - l bits are zero), so the
-// probe at rev_hi decides the whole range when its length is <= K and no
+// One first-level entry per thread: block g >> (kLutBits + 1), mode bit
+// kLutBits, window bits g & kLutMask.  Those window bits are the top
+// kLutBits bits of the reversed 15-bit code, so the entry covers the codes
+// rev_lo..rev_hi that share them.  Every comparison rev >= lim_l of a
+// length l <= kLutBits has the same answer over that range (lim_l's low
+// 15 - l bits are zero), so the probe at rev_hi decides the whole range
+// when its length is <= kLutBits (an unmatched code reports 15) and no
 // longer length's limit lies at or below rev_hi.  Anything else (a longer
 // code, an unmatched one, a limit inside the range) stays 0.
 __global__ void lut_kernel(const int* __restrict__ tables, int64_t total,
-                           int k, int* __restrict__ lut) {
+                           int* __restrict__ lut) {
+  static_assert(kLutBits < 15, "an unmatched code must not look final");
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (g >= total) return;
-  const int mode = static_cast<int>(g >> k) & 1;
-  const int* __restrict__ tab = tables + (g >> (k + 1)) * kTabW;
+  const int mode = static_cast<int>(g >> kLutBits) & 1;
+  const int* __restrict__ tab = tables + (g >> (kLutBits + 1)) * kTabW;
   const int* __restrict__ par = tab + 48 * mode;
-  const uint32_t mask = (1u << k) - 1;
-  const uint32_t top = __brev(static_cast<uint32_t>(g) & mask) >> (32 - k);
-  const uint32_t rev_hi = (top << (15 - k)) | ((1u << (15 - k)) - 1);
+  const uint32_t top = __brev(static_cast<uint32_t>(g) & kLutMask) >> (32 - kLutBits);
+  const uint32_t rev_hi = (top << (15 - kLutBits)) | ((1u << (15 - kLutBits)) - 1);
   const int r = static_cast<int>(rev_hi);
   int len;
   const int off = probe(par, rev_hi, mode ? 32 : 288, &len);
-  bool final = len <= k;
-  for (int l = k + 1; l <= 15; ++l) {
+  bool final = len <= kLutBits;
+  for (int l = kLutBits + 1; l <= 15; ++l) {
     final = final && r < ((par[16 + l] + par[l]) << (15 - l));
   }
   const int aug = off >= 0 ? tab[(mode ? kTabD : kTabLL) + off] : 0;
@@ -124,15 +137,16 @@ __global__ void lut_kernel(const int* __restrict__ tables, int64_t total,
 // One decode step of a cell's chain at bit position `pos` in litlen
 // (mode 0) or distance (mode 1) state: the next position and the packed
 // emission (kind << 25 | pending length << 16 | payload).  `lut` is the
-// block's 2 x 2^k first-level table, `tab` its probe rows and aug columns.
+// block's 2 x 2^kLutBits first-level table, `tab` its probe rows and aug
+// columns.
 // Shared by both Phase A kernels.
 __device__ __forceinline__ void decode_step(const int* __restrict__ tab,
-                                            const int* __restrict__ lut, int k,
+                                            const int* __restrict__ lut,
                                             uint32_t w0, uint32_t w1,
                                             uint32_t w2, int pos, int mode,
                                             int* nx_out, int* mt_out) {
   const uint32_t win = window_at(w0, w1, w2, pos);
-  const int e = __ldg(lut + ((mode << k) | (win & ((1u << k) - 1))));
+  const int e = __ldg(lut + ((mode << kLutBits) | (win & kLutMask)));
   int len, aug;
   if (e & kLutFinal) {
     len = (e >> kLutLenShift) & 0xF;
@@ -172,7 +186,7 @@ struct CellIn {
 
 __device__ __forceinline__ CellIn load_cell(
     const int* __restrict__ cellw, const int* __restrict__ cell_block,
-    const int* __restrict__ tables, const int* __restrict__ lut, int k,
+    const int* __restrict__ tables, const int* __restrict__ lut,
     int cells_pad, int c) {
   CellIn in;
   in.w0 = static_cast<uint32_t>(cellw[c]);
@@ -185,14 +199,14 @@ __device__ __forceinline__ CellIn load_cell(
   in.pend = (row3 >> 9) & 0x1FF;
   const int blk = cell_block[c];
   in.tab = tables + static_cast<int64_t>(blk) * kTabW;
-  in.lut = lut + (static_cast<int64_t>(blk) << (k + 1));
+  in.lut = lut + (static_cast<int64_t>(blk) << (kLutBits + 1));
   return in;
 }
 
 __global__ void phase_a_kernel(const int* __restrict__ cellw,
                                const int* __restrict__ cell_block,
                                const int* __restrict__ tables,
-                               const int* __restrict__ lut, int k,
+                               const int* __restrict__ lut,
                                int cells_pad, int slots,
                                int* __restrict__ tape,
                                int* __restrict__ cnt,
@@ -203,47 +217,57 @@ __global__ void phase_a_kernel(const int* __restrict__ cellw,
   const int t = threadIdx.x;
   const int c0 = blockIdx.x * n;
   const int c = c0 + t;
-  // Five tapes x slots rows x n columns: int4 i is int4 i % (n / 4) of
-  // row i / (n / 4).
-  const int vec = 5 * slots * n / 4;
+  const int rs = min(slots, kStageSlots);
+  // A row's segment is n / 4 int4; int4 i of a run of rows is int4
+  // i % (n / 4) of row i / (n / 4).
+  const int shift = __ffs(n / 4) - 1;
+  // Tape q's slot j is row q * slots + j of the output, row q * rs + j of
+  // the staging while j < rs.
+  const int vec = 5 * rs * n / 4;
   for (int i = t; i < vec; i += n) stage4[i] = make_int4(0, 0, 0, 0);
-  const CellIn in = load_cell(cellw, cell_block, tables, lut, k, cells_pad, c);
+  const int extra = slots - rs;
+  for (int i = t; i < 5 * extra * n / 4; i += n) {
+    const int r = i >> shift;
+    const int q = r / extra;
+    int4* dst = reinterpret_cast<int4*>(
+        tape + static_cast<int64_t>(q * slots + rs + r - q * extra) * cells_pad
+        + c0);
+    dst[i - (r << shift)] = make_int4(0, 0, 0, 0);
+  }
+  const CellIn in = load_cell(cellw, cell_block, tables, lut, cells_pad, c);
   __syncthreads();
-  // Row j of tape q at stage[(q * slots + j) * n + t].
-  int* ma = stage + t;
-  int* mb = ma + slots * n;
-  int* ra = mb + slots * n;
-  int* rb = ra + slots * n;
-  int* lit = rb + slots * n;
+  const auto put = [&](int q, int j, int v) {
+    if (j < rs) {
+      stage[(q * rs + j) * n + t] = v;
+    } else if (j < slots) {
+      tape[static_cast<int64_t>(q * slots + j) * cells_pad + c] = v;
+    }
+  };
 
   int pos = in.pos, mode = in.mode, pend = in.pend;
   int mc = 0, rc = 0, litc = 0, cur = 0;
   int run_dst = 0, run_lit0 = 0, run_len = 0;
   while (pos < kCellBits) {
     int nx, mt;
-    decode_step(in.tab, in.lut, k, in.w0, in.w1, in.w2, pos, mode, &nx, &mt);
+    decode_step(in.tab, in.lut, in.w0, in.w1, in.w2, pos, mode, &nx, &mt);
     const int kind = mt >> kKindShift;
     const int payload = mt & 0xFFFF;
     const int pd = (mt >> 16) & 0x1FF;
     if (kind == kDist) {
       if (run_len > 0) {  // a match closes the open literal run
-        if (rc < slots) {
-          ra[rc * n] = run_dst;
-          rb[rc * n] = (run_lit0 << 16) | run_len;
-        }
+        put(2, rc, run_dst);
+        put(3, rc, (run_lit0 << 16) | run_len);
         ++rc;
       }
-      if (mc < slots) {
-        ma[mc * n] = cur;
-        mb[mc * n] = (pend << 16) | payload;
-      }
+      put(0, mc, cur);
+      put(1, mc, (pend << 16) | payload);
       ++mc;
       run_len = 0;
       cur += pend;
       pend = 0;
     } else {
       if (kind == kLit) {
-        if (litc < slots) lit[litc * n] = payload;
+        put(4, litc, payload);
         if (run_len == 0) {
           run_dst = cur;
           run_lit0 = litc;
@@ -259,23 +283,20 @@ __global__ void phase_a_kernel(const int* __restrict__ cellw,
     pos = nx;
   }
   if (run_len > 0) {
-    if (rc < slots) {
-      ra[rc * n] = run_dst;
-      rb[rc * n] = (run_lit0 << 16) | run_len;
-    }
+    put(2, rc, run_dst);
+    put(3, rc, (run_lit0 << 16) | run_len);
     ++rc;
   }
   cnt[c] = (mc << 16) | (rc << 8) | litc;
   outlen[c] = cur;
   __syncthreads();
-  // Row r of the five tapes starts at tape + r * cells_pad; the CTA's
-  // segment of it is n int32 from column c0, 16-byte aligned because
-  // cells_pad and c0 are multiples of n.
-  const int shift = __ffs(n / 4) - 1;
+  // The CTA's segment of a row is n int32 from column c0, 16-byte aligned
+  // because cells_pad and c0 are multiples of n.
   for (int i = t; i < vec; i += n) {
     const int r = i >> shift;
+    const int q = r / rs;
     int4* dst = reinterpret_cast<int4*>(
-        tape + static_cast<int64_t>(r) * cells_pad + c0);
+        tape + static_cast<int64_t>(q * slots + r - q * rs) * cells_pad + c0);
     dst[i - (r << shift)] = stage4[i];
   }
 }
@@ -289,14 +310,17 @@ __global__ void phase_a_kernel(const int* __restrict__ cellw,
 // caller's overflow flag, and nothing is written past the row.
 //
 // What bounds it on the H100: bytes, 20 read and 4 * slots + 4 written per
-// cell.  The CTA's n cells own n * slots contiguous int32 of the tape, so
-// the rows are staged in shared memory, [n][slots + 1] pre-filled with -1
-// (the padding column spreads a warp's stores of different rows over the
-// banks), and written out after a barrier with 16-byte stores.
+// cell.  The CTA's n cells own n * slots contiguous int32 of the tape.  The
+// first rs = min(slots, kStageSlots) slots of each row are staged in
+// shared memory, [n][rs + 1] pre-filled with -1 (the padding column
+// spreads a warp's stores of different rows over the banks), and written
+// out after a barrier with 16-byte stores; slots rs..slots-1 are set to -1
+// with 16-byte stores before the first barrier, and the few tokens that
+// land there are stored directly.
 __global__ void phase_a_tape_kernel(const int* __restrict__ cellw,
                                     const int* __restrict__ cell_block,
                                     const int* __restrict__ tables,
-                                    const int* __restrict__ lut, int k,
+                                    const int* __restrict__ lut,
                                     int cells_pad, int slots,
                                     int* __restrict__ tape,
                                     int* __restrict__ counts) {
@@ -306,30 +330,46 @@ __global__ void phase_a_tape_kernel(const int* __restrict__ cellw,
   const int t = threadIdx.x;
   const int c0 = blockIdx.x * n;
   const int c = c0 + t;
-  const int w = slots + 1;
+  const int rs = min(slots, kStageSlots);
+  const int w = rs + 1;
+  int* region = tape + static_cast<int64_t>(c0) * slots;
   for (int i = t; i < n * w / 4; i += n) stage4[i] = make_int4(-1, -1, -1, -1);
-  const CellIn in = load_cell(cellw, cell_block, tables, lut, k, cells_pad, c);
+  // Slots rs.. of each row: extra4 int4 a row, 16-byte aligned because
+  // slots and rs are multiples of 4.
+  const int extra4 = (slots - rs) / 4;
+  for (int i = t; i < n * extra4; i += n) {
+    const int cell = i / extra4;
+    reinterpret_cast<int4*>(region + cell * slots + rs)[i - cell * extra4] =
+        make_int4(-1, -1, -1, -1);
+  }
+  const CellIn in = load_cell(cellw, cell_block, tables, lut, cells_pad, c);
   __syncthreads();
   int* row = stage + t * w;
+  int* own = region + t * slots;
 
   int pos = in.pos, mode = in.mode, pend = in.pend;
   int cn = 0;
   while (pos < kCellBits) {
     int nx, mt;
-    decode_step(in.tab, in.lut, k, in.w0, in.w1, in.w2, pos, mode, &nx, &mt);
+    decode_step(in.tab, in.lut, in.w0, in.w1, in.w2, pos, mode, &nx, &mt);
     const int kind = mt >> kKindShift;
     const int payload = mt & 0xFFFF;
     const int pd = (mt >> 16) & 0x1FF;
+    int tok = -1;
     if (kind == kDist) {
-      if (cn < slots) row[cn] = (1 << 30) | (pend << 16) | payload;
-      ++cn;
+      tok = (1 << 30) | (pend << 16) | payload;
       pend = 0;
     } else {
-      if (kind == kLit) {
-        if (cn < slots) row[cn] = payload;
-        ++cn;
-      }
+      if (kind == kLit) tok = payload;
       if (pd > 0) pend = pd;
+    }
+    if (tok >= 0) {
+      if (cn < rs) {
+        row[cn] = tok;
+      } else if (cn < slots) {
+        own[cn] = tok;
+      }
+      ++cn;
     }
     const int mo = (kind == kNone && pd > 0) ? 1 : 0;
     mode = mode == 1 ? 0 : mo;
@@ -337,68 +377,59 @@ __global__ void phase_a_tape_kernel(const int* __restrict__ cellw,
   }
   counts[c] = cn;
   __syncthreads();
-  // int4 i holds flat elements 4i..4i+3 of the CTA's n x slots region:
-  // one cell's slots (slots is a multiple of 4).
-  const int shift = __ffs(slots) - 1;
-  int4* dst = reinterpret_cast<int4*>(tape + static_cast<int64_t>(c0) * slots);
-  for (int i = t; i < n * slots / 4; i += n) {
-    const int e = 4 * i;
-    const int* src = stage + (e >> shift) * w + (e & (slots - 1));
-    dst[i] = make_int4(src[0], src[1], src[2], src[3]);
+  // int4 i holds slots 4k..4k+3 (k = i % (rs / 4)) of cell i / (rs / 4).
+  const int shift = __ffs(rs / 4) - 1;
+  for (int i = t; i < n * rs / 4; i += n) {
+    const int cell = i >> shift;
+    const int e = 4 * (i - (cell << shift));
+    const int* src = stage + cell * w + e;
+    *reinterpret_cast<int4*>(region + cell * slots + e) =
+        make_int4(src[0], src[1], src[2], src[3]);
   }
 }
 
-// Cells a CTA of either Phase A kernel takes at `slots`: a power of two
-// that divides cells_pad (a multiple of 512).
+// Cells a CTA of either Phase A kernel takes at `slots`: 2048 over the
+// staged slots (256 at 8 slots, else 128), so row 1's staging is 40 KB
+// and row 6's 9 KB, both under the 48 KB a launch may ask for without an
+// opt-in; a power of two that divides cells_pad (a multiple of 512).
 int cta_cells(int slots) {
-  const int n = 2048 / slots;
-  return n < 32 ? 32 : (n > 256 ? 256 : n);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= static_cast<size_t>(kMaxSmem)) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  return 2048 / (slots < kStageSlots ? slots : kStageSlots);
 }
 
 }  // namespace
 
-extern "C" int dbg_phase_a_lut(const int* tables, int nb, int k, int* lut,
+extern "C" int dbg_phase_a_lut_bits() { return kLutBits; }
+
+extern "C" int dbg_phase_a_lut(const int* tables, int nb, int* lut,
                                cudaStream_t stream) {
-  const int64_t total = static_cast<int64_t>(nb) << (k + 1);
+  const int64_t total = static_cast<int64_t>(nb) << (kLutBits + 1);
   if (total == 0) return 0;
   const int threads = 256;
   lut_kernel<<<static_cast<unsigned>((total + threads - 1) / threads), threads,
-               0, stream>>>(tables, total, k, lut);
+               0, stream>>>(tables, total, lut);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int dbg_phase_a_tape(const int* cellw, const int* cell_block,
-                                const int* tables, const int* lut, int k,
+                                const int* tables, const int* lut,
                                 int cells_pad, int slots, int* tape,
                                 int* counts, cudaStream_t stream) {
   if (cells_pad == 0) return 0;
   const int n = cta_cells(slots);
-  const size_t smem = 4ull * n * (slots + 1);
-  const cudaError_t err = allow_smem(phase_a_tape_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  phase_a_tape_kernel<<<cells_pad / n, n, smem, stream>>>(
-      cellw, cell_block, tables, lut, k, cells_pad, slots, tape, counts);
+  const int rs = slots < kStageSlots ? slots : kStageSlots;
+  phase_a_tape_kernel<<<cells_pad / n, n, 4ull * n * (rs + 1), stream>>>(
+      cellw, cell_block, tables, lut, cells_pad, slots, tape, counts);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int dbg_phase_a(const int* cellw, const int* cell_block,
-                           const int* tables, const int* lut, int k,
-                           int cells_pad, int slots, int* tape, int* cnt,
-                           int* outlen, cudaStream_t stream) {
+                           const int* tables, const int* lut, int cells_pad,
+                           int slots, int* tape, int* cnt, int* outlen,
+                           cudaStream_t stream) {
   if (cells_pad == 0) return 0;
   const int n = cta_cells(slots);
-  const size_t smem = 20ull * slots * n;
-  const cudaError_t err = allow_smem(phase_a_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  phase_a_kernel<<<cells_pad / n, n, smem, stream>>>(
-      cellw, cell_block, tables, lut, k, cells_pad, slots, tape, cnt, outlen);
+  const int rs = slots < kStageSlots ? slots : kStageSlots;
+  phase_a_kernel<<<cells_pad / n, n, 20ull * rs * n, stream>>>(
+      cellw, cell_block, tables, lut, cells_pad, slots, tape, cnt, outlen);
   return static_cast<int>(cudaGetLastError());
 }

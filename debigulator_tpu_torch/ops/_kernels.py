@@ -42,11 +42,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: C entry -> (library, argument types; the stream argument comes last).
 _ENTRIES = {
-    "dbg_phase_a_lut": ("phase_a", [_P, _I32, _I32, _P]),
-    "dbg_phase_a": ("phase_a", [_P, _P, _P, _P, _I32, _I32, _I32, _P, _P,
-                                _P]),
-    "dbg_phase_a_tape": ("phase_a", [_P, _P, _P, _P, _I32, _I32, _I32, _P,
-                                     _P]),
+    "dbg_phase_a_lut": ("phase_a", [_P, _I32, _P]),
+    "dbg_phase_a": ("phase_a", [_P, _P, _P, _P, _I32, _I32, _P, _P, _P]),
+    "dbg_phase_a_tape": ("phase_a", [_P, _P, _P, _P, _I32, _I32, _P, _P]),
     "dbg_compact": ("compact", [_P, _P, _P, _P, _P, _P, _I32, _I32, _I32,
                                 _I32, _P, _P, _P, _P, _P]),
     "dbg_walk": ("walk", [_P, _I64, _I64, _P, _P, _I64, _P, _P, _I64, _P,
@@ -85,7 +83,8 @@ _ENTRIES = {
 #: C entries that take nothing and return a constant of the kernel's
 #: layout -> library.
 _CONSTANTS = {"dbg_greedy_chunk": "greedy_walk",
-              "dbg_greedy_starts": "greedy_walk"}
+              "dbg_greedy_starts": "greedy_walk",
+              "dbg_phase_a_lut_bits": "phase_a"}
 
 _FNS: dict = {}
 _VALUES: dict = {}

@@ -28,9 +28,10 @@ first-level decode table (``decode_lut_plain`` is its plain twin), then one
 thread per cell decodes its chain sequentially; the entries are exact, so
 no all-positions decode graph is built.  Bound on the H100: the slot-major
 tape writes (5 x slots x 4 bytes per cell, mostly zeros) dominate the
-bytes moved.  A decode step reads one table word; a CTA stages its tapes
-in shared memory and writes each slot row's segment with 16-byte stores,
-so the staging, 20 x slots bytes a cell, caps the cells in flight.
+bytes moved.  A decode step reads one table word; a CTA stages the first
+16 slots of its tapes in shared memory (40 KB a CTA at any slots value)
+and writes each slot row's segment with 16-byte stores, so the staging
+caps the cells in flight at 640 an SM.
 """
 
 from __future__ import annotations
@@ -57,10 +58,9 @@ INACTIVE = 127
 #: Per-block table row: ll count/first/base (48), d count/first/base (48),
 #: litlen aug (288), dist aug (32).
 TAB_LL, TAB_D, TAB_W = 96, 384, 416
-#: First-level decode table: window bits it is indexed by (K).  9, not
-#: 10: a 4 KB table a block, and on the H100 at the 29 gzip streams both
-#: kernels ran a little faster than at 10 (PERF.md section 6), though 10
-#: leaves fewer entries to the probe (0.13% against 0.20%).
+#: First-level decode table: window bits it is indexed by (K), the
+#: table kernel's own (``dbg_phase_a_lut_bits``; a test holds the two
+#: equal).  The plain twin takes another K for the tests.
 LUT_BITS = 9
 #: A table entry: aug bits 0-19 (all the decode step reads), the code
 #: length in bits 20-23, LUT_FINAL where the K bits decide the probe;
@@ -372,16 +372,16 @@ def _check_inputs(inputs: PhaseAInputs, slots: int):
     return cellw, cell_block, tables, cells_pad
 
 
-def decode_lut(tables: torch.Tensor, k: int = LUT_BITS) -> torch.Tensor:
-    """The first-level decode table (``decode_lut_plain``'s contract) on
-    the device of ``tables``: one launch of the table kernel on the card."""
-    if not 1 <= k <= C.MAX_BITS:
-        raise ValueError(f"table bits must be in [1, 15], got {k}")
+def decode_lut(tables: torch.Tensor) -> torch.Tensor:
+    """The first-level decode table (``decode_lut_plain``'s contract at
+    ``LUT_BITS``) on the device of ``tables``: one launch of the table
+    kernel on the card, sized by the bits the kernel reports."""
     if _plain_here(tables):
-        return decode_lut_plain(tables, k)
+        return decode_lut_plain(tables)
+    k = _kernels.constant("dbg_phase_a_lut_bits")
     nb = tables.shape[0]
     lut = torch.empty((nb, 2, 1 << k), dtype=torch.int32, device=tables.device)
-    _kernels.launch("dbg_phase_a_lut", tables, nb, k, lut)
+    _kernels.launch("dbg_phase_a_lut", tables, nb, lut)
     return lut
 
 
@@ -394,12 +394,12 @@ def phase_a(inputs: PhaseAInputs, slots: int):
     if _plain_here(cellw):
         return phase_a_plain(cellw, cell_block, tables, slots)
     dev = cellw.device
-    lut = decode_lut(tables, LUT_BITS)
+    lut = decode_lut(tables)
     tape = torch.empty((5, slots, cells_pad), dtype=torch.int32, device=dev)
     cnt = torch.empty(cells_pad, dtype=torch.int32, device=dev)
     outlen = torch.empty(cells_pad, dtype=torch.int32, device=dev)
-    _kernels.launch("dbg_phase_a", cellw, cell_block, tables, lut, LUT_BITS,
-                    cells_pad, slots, tape, cnt, outlen)
+    _kernels.launch("dbg_phase_a", cellw, cell_block, tables, lut, cells_pad,
+                    slots, tape, cnt, outlen)
     phase_a.launches += 1
     return (tape[0], tape[1], tape[2], tape[3], tape[4], cnt, outlen)
 
@@ -462,18 +462,19 @@ def phase_a_tape(inputs: PhaseAInputs, slots: int):
     ``phase_a_tape_kernel``, one thread per cell with the decode step it
     shares with ``phase_a_kernel``.  Bound on the H100 by bytes: 20 bytes
     read and ``4 * slots + 4`` written per cell.  The tape is cell-major as
-    the resolvers want it, so a CTA stages its cells' rows in shared memory
-    and writes its contiguous ``cells x slots`` region with 16-byte stores.
+    the resolvers want it, so a CTA stages the first 16 slots of its cells'
+    rows in shared memory and writes its contiguous ``cells x slots``
+    region with 16-byte stores.
     """
     cellw, cell_block, tables, cells_pad = _check_inputs(inputs, slots)
     if _plain_here(cellw):
         return phase_a_tape_plain(cellw, cell_block, tables, slots)
     dev = cellw.device
-    lut = decode_lut(tables, LUT_BITS)
+    lut = decode_lut(tables)
     tape = torch.empty((cells_pad, slots), dtype=torch.int32, device=dev)
     counts = torch.empty(cells_pad, dtype=torch.int32, device=dev)
     _kernels.launch("dbg_phase_a_tape", cellw, cell_block, tables, lut,
-                    LUT_BITS, cells_pad, slots, tape, counts)
+                    cells_pad, slots, tape, counts)
     phase_a_tape.launches += 1
     return tape, counts
 

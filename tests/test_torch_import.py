@@ -249,7 +249,8 @@ def test_ctypes_declarations_match_c_entries(entry):
             assert decl.startswith("int ") and at is ctypes.c_int, decl
 
 
-@pytest.mark.parametrize("entry", ["dbg_greedy_chunk", "dbg_greedy_starts"])
+@pytest.mark.parametrize("entry", ["dbg_greedy_chunk", "dbg_greedy_starts",
+                                   "dbg_phase_a_lut_bits"])
 def test_constant_entries_take_nothing(entry):
     """A constant of a kernel's layout is read by calling its C entry with
     no arguments (and no stream): the source must declare it so."""

@@ -5,20 +5,21 @@
 the canonical probe) are held exactly against the plain probe ``_probe``
 and its aug lookup, at all 2^15 windows in both modes, for the tables the
 JAX package's ``build_plan_v3`` gives ``test_torch_phase_a.py``'s streams and
-for synthetic code sets.  A card-branch test holds each Phase A wrapper to
-its launches on the card.
+for synthetic code sets (``torch_lut_cases``).  A card-branch test holds
+each Phase A wrapper to its launches on the card.
 """
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from debigulator_tpu_torch.ops import _kernels
 from debigulator_tpu_torch.ops import phase_a as tpa
 from test_torch_phase_a import STREAMS, _plans
+from torch_lut_cases import FIXED_LL, synthetic_lut_tables, tables_of_lengths
 from torch_stream_cases import STREAMS as MORE_STREAMS
 from torch_stream_cases import ensure_reference_native, to_port_plan
 
@@ -29,7 +30,7 @@ def _reference_native():
     ensure_reference_native()
 
 
-SYNTHETIC = chip_smoke.synthetic_lut_tables()
+SYNTHETIC = synthetic_lut_tables()
 
 
 def _port_inputs(name):
@@ -60,7 +61,8 @@ def _lut_against_probe(tables, k):
     lut = tpa.decode_lut_plain(tables, k)
     nb = tables.shape[0]
     assert lut.shape == (nb, 2, 1 << k) and lut.dtype == torch.int32
-    assert torch.equal(tpa.decode_lut(tables, k), lut)  # CPU: the twin
+    if k == tpa.LUT_BITS:  # the wrapper on the CPU: the twin
+        assert torch.equal(tpa.decode_lut(tables), lut)
     win = torch.arange(1 << 15, dtype=torch.long).repeat(nb)
     blk = torch.arange(nb, dtype=torch.long).repeat_interleave(1 << 15)
     par = tables[:, :96].long()[blk].T
@@ -112,9 +114,8 @@ def test_lut_matches_probe_on_synthetic_tables(case, k):
 def test_lut_final_entries_cover_short_codes():
     """On the fixed-Huffman code every symbol is 7-9 bits long, so at k=9
     and k=10 every litlen entry is final, and the lengths are the code's."""
-    fixed_ll = np.array([8] * 144 + [9] * 112 + [7] * 24 + [8] * 8)
     tables = torch.from_numpy(
-        chip_smoke.tables_of_lengths(fixed_ll, np.full(30, 5))[None, :])
+        tables_of_lengths(FIXED_LL, np.full(30, 5))[None, :])
     for k in (9, 10):
         ll = tpa.decode_lut_plain(tables, k)[0, 0].long()
         assert bool(((ll & tpa.LUT_FINAL) != 0).all())
@@ -128,17 +129,27 @@ READ_BACKS = [(torch.Tensor, n) for n in ("item", "tolist", "cpu", "numpy",
     [(torch, "nonzero")]
 
 
-@pytest.mark.parametrize("slots", [16, 128])
+def test_lut_bits_are_the_kernels():
+    """The table kernel's window bits (csrc/phase_a.cu's kLutBits, which
+    dbg_phase_a_lut_bits reports) are LUT_BITS, the plain twin's default."""
+    src = (_kernels.CSRC / _kernels.SOURCES["phase_a"]).read_text()
+    (bits,) = re.findall(r"constexpr int kLutBits = (\d+);", src)
+    assert int(bits) == tpa.LUT_BITS
+    assert _kernels._CONSTANTS["dbg_phase_a_lut_bits"] == "phase_a"
+
+
+@pytest.mark.parametrize("slots", [8, 16, 32, 64, 128])
 @pytest.mark.parametrize("name", ["phase_a", "phase_a_tape"])
 def test_phase_a_card_branch(monkeypatch, name, slots):
     """On the card a Phase A wrapper is two launches and nothing read back:
-    the table kernel into a (nb, 2, 2^K) int32 table, then its kernel fed
-    that table and K, each with its declared argument count and types, the
-    launch count moved by one."""
+    the table kernel into a (nb, 2, 2^K) int32 table, K as the kernel
+    reports it, then its kernel fed that table, each with its declared
+    argument count and types, the launch count moved by one."""
     _, inp = _port_inputs("text")
     fn = getattr(tpa, name)
     entry = {"phase_a": "dbg_phase_a", "phase_a_tape": "dbg_phase_a_tape"}[name]
-    events = []
+    events, asked = [], []
+    lut_bits = 10  # not LUT_BITS: the wrapper must size from the answer
 
     def reader(owner, attr):
         real = getattr(owner, attr)
@@ -148,7 +159,12 @@ def test_phase_a_card_branch(monkeypatch, name, slots):
             return real(*a, **k)
         return read
 
+    def constant(e):
+        asked.append(e)
+        return lut_bits
+
     monkeypatch.setattr(tpa, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "constant", constant)
     monkeypatch.setattr(_kernels, "launch",
                         lambda e, *a: events.append(("launch", e, a)))
     for owner, attr in READ_BACKS:
@@ -157,6 +173,7 @@ def test_phase_a_card_branch(monkeypatch, name, slots):
     out = fn(inp, slots)
     monkeypatch.undo()
     assert fn.launches == before + 1
+    assert asked == ["dbg_phase_a_lut_bits"]
     assert [e[:2] for e in events] == [("launch", "dbg_phase_a_lut"),
                                        ("launch", entry)]
     for _, e, args in events:
@@ -165,21 +182,20 @@ def test_phase_a_card_branch(monkeypatch, name, slots):
         for a, at in zip(args, argtypes, strict=True):
             assert isinstance(a, torch.Tensor) if at is ctypes.c_void_p \
                 else type(a) is int, e
-    (_, _, (tables, nb, k, lut)), (_, _, args) = events
+    (_, _, (tables, nb, lut)), (_, _, args) = events
     assert tables is inp.tables and nb == inp.tables.shape[0]
-    assert k == tpa.LUT_BITS and lut.dtype == torch.int32
-    assert lut.shape == (nb, 2, 1 << k)
+    assert lut.dtype == torch.int32 and lut.shape == (nb, 2, 1 << lut_bits)
     cells_pad = inp.cellw.shape[1]
     assert all(a is b for a, b in zip(
         args[:4], (inp.cellw, inp.cell_block, inp.tables, lut), strict=True))
-    assert args[4:7] == (k, cells_pad, slots)
+    assert args[4:6] == (cells_pad, slots)
     if name == "phase_a":
-        tape, cnt, outlen = args[7:]
+        tape, cnt, outlen = args[6:]
         assert tape.shape == (5, slots, cells_pad)
         assert all(o.data_ptr() == tape[i].data_ptr()
                    for i, o in enumerate(out[:5]))
         assert out[5] is cnt and out[6] is outlen
     else:
-        tape, counts = args[7:]
+        tape, counts = args[6:]
         assert tape.shape == (cells_pad, slots)
         assert out[0] is tape and out[1] is counts
