@@ -43,7 +43,7 @@ Each phase prints one JSON line:
   image equal to its source pixels, then one 4096x4096 RGBA image through
   decode_png_device; the walk's work, bound and device ms inside the
   corpus call and inside the large image's call, Phase A's slots and
-  device ms inside the corpus call, and the large image's
+  device ms (replayed) on the corpus call's plan, and the large image's
   call taken apart (host steps, top device operations);
 * encode_path: deflate_fixed_device on the filtered rows of a 1024x1024
   RGBA image (checked with zlib), then encode_png on the card and
@@ -644,8 +644,6 @@ def phase_a_phase(dev, st_path, small_plan) -> dict:
 
 #: The walk's three kernels (csrc/walk.cu) as torch.profiler names them.
 WALK_KERNEL_NAMES = ("::run_kernel(", "::pointer_kernel(", "::chase_kernel(")
-#: Row 1's two kernels (csrc/phase_a.cu) as torch.profiler names them.
-PHASE_A_KERNEL_NAMES = ("::lut_kernel(", "::phase_a_kernel(")
 
 
 def device_parts(fn, reps: int = 3) -> list:
@@ -1142,8 +1140,14 @@ def png_and_encode_phases(dev):
         "stage_ms": host_ms(lambda: (inf.stage_plan(mp.plan, dev),
                                      torch.cuda.synchronize())),
     }
-    corpus_slots = mp.plan.slots
-    del mp, scans
+    # Phase A of the corpus call, on the same plan: its slots and device
+    # ms, one call replayed from a CUDA graph.
+    st_c = inf.stage_plan(mp.plan, dev)
+    corpus_phase_a = {"slots": st_c.slots,
+                      "cells_pad": int(st_c.pa.cellw.shape[1]),
+                      "replay_ms": replay_ms(
+                          lambda: pa.phase_a(st_c.pa, st_c.slots))}
+    del mp, scans, st_c
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1155,9 +1159,6 @@ def png_and_encode_phases(dev):
     busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
     corpus_walk["ms_in_call"] = walk_device_ms(dev_events)
-    corpus_phase_a = {"slots": corpus_slots, "ms_in_call": sum(
-        e.self_device_time_total for e in dev_events
-        if any(k in e.key for k in PHASE_A_KERNEL_NAMES)) / 1e3}
     corpus_walk["bound_ms"] = corpus_walk["bytes"] / HBM_BYTES_PER_S * 1e3
     reset()
     resolves = {}

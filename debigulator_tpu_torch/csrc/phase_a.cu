@@ -219,20 +219,19 @@ __global__ void phase_a_kernel(const int* __restrict__ cellw,
   const int c = c0 + t;
   const int rs = min(slots, kStageSlots);
   // A row's segment is n / 4 int4; int4 i of a run of rows is int4
-  // i % (n / 4) of row i / (n / 4).
+  // i % (n / 4) of row i / (n / 4).  Tape q's slot j is row q * slots + j
+  // of the output, row q * rs + j of the staging while j < rs.
   const int shift = __ffs(n / 4) - 1;
-  // Tape q's slot j is row q * slots + j of the output, row q * rs + j of
-  // the staging while j < rs.
-  const int vec = 5 * rs * n / 4;
-  for (int i = t; i < vec; i += n) stage4[i] = make_int4(0, 0, 0, 0);
-  const int extra = slots - rs;
-  for (int i = t; i < 5 * extra * n / 4; i += n) {
-    const int r = i >> shift;
-    const int q = r / extra;
-    int4* dst = reinterpret_cast<int4*>(
-        tape + static_cast<int64_t>(q * slots + rs + r - q * extra) * cells_pad
-        + c0);
-    dst[i - (r << shift)] = make_int4(0, 0, 0, 0);
+  const int staged = rs * n / 4;  // int4 of one tape's staged rows
+  for (int i = t; i < 5 * staged; i += n) stage4[i] = make_int4(0, 0, 0, 0);
+  const int extra = (slots - rs) * n / 4;
+  for (int q = 0; q < 5; ++q) {
+    int* base = tape + static_cast<int64_t>(q * slots + rs) * cells_pad + c0;
+    for (int i = t; i < extra; i += n) {
+      const int r = i >> shift;
+      reinterpret_cast<int4*>(base + static_cast<int64_t>(r) * cells_pad)
+          [i - (r << shift)] = make_int4(0, 0, 0, 0);
+    }
   }
   const CellIn in = load_cell(cellw, cell_block, tables, lut, cells_pad, c);
   __syncthreads();
@@ -292,12 +291,13 @@ __global__ void phase_a_kernel(const int* __restrict__ cellw,
   __syncthreads();
   // The CTA's segment of a row is n int32 from column c0, 16-byte aligned
   // because cells_pad and c0 are multiples of n.
-  for (int i = t; i < vec; i += n) {
-    const int r = i >> shift;
-    const int q = r / rs;
-    int4* dst = reinterpret_cast<int4*>(
-        tape + static_cast<int64_t>(q * slots + r - q * rs) * cells_pad + c0);
-    dst[i - (r << shift)] = stage4[i];
+  for (int q = 0; q < 5; ++q) {
+    int* base = tape + static_cast<int64_t>(q * slots) * cells_pad + c0;
+    for (int i = t; i < staged; i += n) {
+      const int r = i >> shift;
+      reinterpret_cast<int4*>(base + static_cast<int64_t>(r) * cells_pad)
+          [i - (r << shift)] = stage4[q * staged + i];
+    }
   }
 }
 
@@ -334,13 +334,13 @@ __global__ void phase_a_tape_kernel(const int* __restrict__ cellw,
   const int w = rs + 1;
   int* region = tape + static_cast<int64_t>(c0) * slots;
   for (int i = t; i < n * w / 4; i += n) stage4[i] = make_int4(-1, -1, -1, -1);
-  // Slots rs.. of each row: extra4 int4 a row, 16-byte aligned because
-  // slots and rs are multiples of 4.
-  const int extra4 = (slots - rs) / 4;
-  for (int i = t; i < n * extra4; i += n) {
-    const int cell = i / extra4;
-    reinterpret_cast<int4*>(region + cell * slots + rs)[i - cell * extra4] =
-        make_int4(-1, -1, -1, -1);
+  // Slots rs.. of each row: int4 i of the region is int4 i % (slots / 4)
+  // of cell i / (slots / 4); slots and rs are multiples of 4.
+  if (slots > rs) {
+    int4* region4 = reinterpret_cast<int4*>(region);
+    for (int i = t; i < n * slots / 4; i += n) {
+      if ((i & (slots / 4 - 1)) >= rs / 4) region4[i] = make_int4(-1, -1, -1, -1);
+    }
   }
   const CellIn in = load_cell(cellw, cell_block, tables, lut, cells_pad, c);
   __syncthreads();
