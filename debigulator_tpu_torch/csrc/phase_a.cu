@@ -31,9 +31,12 @@
 //    16-byte stores.  Slots rs..slots-1 (slots 32-128, which only a plan
 //    with a cell of more than 16 tokens asks for) are zeroed with 16-byte
 //    stores before that barrier's twin at the start, and the few records
-//    that land there are stored directly.  n = 2048 / rs, so the staging
-//    is 40 KB a CTA at any slots value and 5 CTAs (640 or 1280 threads)
-//    fit on an SM: shared memory, not slots, caps the cells in flight.
+//    that land there are stored directly; the kernel is built twice, and
+//    at slots <= kStageSlots the copy without that store runs (the branch
+//    in the chain loop cost 4-5% at 8 and 16 slots on the H100).  n = 2048
+//    / rs, so the staging is 40 KB a CTA at any slots value and 5 CTAs
+//    (640 or 1280 threads) fit on an SM: shared memory, not slots, caps
+//    the cells in flight.
 //
 // Semantics carried bit for bit from the reference:
 //  * 15-length canonical probe in its lim-compare / telescoped-offset form;
@@ -203,6 +206,21 @@ __device__ __forceinline__ CellIn load_cell(
   return in;
 }
 
+// Slot j of a tape: staged at st + j * n while j < rs, else stored at
+// gl + j * cells_pad while j < slots (kDirect: slots > rs), else dropped
+// (the count says so).
+template <bool kDirect>
+__device__ __forceinline__ void put(int* st, int* gl, int j, int rs,
+                                    int slots, int n, int64_t cells_pad,
+                                    int v) {
+  if (j < rs) {
+    st[j * n] = v;
+  } else if (kDirect && j < slots) {
+    gl[j * cells_pad] = v;
+  }
+}
+
+template <bool kDirect>
 __global__ void phase_a_kernel(const int* __restrict__ cellw,
                                const int* __restrict__ cell_block,
                                const int* __restrict__ tables,
@@ -235,13 +253,19 @@ __global__ void phase_a_kernel(const int* __restrict__ cellw,
   }
   const CellIn in = load_cell(cellw, cell_block, tables, lut, cells_pad, c);
   __syncthreads();
-  const auto put = [&](int q, int j, int v) {
-    if (j < rs) {
-      stage[(q * rs + j) * n + t] = v;
-    } else if (j < slots) {
-      tape[static_cast<int64_t>(q * slots + j) * cells_pad + c] = v;
-    }
-  };
+  // Each tape's slot 0 in the staging and in the output (see put).
+  int* const sma = stage + t;
+  int* const smb = sma + rs * n;
+  int* const sra = smb + rs * n;
+  int* const srb = sra + rs * n;
+  int* const slit = srb + rs * n;
+  const int64_t tape_len = static_cast<int64_t>(slots) * cells_pad;
+  int* const gma = tape + c;
+  int* const gmb = gma + tape_len;
+  int* const gra = gmb + tape_len;
+  int* const grb = gra + tape_len;
+  int* const glit = grb + tape_len;
+  const int64_t cp = cells_pad;
 
   int pos = in.pos, mode = in.mode, pend = in.pend;
   int mc = 0, rc = 0, litc = 0, cur = 0;
@@ -254,19 +278,19 @@ __global__ void phase_a_kernel(const int* __restrict__ cellw,
     const int pd = (mt >> 16) & 0x1FF;
     if (kind == kDist) {
       if (run_len > 0) {  // a match closes the open literal run
-        put(2, rc, run_dst);
-        put(3, rc, (run_lit0 << 16) | run_len);
+        put<kDirect>(sra, gra, rc, rs, slots, n, cp, run_dst);
+        put<kDirect>(srb, grb, rc, rs, slots, n, cp, (run_lit0 << 16) | run_len);
         ++rc;
       }
-      put(0, mc, cur);
-      put(1, mc, (pend << 16) | payload);
+      put<kDirect>(sma, gma, mc, rs, slots, n, cp, cur);
+      put<kDirect>(smb, gmb, mc, rs, slots, n, cp, (pend << 16) | payload);
       ++mc;
       run_len = 0;
       cur += pend;
       pend = 0;
     } else {
       if (kind == kLit) {
-        put(4, litc, payload);
+        put<kDirect>(slit, glit, litc, rs, slots, n, cp, payload);
         if (run_len == 0) {
           run_dst = cur;
           run_lit0 = litc;
@@ -282,8 +306,8 @@ __global__ void phase_a_kernel(const int* __restrict__ cellw,
     pos = nx;
   }
   if (run_len > 0) {
-    put(2, rc, run_dst);
-    put(3, rc, (run_lit0 << 16) | run_len);
+    put<kDirect>(sra, gra, rc, rs, slots, n, cp, run_dst);
+    put<kDirect>(srb, grb, rc, rs, slots, n, cp, (run_lit0 << 16) | run_len);
     ++rc;
   }
   cnt[c] = (mc << 16) | (rc << 8) | litc;
@@ -429,7 +453,12 @@ extern "C" int dbg_phase_a(const int* cellw, const int* cell_block,
   if (cells_pad == 0) return 0;
   const int n = cta_cells(slots);
   const int rs = slots < kStageSlots ? slots : kStageSlots;
-  phase_a_kernel<<<cells_pad / n, n, 20ull * rs * n, stream>>>(
-      cellw, cell_block, tables, lut, cells_pad, slots, tape, cnt, outlen);
+  if (slots > kStageSlots) {
+    phase_a_kernel<true><<<cells_pad / n, n, 20ull * rs * n, stream>>>(
+        cellw, cell_block, tables, lut, cells_pad, slots, tape, cnt, outlen);
+  } else {
+    phase_a_kernel<false><<<cells_pad / n, n, 20ull * rs * n, stream>>>(
+        cellw, cell_block, tables, lut, cells_pad, slots, tape, cnt, outlen);
+  }
   return static_cast<int>(cudaGetLastError());
 }
