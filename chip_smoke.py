@@ -1710,11 +1710,12 @@ def fallback_phases(dev, base, streams):
     return kernels
 
 
-def archive_phases(dev, streams):
+def archive_phases(dev, base, streams):
     """The fourth slice: the host-fed group resolver, the v14 compaction
-    and walk and the v1 tape resolver against their plain versions, then
-    the host-fed v10, v14 and v1 paths over the main path's streams.
-    Returns the four kernels' entries for the `kernels` line."""
+    and walk and the v1 tape resolver against their plain versions (rows
+    10a and 10c also on the walk's adversarial shapes), then the host-fed
+    v10, v14 and v1 paths over the main path's streams.  Returns the four
+    kernels' entries for the `kernels` line."""
     from debigulator_tpu_torch.ops import inflate as inf
     from debigulator_tpu_torch.ops import phase_a as pa
     from debigulator_tpu_torch.ops import plan as tp
@@ -1744,18 +1745,68 @@ def archive_phases(dev, streams):
         return window_buffer(flat, off, torch.zeros(seg, dtype=torch.int32),
                              dev)
 
+    def v11_inputs(strms):
+        """Row 10a's arguments for a batch: its host-fed piece arrays over
+        a body that holds the stored bytes."""
+        mp, v9, stored, n_seg, _ = pm.host_fed_inputs(strms, dev)
+        body0 = torch.zeros(n_seg * tp.SEG_BYTES, dtype=torch.int32,
+                            device=dev)
+        ig._place_stored(body0, *stored)
+        return mp, v9, n_seg, (ig._buffer(body0), v9["lims"], v9["gpos"],
+                               v9["gmeta"], v9["lpos"], v9["lmeta"], v9["lit"])
+
+    def v11_work(mp, v9, args):
+        """Row 10a's work: live match and literal pieces, and the bytes a
+        call must move (the buffer read and written once, two words a
+        live piece, the literal bytes, the limits) with their bound."""
+        gpos = v9["gpos"].view(-1)
+        n_pieces = int((((gpos & 255) - ((gpos >> 8) & 127)) > 0).sum())
+        n_lp = int((v9["lims"][:, 4] - v9["lims"][:, 3]).sum())
+        n = 4 * (2 * args[0].numel() + 2 * (n_pieces + n_lp)
+                 + len(mp.recs["lit"]) + v9["lims"].numel())
+        return {"pieces": n_pieces, "literal_pieces": n_lp, "bytes": n,
+                "bound_ms": n / HBM_BYTES_PER_S * 1e3}
+
+    def v14_records(c_args):
+        """(matches, runs, literals) in the cells of compact_v14's args."""
+        cnt = c_args[5].view(-1).long()
+        return tuple(int(((cnt >> sh) & 0xFF).sum()) for sh in (16, 8, 0))
+
+    def v14_work(c_args, w_args):
+        """Row 10c's work: matches and runs, and the bytes a call must
+        move (the buffer read and written once, two words a match and a
+        run, the literal bytes) with their bound."""
+        n_m, n_r, n_l = v14_records(c_args)
+        n = 4 * (2 * w_args[0].numel() + 2 * n_m + 2 * n_r + n_l)
+        return {"matches": n_m, "runs": n_r, "bytes": n,
+                "bound_ms": n / HBM_BYTES_PER_S * 1e3}
+
+    def v14_inputs(strms):
+        """Rows 10b's and 10c's arguments as the v14 glue makes them for a
+        batch, and the glue's segment_lims arguments."""
+        mpf = build_merged_plan(strms)
+        st = inf.stage_plan(mpf.plan, dev)
+        arrays = tp.plan_arrays_v7(mpf.plan, dev)
+        seen = {}
+        real_c = spy(lg, "compact_v14", seen)
+        real_w = spy(lg, "resolve_walk_v14", seen)
+        real_l = spy(ig, "segment_lims", seen)
+        try:
+            ig.inflate_v14(st.pa, arrays, mpf.plan.slots, st.n_seg)
+        finally:
+            lg.compact_v14, lg.resolve_walk_v14 = real_c, real_w
+            ig.segment_lims = real_l
+        return (mpf, seen["compact_v14"][-1][0], seen["resolve_walk_v14"][-1][0],
+                seen["segment_lims"][-1][0])
+
     # --- the four kernels vs their plain versions ----------------------
     vs = {n: [] for n in ("groups_v11", "compact_v14", "walk_v14", "tape_v1")}
     timed = {}
     for label, k in (("small", 2), ("path", len(streams))):
         reps = 3 if label == "path" else 1
         # Row 10a on the host-fed inputs of the batch.
-        mp, v9, stored, n_seg, _ = pm.host_fed_inputs(streams[:k], dev)
+        mp, v9, n_seg, args = v11_inputs(streams[:k])
         total = n_seg * tp.SEG_BYTES
-        body0 = torch.zeros(total, dtype=torch.int32, device=dev)
-        ig._place_stored(body0, *stored)
-        args = (ig._buffer(body0), v9["lims"], v9["gpos"], v9["gmeta"],
-                v9["lpos"], v9["lmeta"], v9["lit"])
         got = lg.resolve_groups_v11(*args)
         torch.cuda.synchronize()
         rec = {"shape": label, "streams": k, "n_seg": n_seg,
@@ -1764,16 +1815,11 @@ def archive_phases(dev, streams):
         pm.check(body_of(got, total), mp, datas[:k])
         if label == "path":
             rec["ms"] = time_ms(lambda: lg.resolve_groups_v11(*args), reps)
+            # Nothing is read back in a call: its device time alone.
+            rec["replay_ms"] = replay_ms(lambda: lg.resolve_groups_v11(*args))
             rec["plain_ms"] = time_ms(
                 lambda: lg.resolve_groups_v11_plain(*args), 1)
-            n_pieces = int((((v9["gpos"].view(-1) & 255)
-                             - ((v9["gpos"].view(-1) >> 8) & 127)) > 0).sum())
-            n_lp = int((v9["lims"][:, 4] - v9["lims"][:, 3]).sum())
-            # The buffer read and written once, two words a live piece,
-            # the literal bytes, the limits.
-            rec["pieces"], rec["literal_pieces"] = n_pieces, n_lp
-            rec["bytes"] = 4 * (2 * args[0].numel() + 2 * (n_pieces + n_lp)
-                                + len(mp.recs["lit"]) + v9["lims"].numel())
+            rec.update(v11_work(mp, v9, args))
             timed["groups_v11"] = rec
         vs["groups_v11"].append(rec)
         if label == "small":
@@ -1791,28 +1837,15 @@ def archive_phases(dev, streams):
                                   flat[tp.SEG_BYTES : tp.SEG_BYTES + n1]):
                 raise AssertionError("groups_v11: segment is not bit-exact")
             vs["groups_v11"].append({"shape": "segment 1", "max_abs_err": err})
-        del got, args, v9, body0
+        del got, args, v9
 
         # Rows 10b and 10c on the v14 glue's own inputs.
-        mpf = build_merged_plan(streams[:k])
-        st = inf.stage_plan(mpf.plan, dev)
-        arrays = tp.plan_arrays_v7(mpf.plan, dev)
-        seen = {}
-        real_c = spy(lg, "compact_v14", seen)
-        real_w = spy(lg, "resolve_walk_v14", seen)
-        real_l = spy(ig, "segment_lims", seen)
-        try:
-            ig.inflate_v14(st.pa, arrays, mpf.plan.slots, st.n_seg)
-        finally:
-            lg.compact_v14, lg.resolve_walk_v14 = real_c, real_w
-            ig.segment_lims = real_l
-        c_args = seen["compact_v14"][-1][0]
+        mpf, c_args, w_args, l_args = v14_inputs(streams[:k])
         got_c = lg.compact_v14(*c_args)
         torch.cuda.synchronize()
         rec = {"shape": label, "cells": int(c_args[5].numel()),
                "max_abs_err": same("compact_v14", got_c,
                                    lg.compact_v14_plain(*c_args))}
-        w_args = seen["resolve_walk_v14"][-1][0]
         got_w = lg.resolve_walk_v14(*w_args)
         torch.cuda.synchronize()
         rec_w = {"shape": label, "max_abs_err": same(
@@ -1821,7 +1854,7 @@ def archive_phases(dev, streams):
         if label == "path":
             slots = c_args[-1]
             cnt = c_args[5].view(-1).long()
-            n_m, n_r, n_l = (int(((cnt >> sh) & 0xFF).sum()) for sh in (16, 8, 0))
+            n_m, n_r, n_l = v14_records(c_args)
             slot = torch.arange(slots, device=dev)[None, :]
             valid = [(slot < ((cnt >> sh) & 0xFF).clamp(max=slots)[:, None]
                       ).view(-1) for sh in (16, 8, 0)]
@@ -1846,11 +1879,7 @@ def archive_phases(dev, streams):
             rec_w["ms"] = time_ms(lambda: lg.resolve_walk_v14(*w_args), reps)
             rec_w["plain_ms"] = time_ms(
                 lambda: lg.resolve_walk_v14_plain(*w_args), 1)
-            rec_w["matches"], rec_w["runs"] = n_m, n_r
-            # The buffer read and written once, two words a match and a
-            # run, the literal bytes.
-            rec_w["bytes"] = 4 * (2 * w_args[0].numel() + 2 * n_m + 2 * n_r
-                                  + n_l)
+            rec_w.update(v14_work(c_args, w_args))
             timed["walk_v14"] = rec_w
         vs["compact_v14"].append(rec)
         vs["walk_v14"].append(rec_w)
@@ -1860,8 +1889,8 @@ def archive_phases(dev, streams):
             seg = 8192
             off = 300_000 // seg * seg
             flat = np.frombuffer(b"".join(datas[:k]), np.uint8)
-            lims = real_l(*seen["segment_lims"][-1][0][:6],
-                          -(-len(flat) // seg), seg_bytes=seg)[off // seg]
+            lims = ig.segment_lims(*l_args[:6], -(-len(flat) // seg),
+                                   seg_bytes=seg)[off // seg]
             call = (segment_buffer(flat, off, seg), lims.contiguous(),
                     *w_args[2:])
             got_s = lg.resolve_walk_v14(*call)
@@ -1873,7 +1902,41 @@ def archive_phases(dev, streams):
                 raise AssertionError("walk_v14: segment is not bit-exact")
             vs["walk_v14"].append({"shape": "segment", "seg_off": off,
                                    "seg_bytes": seg, "max_abs_err": err})
-        del got_c, got_w, c_args, w_args, seen, st, arrays
+        del got_c, got_w, c_args, w_args, l_args
+
+    # Rows 10a and 10c on the walk's adversarial shapes (a zero run of
+    # dist-1 matches, copies of copies, both merged with a text stream):
+    # exact against the plain twin and zlib, each with its ms and plain
+    # ms, row 10a also replayed from a CUDA graph.
+    for name, (strms, dts) in walk_case_streams(base).items():
+        mp, v9, n_seg, args = v11_inputs(strms)
+        got = lg.resolve_groups_v11(*args)
+        torch.cuda.synchronize()
+        err = same(f"groups_v11 at {name}", (got,),
+                   (lg.resolve_groups_v11_plain(*args),))
+        pm.check(body_of(got, n_seg * tp.SEG_BYTES), mp, dts)
+        vs["groups_v11"].append({
+            "shape": name, "streams": len(strms),
+            "out_bytes": mp.plan.out_size, "max_abs_err": err,
+            "ms": time_ms(lambda: lg.resolve_groups_v11(*args), 3),
+            "replay_ms": replay_ms(lambda: lg.resolve_groups_v11(*args)),
+            "plain_ms": time_ms(lambda: lg.resolve_groups_v11_plain(*args), 1),
+            **v11_work(mp, v9, args)})
+        del got, args, v9
+        mpf, c_args, w_args, _ = v14_inputs(strms)
+        got = lg.resolve_walk_v14(*w_args)
+        torch.cuda.synchronize()
+        err = same(f"walk_v14 at {name}", (got,),
+                   (lg.resolve_walk_v14_plain(*w_args),))
+        pm.check(body_of(got, mpf.plan.out_size), mpf, dts)
+        vs["walk_v14"].append({
+            "shape": name, "streams": len(strms),
+            "out_bytes": mpf.plan.out_size, "slots": mpf.plan.slots,
+            "max_abs_err": err,
+            "ms": time_ms(lambda: lg.resolve_walk_v14(*w_args), 3),
+            "plain_ms": time_ms(lambda: lg.resolve_walk_v14_plain(*w_args), 1),
+            **v14_work(c_args, w_args)})
+        del got, c_args, w_args
 
     # Row 10d: one stream's token tape from the tensor-op Phase A.
     one = build_merged_plan(streams[:1])
@@ -1972,11 +2035,15 @@ def archive_phases(dev, streams):
         "tape_v1": ("debigulator_tpu_torch/csrc/lz77_tape.cu",
                     "debigulator_tpu/ops/archive/lz77_generations.py:49"),
     }
+    # The resolvers whose matches go through the grid-wide chase.
+    via_chase = {"groups_v11", "walk_v14", "tape_v1"}
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = timed[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            **({"via": "debigulator_tpu_torch/csrc/chase.cuh"}
+               if name in via_chase else {}),
             "launches": launches[name], "max_abs_err": 0, "ms": rec["ms"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bytes"] / HBM_BYTES_PER_S * 1e3,
@@ -2587,7 +2654,7 @@ def main() -> int:
 
     # --- the fourth slice: the archived decode generations --------------
     torch.cuda.empty_cache()
-    kernels += archive_phases(dev, streams)
+    kernels += archive_phases(dev, base, streams)
 
     # --- the fifth slice: the archive and tool kernels with no caller ----
     torch.cuda.empty_cache()

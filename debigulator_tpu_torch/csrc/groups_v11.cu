@@ -14,24 +14,35 @@
 // The TPU kernel stages the words through SMEM, rolls 2-row windows into
 // place and stores masked rows, one segment per call with the window
 // carried.  Here the buffer holds every segment, memory is byte
-// addressable (one int32 per byte), and the work is:
-//  (a) lit_kernel, a thread per literal piece: literals read no output,
-//      so any order;
-//  (b) unpack_kernel, a thread per match slot: the piece as buffer
-//      position and len << 16 | dist;
-//  (c) the live pieces, which the wrapper has split into ranges that
-//      share no byte, each in slot order (the streams of a merged batch
-//      never meet, though a packed group may hold pieces of two), walked
-//      in chunks of 8, one CTA per range (lz77_chunks.cu).
+// addressable (one int32 per byte), and the work is two entries with
+// nothing read back between them:
+//  (a) lit_kernel (dbg_groups_v11_lits), a thread per literal piece:
+//      literals read no output, so any order;
+//  (b) chase::launch_list (dbg_groups_v11_chase, chase.cuh) over the match
+//      slots: `PieceRec` unpacks slot t's words itself (its segment from
+//      the group's first slot, a group never spanning segments) into a
+//      buffer position, length and distance, length 0 for padding and for
+//      a slot outside every segment; the pointer pass spreads the pieces'
+//      bytes, then the grid-wide chase resolves every body byte to the
+//      root of its chain of sources.  No slot order and no group order:
+//      the packer's pieces never overlap (DEFLATE output is written once)
+//      and every source lies below the byte it feeds, which is when the
+//      chase equals the in-order walk.  A source below the body (the
+//      window prologue, or with a one-row `lims` the previous segment's
+//      tail) has no flag and is final; one below 0 is skipped.  The
+//      buffer may hold any int32: pointers live in chase.cuh's side array.
 //
-// What bounds it on the H100: (a) and (b) bytes, the words and literals
-// read once; (c) latency (lz77_copy.cuh).
+// What bounds it on the H100: (a) bytes, the literal words and bytes read
+// once; (b) bytes and latency (chase.cuh), the piece words read once and
+// a 64-bit state and a bit per body byte.
 
+#include "chase.cuh"
 #include "lz77_copy.cuh"
 
 namespace {
 
 constexpr int kGroup = 8;
+constexpr int kBodyStart = 128 + 32768;
 
 struct Piece {
   int dst, len, src;
@@ -69,29 +80,39 @@ __global__ void lit_kernel(int* out, int64_t n_out,
   }
 }
 
-// Slot t's piece as buffer position and len << 16 | dist; meta 0 for a
-// slot outside every segment's range (its group's first slot decides: a
-// group never spans segments) and for a length-0 padding piece.
-__global__ void unpack_kernel(const int* __restrict__ lims, int n_seg,
-                              const int* __restrict__ gpos,
-                              const int* __restrict__ gmeta, int64_t n_slots,
-                              int* __restrict__ pdst, int* __restrict__ pmeta) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= n_slots) return;
-  const int seg = segment_of(lims, n_seg, 0, 1, t - t % kGroup);
-  int dst = 0, meta = 0;
-  if (seg >= 0) {
+}  // namespace
+
+// The record source of the chase's pointer pass, outside the unnamed
+// namespace: it is a template argument of a kernel.
+namespace groups_v11 {
+
+// Slot t's piece for chase::list_pointer_kernel: its buffer position
+// (segment-local position plus the segment's offset), clipped to the body
+// [kBodyStart, body_end) as lz77::clip_match clips; length 0 for a slot
+// outside every segment's range (its group's first slot decides) and for
+// a padding piece.
+struct PieceRec {
+  const int* __restrict__ lims;
+  int n_seg;
+  const int* __restrict__ gpos;
+  const int* __restrict__ gmeta;
+  int body_end;
+  __device__ __forceinline__ void operator()(int64_t t, int& dst, int& len,
+                                             int& dist) const {
+    const int seg = segment_of(lims, n_seg, 0, 1, t - t % kGroup);
+    if (seg < 0) return;
     const Piece p = unpack(gpos[t], gmeta[t]);
-    if (p.len > 0) {
-      dst = p.dst + lims[seg * 8 + 2] - lims[2];
-      meta = (p.len << 16) | (p.dst - p.src);
+    int d = p.dst + lims[seg * 8 + 2] - lims[2];
+    const int eff = lz77::clip_match(&d, p.len, kBodyStart, body_end);
+    if (eff > 0 && p.dst > p.src) {
+      dst = d;
+      len = eff;
+      dist = p.dst - p.src;
     }
   }
-  pdst[t] = dst;
-  pmeta[t] = meta;
-}
+};
 
-}  // namespace
+}  // namespace groups_v11
 
 extern "C" int dbg_groups_v11_lits(int* out, int64_t n_out, const int* lims,
                                    int n_seg, const int* lpos,
@@ -107,15 +128,14 @@ extern "C" int dbg_groups_v11_lits(int* out, int64_t n_out, const int* lims,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int dbg_groups_v11_unpack(const int* lims, int n_seg,
-                                     const int* gpos, const int* gmeta,
-                                     int64_t n_slots, int* pdst, int* pmeta,
-                                     cudaStream_t stream) {
-  if (n_slots > 0) {
-    const int threads = 256;
-    const int64_t blocks = (n_slots + threads - 1) / threads;
-    unpack_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-        lims, n_seg, gpos, gmeta, n_slots, pdst, pmeta);
-  }
-  return static_cast<int>(cudaGetLastError());
+// state: a 64-bit word per body byte (body_end - PAD - WINDOW), bits: a
+// bit per body byte, rounded up to whole 32-bit words; both scratch.
+extern "C" int dbg_groups_v11_chase(int* out, int body_end, const int* lims,
+                                    int n_seg, const int* gpos,
+                                    const int* gmeta, int64_t n_slots,
+                                    unsigned long long* state, unsigned* bits,
+                                    cudaStream_t stream) {
+  const groups_v11::PieceRec rec{lims, n_seg, gpos, gmeta, body_end};
+  return chase::launch_list(out, kBodyStart, body_end, rec, n_slots, state,
+                            bits, stream);
 }

@@ -1,11 +1,10 @@
 // In-order LZ77 match application for Hopper.  Its users: the match-list
-// resolver of ops/lz77.py (lz77_match.cu: copy_match, leading_ok), the flat
-// match-list walk of the archive resolvers (lz77_chunks.cu: clip_match and
-// walk_cells_kernel), the group walks (groups_v9.cu: leading_ok,
-// segment_of; groups_v11.cu: segment_of) and the two segment resolvers'
-// placement (lz77_tape.cu, lz77_ops.cu: clip_match only; their matches are
-// resolved by the grid-wide chase of chase.cuh, which keeps copy_match's
-// overlap rule).
+// resolver of ops/lz77.py (lz77_match.cu: copy_match, leading_ok), the group
+// walks (groups_v9.cu: leading_ok, segment_of) and clip_match or
+// segment_of for the resolvers whose matches the grid-wide chase of
+// chase.cuh resolves (lz77_tape.cu, lz77_ops.cu: clip_match; groups_v11.cu:
+// segment_of, clip_match; walk_v14.cu: clip_match).  The chase keeps
+// copy_match's overlap rule.
 //
 // A DEFLATE match copies `len` bytes from `dist` bytes back; matches must
 // take effect in stream order because a source may be bytes an earlier
@@ -20,17 +19,12 @@
 //    below dst, so the bytes read were final before the match began and
 //    the overlapping (dist < len) case needs no doubling;
 //  * one CTA of 32 warps walks a list in order.  A batch is the longest
-//    run of matches (or of cells) whose sources do not reach into what the
-//    batch itself writes; the batch copies in parallel, then one
-//    __syncthreads() makes its bytes visible to the next;
-//  * the chunk walk runs one CTA per independent range of chunks: a range
-//    starts at a chunk from which on no match reads below that chunk's
-//    first output position (every stream of a merged batch starts one), so
-//    the ranges share no bytes.  The wrapper finds the starts between the
-//    two launches.
+//    run of matches (or of groups) whose sources do not reach into what
+//    the batch itself writes; the batch copies in parallel, then one
+//    __syncthreads() makes its bytes visible to the next.
 //
-// What bounds it on the H100: latency.  A range's batches are serialised,
-// each costs about two L2 round trips, and a range uses one of 132 SMs.
+// What bounds it on the H100: latency.  A list's batches are serialised,
+// each costs about two L2 round trips, and a list uses one of 132 SMs.
 
 #pragma once
 
@@ -63,48 +57,6 @@ __device__ __forceinline__ int leading_ok(const int* s_ok) {
   return n;
 }
 
-// CTA k walks cells [bounds[k], bounds[k + 1]) in stream order (independent
-// ranges, see above).  Cell c holds kc[c] matches at
-// mpos/mmeta[c * slots ...] (buffer position, len << 16 | dist), already
-// clipped to the body; rmax[c] is one past the highest source byte any of
-// them reads and thr[c] a lower bound of every position that cell c or a
-// later cell writes.  A warp applies its cell's matches one after another;
-// cells b+1.. join cell b's batch while rmax <= thr[b], i.e. while they
-// read nothing the batch writes.
-__global__ void __launch_bounds__(kWalkThreads)
-walk_cells_kernel(int* out, int64_t limit, const int* __restrict__ mpos,
-                  const int* __restrict__ mmeta, const int* __restrict__ kc,
-                  const int* __restrict__ rmax, const int* __restrict__ thr,
-                  const int64_t* __restrict__ bounds, int slots) {
-  __shared__ int s_ok[kWalkWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int b = static_cast<int>(bounds[blockIdx.x]);
-  const int n_cells = static_cast<int>(bounds[blockIdx.x + 1]);
-  while (b < n_cells) {
-    const int c = b + warp;
-    int k = 0;
-    bool ok = false;
-    if (c < n_cells) {
-      k = kc[c];
-      ok = warp == 0 || k == 0 || rmax[c] <= thr[b];
-    }
-    if (lane == 0) s_ok[warp] = ok;
-    __syncthreads();
-    const int n = leading_ok(s_ok);
-    if (warp < n) {
-      const int64_t at = static_cast<int64_t>(c) * slots;
-      for (int j = 0; j < k; ++j) {
-        const int meta = mmeta[at + j];
-        copy_match(out, limit, mpos[at + j], meta >> 16, meta & 0xFFFF, lane);
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    b += n;
-  }
-}
-
 // Head and tail clip of a match at buffer position dst to the body
 // [body_start, body_end): the destination moves up, the length shrinks,
 // the distance stays.  Returns the clipped length (0: nothing to copy).
@@ -131,17 +83,6 @@ __device__ __forceinline__ int segment_of(const int* __restrict__ lims,
   }
   const int k = a - 1;
   return (k >= 0 && t < lims[k * 8 + hi]) ? k : -1;
-}
-
-inline int launch_walk_cells(int* out, int64_t limit, const int* mpos,
-                             const int* mmeta, const int* kc, const int* rmax,
-                             const int* thr, const int64_t* bounds,
-                             int n_ranges, int slots, cudaStream_t stream) {
-  if (n_ranges > 0) {
-    walk_cells_kernel<<<n_ranges, kWalkThreads, 0, stream>>>(
-        out, limit, mpos, mmeta, kc, rmax, thr, bounds, slots);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace lz77

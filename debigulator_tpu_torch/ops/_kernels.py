@@ -26,16 +26,15 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = {"phase_a": "phase_a.cu", "compact": "compact.cu", "walk": "walk.cu",
            "unfilter": "unfilter.cu", "greedy_walk": "greedy_walk.cu",
            "lz77_match": "lz77_match.cu", "lz77_tape": "lz77_tape.cu",
-           "lz77_ops": "lz77_ops.cu", "lz77_chunks": "lz77_chunks.cu",
-           "groups_v11": "groups_v11.cu", "compact_v14": "compact_v14.cu",
+           "lz77_ops": "lz77_ops.cu", "groups_v11": "groups_v11.cu",
+           "compact_v14": "compact_v14.cu",
            "walk_v14": "walk_v14.cu", "groups_v9": "groups_v9.cu",
            "microbench_pb": "microbench_pb.cu"}
 #: Headers a source includes: hashed with it, so an edit rebuilds it.
-HEADERS = {"walk": ["chase.cuh"], "lz77_tape": ["lz77_copy.cuh", "chase.cuh"],
-           "lz77_ops": ["lz77_copy.cuh", "chase.cuh"],
-           **{name: ["lz77_copy.cuh"]
-              for name in ("lz77_match", "lz77_chunks", "groups_v11",
-                           "groups_v9")}}
+HEADERS = {"walk": ["chase.cuh"],
+           **{name: ["lz77_copy.cuh", "chase.cuh"]
+              for name in ("lz77_tape", "lz77_ops", "groups_v11", "walk_v14")},
+           **{name: ["lz77_copy.cuh"] for name in ("lz77_match", "groups_v9")}}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -62,18 +61,17 @@ _ENTRIES = {
     "dbg_lz77_ops_chase": ("lz77_ops", [_P, _I32, _P, _P, _P, _I32, _I32, _P,
                                         _P]),
     "dbg_lz77_tape_v1_len": ("lz77_tape", [_P, _P, _I32, _I32, _P]),
-    "dbg_lz77_chunks_place": ("lz77_chunks", [_P, _P, _P, _P, _I32, _I32, _I32,
-                                              _I32, _I32, _P, _P, _P, _P, _P]),
-    "dbg_lz77_chunks_walk": ("lz77_chunks", [_P, _I64, _P, _P, _P, _P, _P, _P,
-                                             _I32, _I32]),
     "dbg_groups_v11_lits": ("groups_v11", [_P, _I64, _P, _I32, _P, _P, _I64,
                                            _P, _I64]),
-    "dbg_groups_v11_unpack": ("groups_v11", [_P, _I32, _P, _P, _I64, _P, _P]),
+    "dbg_groups_v11_chase": ("groups_v11", [_P, _I32, _P, _I32, _P, _P, _I64,
+                                            _P, _P]),
     "dbg_compact_v14": ("compact_v14", [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _I32, _I32, _P, _P, _P, _P, _I64, _P,
                                         _I64]),
     "dbg_walk_v14_runs": ("walk_v14", [_P, _I32, _I32, _P, _P, _I32, _I32, _P,
                                        _I64]),
+    "dbg_walk_v14_chase": ("walk_v14", [_P, _I32, _I32, _P, _P, _I32, _I32,
+                                        _P, _P]),
     "dbg_groups_v10_lits": ("groups_v9", [_P, _I64, _P, _I32, _P, _P, _I64,
                                           _P, _I64]),
     "dbg_groups_v9_walk": ("groups_v9", [_P, _I64, _P, _P, _P, _P, _I32]),

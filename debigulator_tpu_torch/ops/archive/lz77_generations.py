@@ -11,7 +11,7 @@ launch count:
 * ``compact_v14`` (replaces ``_compact_kernel_v14`` :893): each cell's
   match, run and literal records moved to precomputed dense offsets.
 * ``resolve_walk_v14`` (replaces ``_walk_kernel_v14`` :1015): the dense
-  lists applied: literal runs, then matches in stream order.
+  lists applied: literal runs, then the matches.
 * ``resolve_tape_v1`` (replaces ``_lz77_kernel`` :49, the counterpart of
   ``resolve_tape_pallas`` :806): the whole token tape to bytes.
 * ``resolve_matches`` and ``resolve_matches_v2`` (replace ``_match_kernel``
@@ -32,15 +32,19 @@ The wrappers return a new buffer and leave ``out_init`` as it was.
 
 On the card each resolver is a grid-wide pass for what reads no output
 (literal pieces, literal runs, literals of the tape), then a pass that
-applies the matches in order, a warp per chunk of 8 matches (or per cell
-of the tape, per match of a list, per group), up to 32 a batch, one CTA per
-range of matches that share no byte with another range (csrc/
-lz77_chunks.cu, lz77_tape.cu, lz77_match.cu, groups_v9.cu).  A wrapper adds
-one to its launch count in a call that launched a kernel, and nowhere
-else.  The plain versions place the literals, point every match byte at
-its source byte and follow the pointers by doubling (ops.lz77.
-_apply_copies_plain; for the group resolvers, whose loads precede their
-group's stores, ``_group_walk_plain``).
+resolves the matches.  Rows 10a and 10c (host-fed groups, v14 walk) and
+the v1 tape hand theirs to the grid-wide source chase of csrc/chase.cuh: a
+pointer for every match byte, then every body byte chased to its root, in
+no order, with nothing read back between the launches (csrc/groups_v11.cu,
+walk_v14.cu, lz77_tape.cu).  The archived match lists and groups keep an
+in-order walk, a warp per match or group, up to 32 a batch (csrc/
+lz77_match.cu; groups_v9.cu, one CTA per range of groups that share no
+byte with another range).  A wrapper adds one to its launch count in a
+call that launched a kernel, and nowhere else.  The plain versions place
+the literals, point every match byte at its source byte and follow the
+pointers by doubling (ops.lz77._apply_copies_plain; for the group
+resolvers, whose loads precede their group's stores,
+``_group_walk_plain``).
 """
 
 from __future__ import annotations
@@ -138,73 +142,6 @@ def resolve_groups_v11_plain(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
     return out.view_as(out_init)
 
 
-def _chunks(n: int, starts: torch.Tensor):
-    """Cut a list of n entries in a valid order into chunks of at most
-    V9_GROUP that never cross a range start.  starts: sorted first entries
-    of the independent ranges (the first is taken as 0).  Returns (first,
-    end) int32 per chunk and the (n_ranges + 1,) int64 chunk bounds of the
-    ranges (one host read-back: the chunk count)."""
-    starts = starts.long().clone()
-    starts[0] = 0
-    ends = torch.cat([starts[1:], starts.new_full((1,), n)])
-    n_ch = (ends - starts + V9_GROUP - 1).clamp(min=0) // V9_GROUP
-    bounds = torch.cat([n_ch.new_zeros(1), torch.cumsum(n_ch, 0)])
-    rng = torch.repeat_interleave(torch.arange(starts.numel(),
-                                               device=starts.device), n_ch)
-    first = starts[rng] + (torch.arange(rng.numel(), device=starts.device)
-                           - bounds[rng]) * V9_GROUP
-    end = torch.minimum(first + V9_GROUP, ends[rng])
-    return first.to(torch.int32), end.to(torch.int32), bounds
-
-
-def _independent_order(dst, length, dist):
-    """Split a match list in a valid order into ranges that share no byte.
-    Each match touches the span [dst - dist, dst + len); a range is a run
-    of spans, taken by source position, that overlap or touch, so no match
-    of one range reads or writes a byte of another (the streams of a
-    merged batch are such ranges).  Returns (order, starts): the list's
-    indices range by range, each range in its original order, and each
-    range's first place in that order."""
-    src = dst - dist
-    by_src = torch.argsort(src, stable=True)
-    reach = torch.cummax((dst + length)[by_src], 0).values
-    new = torch.ones_like(by_src, dtype=torch.bool)
-    new[1:] = src[by_src][1:] >= reach[:-1]
-    comp = torch.empty_like(by_src)
-    comp[by_src] = torch.cumsum(new, 0) - 1
-    key, order = torch.sort(comp, stable=True)
-    return order, torch.nonzero(torch.diff(key, prepend=key[:1] - 1))[:, 0]
-
-
-def _walk_chunks(out, dst, meta, base_adj: int, body_end: int) -> bool:
-    """Apply a match list in a valid order (position dst + base_adj; meta:
-    len in bits 16-24, dist in bits 0-15), clipped to [BODY_START,
-    body_end): its independent ranges (``_independent_order``) cut into
-    chunks of at most V9_GROUP (``_chunks``), each chunk's clipped matches
-    listed, then walked, one CTA per range (csrc/lz77_chunks.cu).  Returns
-    whether it launched (not for an empty list)."""
-    if dst.numel() == 0:
-        return False
-    m = meta.long()
-    order, starts = _independent_order(dst.long(), (m >> 16) & 0x1FF,
-                                       m & 0xFFFF)
-    dst, meta = dst[order].contiguous(), meta[order].contiguous()
-    first, end, bounds = _chunks(dst.numel(), starts)
-    n = first.numel()
-    mlist = torch.empty((2, n * V9_GROUP), dtype=torch.int32,
-                        device=out.device)
-    kc, rmax, dmin = torch.empty((3, n), dtype=torch.int32, device=out.device)
-    _kernels.launch("dbg_lz77_chunks_place", dst, meta, first, end, n,
-                    V9_GROUP, base_adj, BODY_START, body_end, mlist[0],
-                    mlist[1], kc, rmax, dmin)
-    # The walk batches chunks b.. while they read below every byte that
-    # chunk b or a later one writes.
-    thr = lz.suffix_min(dmin).contiguous()
-    _kernels.launch("dbg_lz77_chunks_walk", out, body_end, mlist[0], mlist[1],
-                    kc, rmax, thr, bounds, bounds.numel() - 1, V9_GROUP)
-    return True
-
-
 def resolve_groups_v11(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
     """Resolve host-fed segments: literal pieces, then match groups.
 
@@ -220,12 +157,14 @@ def resolve_groups_v11(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
     group do not read what the group writes.  The reference's
     ``seg_bytes`` argument is not taken: the offsets come from ``lim``.
 
-    CUDA kernels (csrc/groups_v11.cu): a thread per literal piece; a
-    thread per match slot unpacks its words to (dst, len, dist); the live
-    pieces, split into ranges that share no byte (each in slot order: the
-    streams of a merged batch never meet, though a packed group may hold
-    pieces of two), then run in chunks of 8, a warp per chunk, one CTA per
-    range (csrc/lz77_chunks.cu).
+    CUDA kernels (csrc/groups_v11.cu), two launches with nothing read
+    back between them: a thread per literal piece; then the grid-wide
+    source chase (csrc/chase.cuh), whose pointer pass unpacks each match
+    slot's words itself and spreads the live pieces' bytes over the lanes,
+    and whose chase resolves every body byte to the root of its chain of
+    sources.  No slot or group order is needed: the packer's pieces never
+    overlap and each reads below what it writes.  ``out_init`` may hold
+    any int32 values.
     """
     _check_i32(out_init, lim, gpos, gmeta, lpos, lmeta, lit)
     body_end = _body_end(out_init)
@@ -239,17 +178,15 @@ def resolve_groups_v11(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
     out = out_init.clone()
     lims = lim.reshape(-1, 8).contiguous()
     n_seg = lims.shape[0]
-    if lpos.numel():
+    lits, chase = lpos.numel() > 0, gpos.numel() > 0 and body_end > BODY_START
+    if lits:
         _kernels.launch("dbg_groups_v11_lits", out, out.numel(), lims, n_seg,
                         lpos, lmeta, lpos.numel(), lit, lit.numel())
-    if gpos.numel():
-        pdst, pmeta = torch.empty((2, gpos.numel()), dtype=torch.int32,
-                                  device=out.device)
-        _kernels.launch("dbg_groups_v11_unpack", lims, n_seg, gpos, gmeta,
-                        gpos.numel(), pdst, pmeta)
-        live = torch.nonzero(pmeta != 0)[:, 0]
-        _walk_chunks(out, pdst[live], pmeta[live], 0, body_end)
-    if lpos.numel() or gpos.numel():
+    if chase:
+        _kernels.launch("dbg_groups_v11_chase", out, body_end, lims, n_seg,
+                        gpos, gmeta, gpos.numel(),
+                        *lz.chase_state(body_end, out.device))
+    if lits or chase:
         resolve_groups_v11.launches += 1
     return out
 
@@ -383,10 +320,13 @@ def resolve_walk_v14(out_init, lims, mdst, mmeta, rdst, rmeta, lit2d):
     the whole literal array and needs no hint.  The reference's ``slots``
     argument (its staging size) is not taken.
 
-    CUDA kernels (csrc/walk_v14.cu): a thread per run; the matches, split
-    into ranges that share no byte (the streams of a merged batch), a
-    thread per 8 of one range clips them; they then run in stream order,
-    a warp per 8, one CTA per range (csrc/lz77_chunks.cu).
+    CUDA kernels (csrc/walk_v14.cu), two launches with nothing read back
+    between them: a thread per run; then the grid-wide source chase
+    (csrc/chase.cuh), whose pointer pass reads and clips each dense match
+    itself and spreads its bytes over the lanes, and whose chase resolves
+    every body byte to the root of its chain of sources.  No stream order
+    is needed: the matches never overlap and each reads below what it
+    writes.  ``out_init`` may hold any int32 values.
     """
     _check_i32(out_init, lims, mdst, mmeta, rdst, rmeta, lit2d)
     if mdst.numel() != mmeta.numel() or rdst.numel() != rmeta.numel():
@@ -396,13 +336,15 @@ def resolve_walk_v14(out_init, lims, mdst, mmeta, rdst, rmeta, lit2d):
                                       rmeta, lit2d)
     m_lo, m_hi, r_lo, r_hi, base_adj, body_end = _walk_limits(out_init, lims)
     out = out_init.clone()
-    runs = r_hi > r_lo
+    runs, chase = r_hi > r_lo, m_hi > m_lo and body_end > BODY_START
     if runs:
         _kernels.launch("dbg_walk_v14_runs", out, body_end, base_adj, rdst,
                         rmeta, r_lo, r_hi, lit2d, lit2d.numel())
-    walked = _walk_chunks(out, mdst.reshape(-1)[m_lo:m_hi],
-                          mmeta.reshape(-1)[m_lo:m_hi], base_adj, body_end)
-    if runs or walked:
+    if chase:
+        _kernels.launch("dbg_walk_v14_chase", out, body_end, base_adj, mdst,
+                        mmeta, m_lo, m_hi,
+                        *lz.chase_state(body_end, out.device))
+    if runs or chase:
         resolve_walk_v14.launches += 1
     return out
 
@@ -655,6 +597,25 @@ def _group_walk_plain(out, dst, length, src, group) -> None:
     last = torch.ones(e, dtype=torch.bool, device=out.device)
     last[:-1] = p[1:] != p[:-1]
     out[p[last]] = vals[ptr[:e][last]]
+
+
+def _independent_order(dst, length, dist):
+    """Split a match list in a valid order into ranges that share no byte.
+    Each match touches the span [dst - dist, dst + len); a range is a run
+    of spans, taken by source position, that overlap or touch, so no match
+    of one range reads or writes a byte of another (the streams of a
+    merged batch are such ranges).  Returns (order, starts): the list's
+    indices range by range, each range in its original order, and each
+    range's first place in that order."""
+    src = dst - dist
+    by_src = torch.argsort(src, stable=True)
+    reach = torch.cummax((dst + length)[by_src], 0).values
+    new = torch.ones_like(by_src, dtype=torch.bool)
+    new[1:] = src[by_src][1:] >= reach[:-1]
+    comp = torch.empty_like(by_src)
+    comp[by_src] = torch.cumsum(new, 0) - 1
+    key, order = torch.sort(comp, stable=True)
+    return order, torch.nonzero(torch.diff(key, prepend=key[:1] - 1))[:, 0]
 
 
 def _walk_groups(out, dst, length, dist, group) -> bool:

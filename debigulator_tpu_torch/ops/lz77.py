@@ -154,16 +154,21 @@ def _segment(out_init, cell_lo, cell_hi, seg_off, cells_tot: int):
     return lo, max(hi, lo), BODY_START - _scalar(seg_off), body_end
 
 
+def chase_state(body_end: int, device):
+    """The chase's own scratch (csrc/chase.cuh): a 64-bit state (pointer,
+    then value) and a bit for every body byte."""
+    n_body = body_end - BODY_START
+    return (torch.empty(n_body, dtype=torch.int64, device=device),
+            torch.empty(-(-n_body // 32), dtype=torch.int32, device=device))
+
+
 def _chase_scratch(n: int, slots: int, body_end: int, device):
     """What the placement kernel leaves for the chase, the per-cell match
-    lists (position, meta) and per cell the match count, and the chase's
-    own scratch: a 64-bit state (pointer, then value) and a bit for every
-    body byte."""
-    n_body = body_end - BODY_START
+    lists (position, meta) and per cell the match count, then the chase's
+    own scratch (``chase_state``)."""
     return (torch.empty((2, n * slots), dtype=torch.int32, device=device),
             torch.empty(n, dtype=torch.int32, device=device),
-            torch.empty(n_body, dtype=torch.int64, device=device),
-            torch.empty(-(-n_body // 32), dtype=torch.int32, device=device))
+            *chase_state(body_end, device))
 
 
 def _chase(entry: str, out, body_end: int, mlist, kc, n: int, slots: int,
@@ -173,11 +178,6 @@ def _chase(entry: str, out, body_end: int, mlist, kc, n: int, slots: int,
     kinc = torch.cumsum(kc, 0, dtype=torch.int32)
     _kernels.launch(entry, out, body_end, mlist[0], mlist[1], kinc, n, slots,
                     state, bits)
-
-
-def suffix_min(x: torch.Tensor) -> torch.Tensor:
-    """out[i] = min(x[i:])."""
-    return torch.flip(torch.cummin(torch.flip(x, [0]), 0).values, [0])
 
 
 def _clip_matches(dst, mlen, body_end: int):

@@ -26,7 +26,15 @@ from debigulator_tpu_torch.ops.archive import host_fed as hf
 from debigulator_tpu_torch.ops.archive import inflate_generations as ig
 from debigulator_tpu_torch.ops.archive import lz77_generations as lzgen
 from debigulator_tpu_torch.parallel import merged as tm
-from torch_stream_cases import STREAMS, deflate, ensure_reference_native, words
+from torch_stream_cases import (
+    STREAMS,
+    by_segment,
+    deflate,
+    ensure_reference_native,
+    nested_copies,
+    segments_init,
+    words,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -230,6 +238,56 @@ def test_resolve_groups_v11_one_segment(seg):
     body = got.view(-1)[lzgen.BODY_START : lzgen.BODY_START + seg_bytes]
     n = min(seg_bytes, len(data) - off)
     assert np.array_equal(body[:n].numpy(), data[off : off + n])
+
+
+#: name -> (data, first segment, segments in the call, odd buffer); 4 KiB
+#: segments.
+GROUPS_V11_CASES = {
+    "zero_run": (lambda: bytes(12_288), 0, 3, False),
+    "copies_of_copies": (lambda: nested_copies(12_288), 0, 3, False),
+    "segments": (lambda: words(3000, seed=5) + _text(4, 6000), 1, 3, False),
+    "odd_init": (lambda: words(3000, seed=5) + _text(4, 6000), 2, 2, True),
+}
+
+
+@pytest.mark.parametrize("name", list(GROUPS_V11_CASES))
+def test_resolve_groups_v11_chase_cases(name):
+    """What the card's chase changes against the in-order kernel: a zero
+    run of dist-1 matches (the packer's doubling pieces), copies of
+    copies, several segments in one call (sources in the segment before
+    and in the window), and a buffer with -1 in its pad row, bodies and
+    slack and values above 255 in its window.  The port's one call over
+    the segments against the JAX kernel in interpret mode, one call a
+    segment with the window carried; bit-exact, and equal to the data
+    where the window is the data."""
+    make, k0, n, odd = GROUPS_V11_CASES[name]
+    data = make()
+    stream = deflate(data, 9)
+    flat = np.frombuffer(data, np.uint8)
+    seg = 4096
+    mp = ref_merged.build_merged_plan([stream], records=True)
+    v9 = ref_hf.build_piece_arrays(mp.recs, -(-len(flat) // seg),
+                                   seg_bytes=seg)
+    lims = _np(v9["lims"])
+    init = segments_init(flat, k0, n, seg, odd)
+
+    def ref_call(buf, i):
+        return ref_lzgen.resolve_groups_v11(
+            jnp.asarray(buf), jnp.asarray(lims[k0 + i]), v9["gpos"],
+            v9["gmeta"], v9["lpos"], v9["lmeta"], v9["lit"], seg_bytes=seg,
+            interpret=True)
+
+    want = by_segment(ref_call, init, n, seg)
+    t = {k: torch.from_numpy(_np(v).copy()) for k, v in v9.items()}
+    got = lzgen.resolve_groups_v11(
+        torch.from_numpy(init), torch.from_numpy(lims[k0 : k0 + n].copy()),
+        t["gpos"], t["gmeta"], t["lpos"], t["lmeta"], t["lit"])
+    assert np.array_equal(got.numpy(), want)
+    if not odd:
+        off = k0 * seg
+        m = min(n * seg, len(flat) - off)
+        body = got.view(-1)[lzgen.BODY_START : lzgen.BODY_START + m]
+        assert np.array_equal(body.numpy(), flat[off : off + m])
 
 
 V10_CASES = {

@@ -6,6 +6,7 @@ import subprocess
 import sys
 import zlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -221,11 +222,9 @@ def _c_params(entry: str) -> list[str]:
                                    "dbg_lz77_tape_place", "dbg_lz77_tape_chase",
                                    "dbg_lz77_ops_place", "dbg_lz77_ops_chase",
                                    "dbg_lz77_tape_v1_len",
-                                   "dbg_lz77_chunks_place",
-                                   "dbg_lz77_chunks_walk",
                                    "dbg_groups_v11_lits",
-                                   "dbg_groups_v11_unpack", "dbg_compact_v14",
-                                   "dbg_walk_v14_runs",
+                                   "dbg_groups_v11_chase", "dbg_compact_v14",
+                                   "dbg_walk_v14_runs", "dbg_walk_v14_chase",
                                    "dbg_groups_v10_lits",
                                    "dbg_groups_v9_walk", "dbg_microbench_pb"])
 def test_ctypes_declarations_match_c_entries(entry):
@@ -308,9 +307,9 @@ def test_archive_wrappers_count_launches_only_on_the_card(wrapper):
     _archive_calls()[wrapper]()
     assert fn.launches == before
     entries = [e for e, (lib, _) in _kernels._ENTRIES.items()
-               if lib in {"resolve_groups_v11": ("groups_v11", "lz77_chunks"),
+               if lib in {"resolve_groups_v11": ("groups_v11",),
                           "compact_v14": ("compact_v14",),
-                          "resolve_walk_v14": ("walk_v14", "lz77_chunks"),
+                          "resolve_walk_v14": ("walk_v14",),
                           "resolve_tape_v1": ("lz77_tape",),
                           "resolve_matches": ("lz77_match",),
                           "resolve_matches_v2": ("lz77_match",),
@@ -379,6 +378,90 @@ def test_archive_wrappers_count_only_calls_that_launch(monkeypatch, wrapper,
     _archive_card_calls(empty)[wrapper]()
     assert bool(made) is not empty
     assert fn.launches == before + (not empty)
+
+
+def _chase_card_calls():
+    """resolve_groups_v11 and resolve_walk_v14 on CPU tensors with literal
+    and match pieces (runs and matches) to resolve: one live piece of 3
+    bytes at distance 1 in slot range [0, 8), one literal piece; one run
+    and one match in the dense lists."""
+    from debigulator_tpu_torch.ops.archive import host_fed
+    from debigulator_tpu_torch.ops.archive import lz77_generations as lg
+
+    i32 = torch.int32
+    buf = torch.zeros((lg.BODY_START // 128 + 8, 128), dtype=i32)
+    start = lg.BODY_START
+
+    def words(dst, ln, src):
+        w0, w1 = host_fed._pack_piece_words(np.array(dst), np.array(ln),
+                                            np.array(src))
+        out = torch.zeros((2, 1, 128), dtype=i32)
+        out[0, 0, : len(dst)] = torch.from_numpy(w0.astype(np.int32))
+        out[1, 0, : len(dst)] = torch.from_numpy(w1.astype(np.int32))
+        return out[0], out[1]
+
+    gpos, gmeta = words([start + 1], [3], [start])
+    lpos, lmeta = words([start], [1], [128])
+    lim = torch.tensor([0, 8, 0, 0, 8, 0, 0, 0], dtype=i32)
+    lit = torch.full((1, 128), 7, dtype=i32)
+    mdst = torch.tensor([[1] + [0] * 127], dtype=i32)
+    mmeta = torch.tensor([[(3 << 16) | 1] + [0] * 127], dtype=i32)
+    rdst = torch.zeros((1, 128), dtype=i32)
+    rmeta = torch.tensor([[1] + [0] * 127], dtype=i32)
+    lims = torch.tensor([0, 1, 0, 1, 0, 0, 0, 0], dtype=i32)
+    return {
+        "resolve_groups_v11": lambda: lg.resolve_groups_v11(
+            buf, lim, gpos, gmeta, lpos, lmeta, lit),
+        "resolve_walk_v14": lambda: lg.resolve_walk_v14(
+            buf, lims, mdst, mmeta, rdst, rmeta, lit),
+    }
+
+
+@pytest.mark.parametrize("wrapper,entries", [
+    ("resolve_groups_v11", ["dbg_groups_v11_lits", "dbg_groups_v11_chase"]),
+    ("resolve_walk_v14", ["dbg_walk_v14_runs", "dbg_walk_v14_chase"])])
+def test_chase_wrappers_launch_the_chase_and_read_nothing_back(monkeypatch,
+                                                              wrapper,
+                                                              entries):
+    """The card's branch of the two archive resolvers on the grid-wide
+    chase, taken here on CPU tensors with the launches recorded: exactly
+    the literal entry, then the chase entry (no in-order walk), each with
+    as many arguments as its C entry takes, the chase given a 64-bit state
+    and a bit for every body byte; and nothing read back to the host
+    after the first launch."""
+    from debigulator_tpu_torch.ops import _kernels
+    from debigulator_tpu_torch.ops.archive import lz77_generations as lg
+
+    calls = _chase_card_calls()[wrapper]
+    made = []
+
+    def refuse_after_launch(real):
+        def guarded(*a, **k):
+            if made:
+                raise AssertionError("read back to the host between launches")
+            return real(*a, **k)
+
+        return guarded
+
+    monkeypatch.setattr(lg, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "launch",
+                        lambda entry, *a: made.append((entry, a)))
+    for name in ("item", "tolist", "__bool__", "__int__", "cpu", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name,
+                            refuse_after_launch(getattr(torch.Tensor, name)))
+    monkeypatch.setattr(torch, "nonzero", refuse_after_launch(torch.nonzero))
+    fn = getattr(lg, wrapper)
+    before = fn.launches
+    calls()
+    monkeypatch.undo()
+    assert [e for e, _ in made] == entries
+    assert fn.launches == before + 1
+    for entry, args in made:
+        assert len(args) == len(_kernels._ENTRIES[entry][1])
+    state, bits = made[1][1][-2:]
+    n_body = 4 * 128
+    assert state.dtype == torch.int64 and state.numel() == n_body
+    assert bits.dtype == torch.int32 and bits.numel() == n_body // 32
 
 
 @pytest.mark.parametrize("entry", ["dbg_scan", "dbg_scan2", "dbg_pack_groups"])

@@ -23,7 +23,15 @@ from debigulator_tpu_torch.ops import plan as tp
 from debigulator_tpu_torch.ops.archive import inflate_generations as ig
 from debigulator_tpu_torch.ops.archive import lz77_generations as lzgen
 from debigulator_tpu_torch.ops.scanner import scan_stream_cells
-from torch_stream_cases import STREAMS, deflate, ensure_reference_native, words
+from torch_stream_cases import (
+    STREAMS,
+    by_segment,
+    deflate,
+    ensure_reference_native,
+    nested_copies,
+    segments_init,
+    words,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -162,6 +170,69 @@ def test_resolve_walk_v14_segment(monkeypatch, seg):
     body = got.view(-1)[lzgen.BODY_START : lzgen.BODY_START + seg_bytes]
     n = min(seg_bytes, len(data) - off)
     assert np.array_equal(body[:n].numpy(), data[off : off + n])
+
+
+def _segment_text():
+    return words(6000, seed=12) + bytes(range(256)) * 8
+
+
+#: name -> (data, first segment, segments in the call, odd buffer); 8 KiB
+#: segments.
+WALK_V14_CASES = {
+    "zero_run": (lambda: bytes(24_576), 0, 3, False),
+    "copies_of_copies": (lambda: nested_copies(24_576), 0, 3, False),
+    "segments": (_segment_text, 1, 3, False),
+    "odd_init": (_segment_text, 2, 2, True),
+}
+
+
+@pytest.mark.parametrize("name", list(WALK_V14_CASES))
+def test_resolve_walk_v14_chase_cases(monkeypatch, name):
+    """What the card's chase changes against the in-order kernel: a zero
+    run of dist-1 matches (chains one hop per 258 bytes), copies of
+    copies, several segments in one call (sources in the segment before,
+    a match head-clipped at the body start), and a buffer with -1 in its
+    pad row, bodies and slack and values above 255 in its window.  The
+    port's one call over the segments against the JAX kernel in interpret
+    mode, one call a segment with the window carried; bit-exact, and equal
+    to the data where the window is the data."""
+    make, k0, n, odd = WALK_V14_CASES[name]
+    data = make()
+    flat = np.frombuffer(data, np.uint8)
+    *_, seen = _port_v14(monkeypatch, deflate(data, 9))
+    _, _, mdst, mmeta, rdst, rmeta, lit_d = seen["resolve_walk_v14"][0]
+    slots = seen["compact_v14"][0][-1]
+    seg = 8192
+    lims = ig.segment_lims(*seen["segment_lims"][0][:6], -(-len(flat) // seg),
+                           seg_bytes=seg)
+    call = lims[k0 : k0 + n].contiguous()
+    # A call from the middle of the stream holds a match that begins
+    # before its body (head-clipped); one from the start holds none.
+    at = slice(int(call[0, 0]), int(call[-1, 1]))
+    pos = mdst.view(-1)[at].long() - int(call[0, 4])
+    end = pos + ((mmeta.view(-1)[at].long() >> 16) & 0x1FF)
+    assert bool(((pos < 0) & (end > 0)).any()) == (k0 > 0)
+    init = segments_init(flat, k0, n, seg, odd)
+    lit_ref = np.zeros((lit_d.shape[0] + ref_lzgen.V14_LIT_ROWS, 128),
+                       np.int32)
+    lit_ref[: lit_d.shape[0]] = lit_d.numpy()
+    lists = [jnp.asarray(t.numpy()) for t in (mdst, mmeta, rdst, rmeta)]
+    rows = lims.numpy()
+
+    def ref_call(buf, i):
+        return ref_lzgen.resolve_walk_v14(
+            jnp.asarray(buf), jnp.asarray(rows[k0 + i]), *lists,
+            jnp.asarray(lit_ref), slots, interpret=True)
+
+    want = by_segment(ref_call, init, n, seg)
+    got = lzgen.resolve_walk_v14(torch.from_numpy(init), call, mdst, mmeta,
+                                 rdst, rmeta, lit_d)
+    assert np.array_equal(got.numpy(), want)
+    if not odd:
+        off = k0 * seg
+        m = min(n * seg, len(flat) - off)
+        body = got.view(-1)[lzgen.BODY_START : lzgen.BODY_START + m]
+        assert np.array_equal(body.numpy(), flat[off : off + m])
 
 
 def test_inflate_v14_against_the_jit():

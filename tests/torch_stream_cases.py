@@ -58,6 +58,57 @@ def words(n, seed=4, vocab=(b"merge ", b"batch ", b"op ", b"tape ", b"\n")):
                     for v in rng.integers(0, len(vocab), n))
 
 
+def nested_copies(n: int, seed: int = 11) -> bytes:
+    """n bytes of 64-byte blocks, each a copy of the one before with one
+    byte changed: a stream of copies of copies."""
+    rng = np.random.default_rng(seed)
+    cur = bytearray(rng.integers(0, 256, 64, dtype=np.uint8).tobytes())
+    out = bytearray()
+    for r in rng.integers(0, 64 * 256, -(-n // 64)):
+        out += cur
+        cur[r % 64] = r // 64
+    return bytes(out[:n])
+
+
+def by_segment(call, init: np.ndarray, n_seg: int, seg_bytes: int,
+               pad: int = 128, window: int = 32768) -> np.ndarray:
+    """A segment resolver of the JAX package, one call a segment, over a
+    buffer that holds n_seg bodies one after another: (pad row, window,
+    n_seg * seg_bytes, slack rows), flat int32.  Segment i is resolved in
+    a buffer of its own (the pad row, the 32 KiB before its body, its body,
+    the slack rows) by call(buffer_2d, i), and every part is copied back,
+    so segment i + 1's window holds what segment i wrote."""
+    flat = init.reshape(-1).copy()
+    body0 = pad + window
+    slack = slice(body0 + n_seg * seg_bytes, None)
+    for i in range(n_seg):
+        win = slice(pad + i * seg_bytes, body0 + (i + 1) * seg_bytes)
+        one = np.concatenate([flat[:pad], flat[win], flat[slack]])
+        got = np.asarray(call(one.reshape(-1, 128), i)).reshape(-1)
+        flat[:pad] = got[:pad]
+        flat[win] = got[pad : pad + window + seg_bytes]
+        flat[slack] = got[pad + window + seg_bytes :]
+    return flat.reshape(init.shape)
+
+
+def segments_init(data: np.ndarray, k0: int, n: int, seg_bytes: int,
+                  odd: bool, pad: int = 128, w: int = 32768) -> np.ndarray:
+    """A buffer for segments k0..k0+n-1 of `data`: pad row, the 32 KiB
+    before segment k0 as the window, n zero bodies, 4 slack rows.  With
+    `odd`, -1 in the pad row, the bodies and the slack rows, and values
+    above 255 (every seventh -1) in the window instead of the data."""
+    init = np.zeros(pad + w + n * seg_bytes + 512, np.int32)
+    if odd:
+        init[:] = -1
+        init[pad : pad + w] = np.random.default_rng(7).integers(256, 1 << 20, w)
+        init[pad : pad + w : 7] = -1
+    else:
+        off = k0 * seg_bytes
+        tail = data[max(0, off - w) : off].astype(np.int32)
+        init[pad + w - len(tail) : pad + w] = tail
+    return init.reshape(-1, 128)
+
+
 def _dynamic():
     return deflate(words(3000, seed=7))
 
