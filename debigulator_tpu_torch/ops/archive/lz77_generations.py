@@ -61,8 +61,8 @@ PAD = lz.PAD
 WINDOW = lz.WINDOW
 BODY_START = lz.BODY_START
 SLACK_ROWS = lz.SLACK_ROWS
-#: Pieces per packed group (kGroup in native/dbg_native.cpp), matches per
-#: v14 clean-bit group, and matches per chunk of the walks.
+#: Pieces per packed group (kGroup in native/dbg_native.cpp) and matches
+#: per v14 clean-bit group.
 V9_GROUP = 8
 #: Piece-word rows per stage: the piece arrays are padded to a multiple of
 #: it plus two stages (merged._pad_rec_rows).
