@@ -130,6 +130,10 @@ OPS_PER_SYMBOL = 120
 
 N_STREAMS = 29
 BASE_BYTES = 561_872
+#: The hand-made shapes of group_case, and the group chase's scratch per
+#: buffer byte (the last and first writer, int32, and a 64-bit state).
+GROUP_SHAPES = ("clashing", "two_writer", "many_writer")
+GROUP_SCRATCH_BYTES = 16
 
 
 def emit(obj) -> None:
@@ -1820,6 +1824,7 @@ def archive_phases(dev, base, streams):
             rec["plain_ms"] = time_ms(
                 lambda: lg.resolve_groups_v11_plain(*args), 1)
             rec.update(v11_work(mp, v9, args))
+            rec["scratch_bytes"] = GROUP_SCRATCH_BYTES * args[0].numel()
             timed["groups_v11"] = rec
         vs["groups_v11"].append(rec)
         if label == "small":
@@ -1921,6 +1926,7 @@ def archive_phases(dev, base, streams):
             "ms": time_ms(lambda: lg.resolve_groups_v11(*args), 3),
             "replay_ms": replay_ms(lambda: lg.resolve_groups_v11(*args)),
             "plain_ms": time_ms(lambda: lg.resolve_groups_v11_plain(*args), 1),
+            "scratch_bytes": GROUP_SCRATCH_BYTES * args[0].numel(),
             **v11_work(mp, v9, args)})
         del got, args, v9
         mpf, c_args, w_args, _ = v14_inputs(strms)
@@ -1937,6 +1943,13 @@ def archive_phases(dev, base, streams):
             "plain_ms": time_ms(lambda: lg.resolve_walk_v14_plain(*w_args), 1),
             **v14_work(c_args, w_args)})
         del got, c_args, w_args
+
+    # Row 10a on hand-made lists that break the packer's rules
+    # (group_case): the group semantics against the plain twin.
+    for shape in GROUP_SHAPES:
+        vs["groups_v11"].append(group_shape_record(
+            dev, "v11", shape, lg.resolve_groups_v11,
+            lg.resolve_groups_v11_plain))
 
     # Row 10d: one stream's token tape from the tensor-op Phase A.
     one = build_merged_plan(streams[:1])
@@ -2035,16 +2048,18 @@ def archive_phases(dev, base, streams):
         "tape_v1": ("debigulator_tpu_torch/csrc/lz77_tape.cu",
                     "debigulator_tpu/ops/archive/lz77_generations.py:49"),
     }
-    # The resolvers whose matches go through the grid-wide chase.
-    via_chase = {"groups_v11", "walk_v14", "tape_v1"}
+    # The resolvers whose matches go through a grid-wide chase.
+    via_chase = {"groups_v11": GROUP_CHASE_VIA,
+                 "walk_v14": "debigulator_tpu_torch/csrc/chase.cuh",
+                 "tape_v1": "debigulator_tpu_torch/csrc/chase.cuh"}
     kernels = []
     for name, (src, replaces) in sources.items():
         rec = timed[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            **({"via": "debigulator_tpu_torch/csrc/chase.cuh"}
-               if name in via_chase else {}),
+            **({"via": via_chase[name]} if name in via_chase else {}),
             "launches": launches[name], "max_abs_err": 0, "ms": rec["ms"],
+            **{k: rec[k] for k in ("replay_ms", "scratch_bytes") if k in rec},
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": rec.get("library_ms")})
@@ -2092,7 +2107,124 @@ def match_list_case(dev, seed: int = 0, body: int = 60_000):
                  for a in (buf, pos, meta))
 
 
-def archive_kernel_phases(dev, streams):
+def group_case(dev, version: str, shape: str, seed: int = 0):
+    """A hand-made piece list for the group resolvers (rows 10g, 10h and
+    10a) that the packer never makes, over one 512 KiB segment of random
+    bytes, as the wrapper of `version` ("v9", "v10", "v11") takes it:
+    * clashing: 16,384 groups of 8 random pieces reading up to 700 bytes
+      back, distance 0 included, so pieces read what their own group and
+      later groups write and bytes are written many times;
+    * two_writer: 8,192 pairs of groups, the first writing one byte range
+      twice (two pieces, two sources, the later slot wins), the second
+      reading it;
+    * many_writer: 4,096 pieces (512 groups) over one 128-byte row, a
+      third of them reading their own bytes (distance 0), then 511 pieces
+      copying the row into the rows after it.
+    Every piece stays inside its 128-byte row (v11's words need it); v10
+    and v11 also get 2,048 disjoint literal pieces.  Returns the
+    wrapper's arguments on `dev`."""
+    from debigulator_tpu_torch.ops import lz77 as lz
+    from debigulator_tpu_torch.parallel.merged import _pad_rec_rows
+
+    rng = np.random.default_rng(seed)
+    seg = 1 << 19
+    b = lz.BODY_START
+    n_out = b + seg + lz.SLACK_ROWS * 128
+
+    def inside(d):  # lengths that keep each piece inside its row
+        return rng.integers(1, 128 - (d & 127) + 1)
+
+    if shape == "clashing":
+        dst = b + rng.integers(0, seg - 128, 16_384 * 8)
+        ln = inside(dst)
+        src = dst - rng.integers(0, 700, dst.size)
+    elif shape == "two_writer":
+        n = 8192
+        d0 = b + 1024 + rng.integers(0, seg - 2048, n) // 128 * 128
+        d1 = d0 + rng.integers(0, 64, n)
+        reader = (d0 + 128 + rng.integers(0, 60_000, n)) // 128 * 128
+        reader = np.minimum(reader, b + seg - 128)
+        pieces = np.zeros((n, 16, 3), np.int64)  # two groups a pair
+        pieces[:, 0] = np.stack([d0, np.full(n, 96), d0 - rng.integers(
+            1, 1000, n)], 1)
+        pieces[:, 1] = np.stack([d1, 128 - (d1 & 127), d1 - rng.integers(
+            1, 1000, n)], 1)
+        pieces[:, 8] = np.stack([reader, np.full(n, 128), d0], 1)
+        pieces = pieces.reshape(-1, 3)
+        dst, ln, src = pieces[:, 0], pieces[:, 1], pieces[:, 2]
+        dst = np.where(ln > 0, dst, b)
+    else:
+        row = b + 4096
+        d = row + rng.integers(0, 64, 4096)
+        n = inside(d - row)
+        s = d - np.where(np.arange(4096) % 3 == 0, 0,
+                         rng.integers(1, 900, 4096))
+        cp = row + 128 * np.arange(1, 512)
+        dst = np.concatenate([d, cp, [b]])
+        ln = np.concatenate([n, np.full(511, 128), [0]])
+        src = np.concatenate([s, np.full(511, row), [b]])
+    ln = np.asarray(ln, np.int64)
+    if version == "v11":
+        rp = dst & 127
+        q = src - rp
+        gpos = ((dst >> 7) << 16) | (rp << 8) | (rp + ln)
+        gmeta = ((q >> 7) << 16) | ((q & 127) << 8) | (128 - (q & 127))
+        gpos = np.where(ln > 0, gpos, 0)
+    else:
+        gpos = dst - b
+        gmeta = ln << 16 | (dst - src)
+    init = rng.integers(0, 256, n_out).astype(np.int32)
+    n_slots = gpos.size
+    lims = np.array([0, n_slots, 0, 0, 0, 0, 0, 0], np.int64)
+    t = [torch.from_numpy(_pad_rec_rows(a.astype(np.int32), 16)).to(dev)
+         for a in (gpos, gmeta)]
+    args = [torch.from_numpy(init.reshape(-1, 128)).to(dev), None, *t]
+    if version != "v9":
+        ld = b + 256 * np.arange(2048) + rng.integers(0, 64, 2048)
+        lln = inside(ld)
+        rel = 128 + np.concatenate([[0], np.cumsum(lln)[:-1]]) % (seg - 256)
+        if version == "v11":
+            rp = ld & 127
+            lp = ((ld >> 7) << 16) | (rp << 8) | (rp + lln)
+            q = rel - rp
+            lm = ((q >> 7) << 16) | ((q & 127) << 8) | (128 - (q & 127))
+        else:
+            lp, lm = ld - b, lln << 20 | rel
+        lims[3:6] = [0, 2048, 1]
+        lit = rng.integers(0, 256, (seg // 128 + 16, 128)).astype(np.int32)
+        args += [torch.from_numpy(_pad_rec_rows(a.astype(np.int32), 16))
+                 .to(dev) for a in (lp, lm)]
+        args.append(torch.from_numpy(lit).to(dev))
+    args[1] = torch.from_numpy(lims.astype(np.int32)).to(dev)
+    return tuple(args)
+
+
+#: The group rows' chase: group_chase.cuh, over chase.cuh's chase loop.
+GROUP_CHASE_VIA = ["debigulator_tpu_torch/csrc/group_chase.cuh",
+                   "debigulator_tpu_torch/csrc/chase.cuh"]
+
+
+def group_shape_record(dev, version: str, shape: str, fn, plain) -> dict:
+    """One group resolver on group_case(dev, version, shape): exact
+    against its plain twin (raises otherwise), its ms, plain ms and
+    scratch bytes."""
+    args = group_case(dev, version, shape)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    err = same(f"groups_{version} {shape}", (got,), (plain(*args),))
+    del got
+    gmeta = args[3].view(-1).long()
+    live = (((gmeta >> 16) > 0) if version != "v11" else
+            ((args[2].view(-1).long() & 255)
+             - ((args[2].view(-1).long() >> 8) & 127) > 0))
+    return {"shape": shape, "slots": args[2].numel(),
+            "pieces": int(live.sum()), "max_abs_err": err,
+            "ms": time_ms(lambda: fn(*args), 3),
+            "plain_ms": time_ms(lambda: plain(*args), 1),
+            "scratch_bytes": GROUP_SCRATCH_BYTES * args[0].numel()}
+
+
+def archive_kernel_phases(dev, base, streams):
     """The fifth slice: the v1/v2 match-list resolvers, the v9/v10 group
     resolvers and the piece-loop microbenchmark against their plain
     versions, the microbenchmark tool's run, then archive_paths_2: v1 and
@@ -2225,7 +2357,10 @@ def archive_kernel_phases(dev, streams):
             pm.check(got.view(-1)[lz.BODY_START:], mp, datas[:k])
             if label == "path":
                 rec["ms"] = time_ms(lambda: fn(*a), 3)
+                # Nothing is read back in a call: its device time alone.
+                rec["replay_ms"] = replay_ms(lambda: fn(*a))
                 rec["plain_ms"] = time_ms(lambda: plain(*a), 1)
+                rec["scratch_bytes"] = GROUP_SCRATCH_BYTES * a[0].numel()
                 lims = a[1]
                 n_pieces = int(((a[3].view(-1).long() >> 16) > 0).sum())
                 rec["pieces"] = n_pieces
@@ -2257,6 +2392,38 @@ def archive_kernel_phases(dev, streams):
                                  "max_abs_err": err})
             vs[name].append(rec)
         del seen, got, arrays, runs
+
+    # The walk's adversarial shapes (as rows 10a and 10c run them), then
+    # the hand-made lists that break the packer's rules (group_case).
+    for shape, (strms, dts) in walk_case_streams(base).items():
+        mp, n_seg, arrays, runs, stored = group_inputs(strms)
+        seen = {}
+        real9 = spy(lg, "resolve_groups_v9", seen)
+        real10 = spy(lg, "resolve_groups_v10", seen)
+        try:
+            ig.inflate_v9(runs, arrays, *stored, n_seg)
+            ig.inflate_v10_wide(arrays, *stored, n_seg)
+        finally:
+            lg.resolve_groups_v9, lg.resolve_groups_v10 = real9, real10
+        for name, (fn, plain) in groups.items():
+            a = seen[f"resolve_{name}"][-1][0]
+            got = fn(*a)
+            torch.cuda.synchronize()
+            err = same(f"{name} at {shape}", (got,), (plain(*a),))
+            pm.check(got.view(-1)[lz.BODY_START:], mp, dts)
+            vs[name].append({
+                "shape": shape, "streams": len(strms),
+                "out_bytes": mp.plan.out_size, "max_abs_err": err,
+                "ms": time_ms(lambda: fn(*a), 3),
+                "replay_ms": replay_ms(lambda: fn(*a)),
+                "plain_ms": time_ms(lambda: plain(*a), 1),
+                "scratch_bytes": GROUP_SCRATCH_BYTES * a[0].numel()})
+            del got
+        del seen, arrays, runs
+    for name, (fn, plain) in groups.items():
+        for shape in GROUP_SHAPES:
+            vs[name].append(group_shape_record(dev, name.split("_")[1],
+                                               shape, fn, plain))
 
     # --- row 11: the piece loop, every variant against the plain one -----
     # Checked on a buffer of random bytes, so that a wrong source, order or
@@ -2363,7 +2530,9 @@ def archive_kernel_phases(dev, streams):
         rec = timed[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            **({"via": GROUP_CHASE_VIA} if name in groups else {}),
             "launches": launches[name], "max_abs_err": 0, "ms": rec["ms"],
+            **{k: rec[k] for k in ("replay_ms", "scratch_bytes") if k in rec},
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None})
@@ -2658,7 +2827,7 @@ def main() -> int:
 
     # --- the fifth slice: the archive and tool kernels with no caller ----
     torch.cuda.empty_cache()
-    kernels += archive_kernel_phases(dev, streams)
+    kernels += archive_kernel_phases(dev, base, streams)
 
     emit({"kernels": kernels})
     print(smi, flush=True)

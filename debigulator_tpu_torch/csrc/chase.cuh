@@ -1,8 +1,10 @@
 // Grid-wide LZ77 source chase for Hopper, shared by the flat walk
 // (walk.cu, row 3 of PERF.md's kernel table), the two segment resolvers
-// (lz77_tape.cu and lz77_ops.cu, rows 7 and 9) and the two archive
-// resolvers of flat match lists (groups_v11.cu and walk_v14.cu, rows 10a
-// and 10c).
+// (lz77_tape.cu and lz77_ops.cu, rows 7 and 9) and the archive resolver
+// of a flat match list (walk_v14.cu, row 10c); the group resolvers' chase
+// (group_chase.cuh, rows 10a, 10g and 10h) runs chase_elements and
+// spreads bytes as spread_bytes does, with group semantics instead of the
+// overlap rule.
 //
 // A DEFLATE match copies `len` bytes from `dist` bytes back: byte d + i of
 // a match at d takes the value of byte s = d - dist + i % dist (the
@@ -35,7 +37,7 @@
 //  * in place (row 3, `InPlaceStore` / `InPlaceChain`): out[d] = -(s + 1).
 //    The walk's buffer holds byte values 0..255 (the caller's window,
 //    stored bytes, literals), so a negative value is a pointer.
-//  * flagged (rows 7, 9, 10a and 10c, `FlagStore` / `FlagChain`,
+//  * flagged (rows 7, 9 and 10c, `FlagStore` / `FlagChain`,
 //    launched by `launch_cells` and `launch_list`): these resolvers get
 //    their buffer from the caller and row 9 stores its literals unmasked,
 //    so any int32 may be a
@@ -60,15 +62,13 @@
 // finds each record's cell by a binary search, so the padding is never
 // read and the bytes spread evenly over the warps.
 //
-// The archive resolvers' matches come as one flat list instead (row 10a's
-// packed piece words, row 10c's dense match list), so `list_pointer_kernel`
-// takes records g * 32 + lane directly, with no prefix sum and no search;
-// a record source `Rec` decodes record q into its clipped buffer position,
-// length (0 for padding) and distance.  The chase equals the in-order walk
+// Row 10c's matches come as one flat list instead (its dense match list),
+// so `list_pointer_kernel` takes records g * 32 + lane directly, with no
+// prefix sum and no search; a record source `Rec` decodes record q into
+// its clipped buffer position, length (0 for padding) and distance.  The chase equals the in-order walk
 // of such a list whenever each body byte is written by at most one match
 // and every source lies strictly below the byte it feeds: both hold for
-// DEFLATE output (written once) and so for the packer's pieces (at most
-// 128 bytes, never overlapping) and the v14 compaction's list.
+// DEFLATE output (written once) and so for the v14 compaction's list.
 
 // What bounds it on the H100: bytes and latency, across all 132 SMs.  The
 // pointer pass reads each valid record once and writes a pointer per match

@@ -13,46 +13,46 @@
 //
 // The TPU kernel stages the words through SMEM, rolls 2-row windows into
 // place and stores masked rows, one segment per call with the window
-// carried.  Here the buffer holds every segment, memory is byte
-// addressable (one int32 per byte), and the work is two entries with
-// nothing read back between them:
+// carried; per group of 8 it issues all 8 loads before the 8 stores.
+// Here the buffer holds every segment, memory is byte addressable (one
+// int32 per byte), and the work is two entries with nothing read back
+// between them:
 //  (a) lit_kernel (dbg_groups_v11_lits), a thread per literal piece:
 //      literals read no output, so any order;
-//  (b) chase::launch_list (dbg_groups_v11_chase, chase.cuh) over the match
-//      slots: `PieceRec` unpacks slot t's words itself (its segment from
-//      the group's first slot, a group never spanning segments) into a
-//      buffer position, length and distance, length 0 for padding and for
-//      a slot outside every segment; the pointer pass spreads the pieces'
-//      bytes, then the grid-wide chase resolves every body byte to the
-//      root of its chain of sources.  No slot order and no group order:
-//      the packer's pieces never overlap (DEFLATE output is written once)
-//      and every source lies below the byte it feeds, which is when the
-//      chase equals the in-order walk.  A source below the body (the
-//      window prologue, or with a one-row `lims` the previous segment's
-//      tail) has no flag and is final; one below 0 is skipped.  The
-//      buffer may hold any int32: pointers live in chase.cuh's side array.
+//  (b) group_chase::launch (dbg_groups_v11_chase, group_chase.cuh) over
+//      the match slots: `PieceRec` unpacks slot t's words itself (its
+//      segment from the group's first slot, a group never spanning
+//      segments) into a buffer position, length and source, length 0 for
+//      padding and for a slot outside every segment; the chase keeps the
+//      TPU kernel's group semantics on any list: every written byte takes
+//      the value its source held before the piece's group (the literal
+//      pieces' bytes, the window, or an earlier group's write), a later
+//      slot's store wins.  A source outside the buffer reads 0, a store
+//      outside it is dropped, and the buffer may hold any int32.
 //
 // What bounds it on the H100: (a) bytes, the literal words and bytes read
-// once; (b) bytes and latency (chase.cuh), the piece words read once and
-// a 64-bit state and a bit per body byte.
+// once; (b) bytes and latency (group_chase.cuh), the piece words read
+// twice, two words set per buffer byte and a 64-bit state per written
+// byte.
 
 #include "chase.cuh"
+#include "group_chase.cuh"
 #include "lz77_copy.cuh"
 
 namespace {
 
-constexpr int kGroup = 8;
-constexpr int kBodyStart = 128 + 32768;
+constexpr int kGroup = group_chase::kGroup;
 
 struct Piece {
   int dst, len, src;
 };
 
+// A piece's bytes end at its row's end: lanes rp .. min(w0 & 255, 128).
 __device__ __forceinline__ Piece unpack(int w0, int w1) {
   const int rp = (w0 >> 8) & 127;
   Piece p;
   p.dst = (w0 >> 16) * 128 + rp;
-  p.len = (w0 & 255) - rp;
+  p.len = min(w0 & 255, 128) - rp;
   p.src = (w1 >> 16) * 128 + ((w1 >> 8) & 127) + rp;
   return p;
 }
@@ -82,33 +82,29 @@ __global__ void lit_kernel(int* out, int64_t n_out,
 
 }  // namespace
 
-// The record source of the chase's pointer pass, outside the unnamed
-// namespace: it is a template argument of a kernel.
+// The record source of the group chase, outside the unnamed namespace: it
+// is a template argument of a kernel.
 namespace groups_v11 {
 
-// Slot t's piece for chase::list_pointer_kernel: its buffer position
-// (segment-local position plus the segment's offset), clipped to the body
-// [kBodyStart, body_end) as lz77::clip_match clips; length 0 for a slot
-// outside every segment's range (its group's first slot decides) and for
-// a padding piece.
+// Slot t's piece for the group chase: its buffer position and source
+// (segment-local positions plus the segment's offset) and its length; 0
+// for a slot outside every segment's range (its group's first slot
+// decides) and for a padding piece.
 struct PieceRec {
   const int* __restrict__ lims;
   int n_seg;
   const int* __restrict__ gpos;
   const int* __restrict__ gmeta;
-  int body_end;
   __device__ __forceinline__ void operator()(int64_t t, int& dst, int& len,
-                                             int& dist) const {
+                                             int& src) const {
     const int seg = segment_of(lims, n_seg, 0, 1, t - t % kGroup);
     if (seg < 0) return;
     const Piece p = unpack(gpos[t], gmeta[t]);
-    int d = p.dst + lims[seg * 8 + 2] - lims[2];
-    const int eff = lz77::clip_match(&d, p.len, kBodyStart, body_end);
-    if (eff > 0 && p.dst > p.src) {
-      dst = d;
-      len = eff;
-      dist = p.dst - p.src;
-    }
+    if (p.len <= 0) return;
+    const int off = lims[seg * 8 + 2] - lims[2];
+    dst = p.dst + off;
+    src = p.src + off;
+    len = p.len;
   }
 };
 
@@ -128,14 +124,14 @@ extern "C" int dbg_groups_v11_lits(int* out, int64_t n_out, const int* lims,
   return static_cast<int>(cudaGetLastError());
 }
 
-// state: a 64-bit word per body byte (body_end - PAD - WINDOW), bits: a
-// bit per body byte, rounded up to whole 32-bit words; both scratch.
-extern "C" int dbg_groups_v11_chase(int* out, int body_end, const int* lims,
+// last, first: n_out ints, state: n_out 64-bit words, all scratch.
+extern "C" int dbg_groups_v11_chase(int* out, int64_t n_out, const int* lims,
                                     int n_seg, const int* gpos,
                                     const int* gmeta, int64_t n_slots,
-                                    unsigned long long* state, unsigned* bits,
+                                    int* last, int* first,
+                                    unsigned long long* state,
                                     cudaStream_t stream) {
-  const groups_v11::PieceRec rec{lims, n_seg, gpos, gmeta, body_end};
-  return chase::launch_list(out, kBodyStart, body_end, rec, n_slots, state,
-                            bits, stream);
+  const groups_v11::PieceRec rec{lims, n_seg, gpos, gmeta};
+  return group_chase::launch(out, n_out, rec, n_slots, last, first, state,
+                             stream);
 }

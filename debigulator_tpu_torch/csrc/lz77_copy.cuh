@@ -1,10 +1,9 @@
 // In-order LZ77 match application for Hopper.  Its users: the match-list
-// resolver of ops/lz77.py (lz77_match.cu: copy_match, leading_ok), the group
-// walks (groups_v9.cu: leading_ok, segment_of) and clip_match or
-// segment_of for the resolvers whose matches the grid-wide chase of
-// chase.cuh resolves (lz77_tape.cu, lz77_ops.cu: clip_match; groups_v11.cu:
-// segment_of, clip_match; walk_v14.cu: clip_match).  The chase keeps
-// copy_match's overlap rule.
+// resolver of ops/lz77.py (lz77_match.cu: copy_match, leading_ok),
+// clip_match for the resolvers whose matches the grid-wide chase of
+// chase.cuh resolves (lz77_tape.cu, lz77_ops.cu, walk_v14.cu; that chase
+// keeps copy_match's overlap rule) and segment_of for the group resolvers
+// on group_chase.cuh (groups_v9.cu, groups_v11.cu).
 //
 // A DEFLATE match copies `len` bytes from `dist` bytes back; matches must
 // take effect in stream order because a source may be bytes an earlier
@@ -19,9 +18,9 @@
 //    below dst, so the bytes read were final before the match began and
 //    the overlapping (dist < len) case needs no doubling;
 //  * one CTA of 32 warps walks a list in order.  A batch is the longest
-//    run of matches (or of groups) whose sources do not reach into what
-//    the batch itself writes; the batch copies in parallel, then one
-//    __syncthreads() makes its bytes visible to the next.
+//    run of matches whose sources do not reach into what the batch itself
+//    writes; the batch copies in parallel, then one __syncthreads() makes
+//    its bytes visible to the next.
 //
 // What bounds it on the H100: latency.  A list's batches are serialised,
 // each costs about two L2 round trips, and a list uses one of 132 SMs.

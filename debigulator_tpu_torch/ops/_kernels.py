@@ -31,10 +31,11 @@ SOURCES = {"phase_a": "phase_a.cu", "compact": "compact.cu", "walk": "walk.cu",
            "walk_v14": "walk_v14.cu", "groups_v9": "groups_v9.cu",
            "microbench_pb": "microbench_pb.cu"}
 #: Headers a source includes: hashed with it, so an edit rebuilds it.
-HEADERS = {"walk": ["chase.cuh"],
+HEADERS = {"walk": ["chase.cuh"], "lz77_match": ["lz77_copy.cuh"],
            **{name: ["lz77_copy.cuh", "chase.cuh"]
-              for name in ("lz77_tape", "lz77_ops", "groups_v11", "walk_v14")},
-           **{name: ["lz77_copy.cuh"] for name in ("lz77_match", "groups_v9")}}
+              for name in ("lz77_tape", "lz77_ops", "walk_v14")},
+           **{name: ["lz77_copy.cuh", "chase.cuh", "group_chase.cuh"]
+              for name in ("groups_v11", "groups_v9")}}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -63,8 +64,8 @@ _ENTRIES = {
     "dbg_lz77_tape_v1_len": ("lz77_tape", [_P, _P, _I32, _I32, _P]),
     "dbg_groups_v11_lits": ("groups_v11", [_P, _I64, _P, _I32, _P, _P, _I64,
                                            _P, _I64]),
-    "dbg_groups_v11_chase": ("groups_v11", [_P, _I32, _P, _I32, _P, _P, _I64,
-                                            _P, _P]),
+    "dbg_groups_v11_chase": ("groups_v11", [_P, _I64, _P, _I32, _P, _P, _I64,
+                                            _P, _P, _P]),
     "dbg_compact_v14": ("compact_v14", [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _I32, _I32, _P, _P, _P, _P, _I64, _P,
                                         _I64]),
@@ -74,7 +75,8 @@ _ENTRIES = {
                                         _P, _P]),
     "dbg_groups_v10_lits": ("groups_v9", [_P, _I64, _P, _I32, _P, _P, _I64,
                                           _P, _I64]),
-    "dbg_groups_v9_walk": ("groups_v9", [_P, _I64, _P, _P, _P, _P, _I32]),
+    "dbg_groups_v9_chase": ("groups_v9", [_P, _I64, _P, _I32, _P, _P, _I64,
+                                          _P, _P, _P]),
     "dbg_microbench_pb": ("microbench_pb", [_P, _I64, _P, _P, _I32, _I32,
                                             _I32, _I32]),
 }

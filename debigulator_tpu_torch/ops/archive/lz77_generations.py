@@ -6,8 +6,9 @@ Eight functions, each behind one wrapper with its plain PyTorch twin and a
 launch count:
 
 * ``resolve_groups_v11`` (replaces ``_group_kernel_v11`` :609): Phase B
-  of the host-fed v10 decode, from the packer's conflict-free groups of 8
-  match pieces and the literal pieces over the scanner's dense literals.
+  of the host-fed v10 decode, from the packer's groups of 8 match pieces
+  (each group's loads before its stores) and the literal pieces over the
+  scanner's dense literals.
 * ``compact_v14`` (replaces ``_compact_kernel_v14`` :893): each cell's
   match, run and literal records moved to precomputed dense offsets.
 * ``resolve_walk_v14`` (replaces ``_walk_kernel_v14`` :1015): the dense
@@ -32,18 +33,20 @@ The wrappers return a new buffer and leave ``out_init`` as it was.
 
 On the card each resolver is a grid-wide pass for what reads no output
 (literal pieces, literal runs, literals of the tape), then a pass that
-resolves the matches.  Rows 10a and 10c (host-fed groups, v14 walk) and
-the v1 tape hand theirs to the grid-wide source chase of csrc/chase.cuh: a
-pointer for every match byte, then every body byte chased to its root, in
-no order, with nothing read back between the launches (csrc/groups_v11.cu,
-walk_v14.cu, lz77_tape.cu).  The archived match lists and groups keep an
-in-order walk, a warp per match or group, up to 32 a batch (csrc/
-lz77_match.cu; groups_v9.cu, one CTA per range of groups that share no
-byte with another range).  A wrapper adds one to its launch count in a
-call that launched a kernel, and nowhere else.  The plain versions place
-the literals, point every match byte at its source byte and follow the
-pointers by doubling (ops.lz77._apply_copies_plain; for the group
-resolvers, whose loads precede their group's stores,
+resolves the matches, in no order, with nothing read back between the
+launches.  Row 10c (v14 walk) and the v1 tape hand theirs to the
+grid-wide source chase of csrc/chase.cuh: a pointer for every match byte,
+then every body byte chased to its root (csrc/walk_v14.cu, lz77_tape.cu).
+The three group resolvers (rows 10a, 10g, 10h) hand theirs to the group
+chase of csrc/group_chase.cuh, which keeps the TPU kernels' group
+semantics on any piece list: every written byte takes the value its
+source held before the piece's group, and a later slot's store wins
+(csrc/groups_v11.cu, groups_v9.cu).  The archived match lists keep an
+in-order walk, a warp per match, up to 32 a batch (csrc/lz77_match.cu).
+A wrapper adds one to its launch count in a call that launched a kernel,
+and nowhere else.  The plain versions place the literals, point every
+match byte at its source byte and follow the pointers by doubling
+(ops.lz77._apply_copies_plain; for the group resolvers
 ``_group_walk_plain``).
 """
 
@@ -102,11 +105,13 @@ def _body_end(out_init: torch.Tensor) -> int:
 def unpack_piece_words(w0: torch.Tensor, w1: torch.Tensor):
     """(dst, len, src) of pieces packed by host_fed._pack_piece_words:
     w0 = dst_row << 16 | rp << 8 | (rp + len), w1 = q_row << 16 | r << 8 |
-    (128 - r), with rp = dst & 127 and q = src - rp; segment-local."""
+    (128 - r), with rp = dst & 127 and q = src - rp; segment-local.  A
+    piece ends at its row's end, as the reference's one-row mask does."""
     w0, w1 = w0.long(), w1.long()
     rp = (w0 >> 8) & 127
     dst = (w0 >> 16) * 128 + rp
-    return dst, (w0 & 255) - rp, (w1 >> 16) * 128 + ((w1 >> 8) & 127) + rp
+    return (dst, (w0 & 255).clamp(max=128) - rp,
+            (w1 >> 16) * 128 + ((w1 >> 8) & 127) + rp)
 
 
 def _slot_segments(lims: torch.Tensor, lo_col: int, hi_col: int, n: int):
@@ -119,26 +124,35 @@ def _slot_segments(lims: torch.Tensor, lo_col: int, hi_col: int, n: int):
     return segc, (seg >= 0) & (slot < lims[segc, hi_col])
 
 
+def _v11_pieces(lims, gpos, gmeta):
+    """The live match pieces of v11 piece words in slot order: (buffer
+    position, length, source, group), a piece of segment k shifted by
+    lims[k, 2] - lims[0, 2]."""
+    n = gpos.numel()
+    seg, live = _group_live(lims, 0, 1, n)
+    dst, ln, src = unpack_piece_words(gpos.reshape(-1), gmeta.reshape(-1))
+    live &= ln > 0
+    off = (lims[:, 2] - lims[0, 2])[seg]
+    group = torch.arange(n, device=gpos.device) // V9_GROUP
+    return (dst + off)[live], ln[live], (src + off)[live], group[live]
+
+
 def resolve_groups_v11_plain(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
     lims = lim.reshape(-1, 8).long()
     out = out_init.reshape(-1).clone()
-    off = lims[:, 2] - lims[0, 2]
     flat_lit = lit.reshape(-1)
 
     seg, live = _slot_segments(lims, 3, 4, lpos.numel())
     dst, ln, src = unpack_piece_words(lpos.reshape(-1), lmeta.reshape(-1))
     live &= ln > 0
-    dst = dst[live] + off[seg[live]]
+    dst = dst[live] + (lims[:, 2] - lims[0, 2])[seg[live]]
     src = src[live] - 128 + lims[seg[live], 5] * 128
     rec, o = _expand(ln[live])
-    out[dst[rec] + o] = flat_lit[src[rec] + o]
+    p, s = dst[rec] + o, src[rec] + o
+    ok = (p >= 0) & (p < out.numel()) & (s >= 0) & (s < flat_lit.numel())
+    out[p[ok]] = flat_lit[s[ok]]
 
-    # Groups never span segments: a group is live when its first slot is.
-    seg, live = _slot_segments(lims, 0, 1, gpos.numel())
-    live = live.view(-1, V9_GROUP)[:, :1].expand(-1, V9_GROUP).reshape(-1)
-    dst, ln, src = unpack_piece_words(gpos.reshape(-1), gmeta.reshape(-1))
-    lz._apply_copies_plain(out, (dst + off[seg])[live], ln[live],
-                           (dst - src)[live])
+    _group_walk_plain(out, *_v11_pieces(lims, gpos, gmeta))
     return out.view_as(out_init)
 
 
@@ -153,21 +167,21 @@ def resolve_groups_v11(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
     128) piece words (host_fed._pack_piece_words), segment-local: a word's
     position p lands at buffer position p + that offset.  lit: (Lr, 128)
     dense literal bytes; a literal piece reads lit[src - 128 + base * 128].
-    Every piece satisfies (dst & 127) + len <= 128; the pieces of a match
-    group do not read what the group writes.  The reference's
+    A piece ends at its 128-byte row's end.  Groups run in slot order; a
+    group's pieces all load before any of them stores, a later slot's
+    store winning; a source outside the buffer reads 0 and a store
+    outside it is dropped.  For the packer's groups (no piece reads what
+    its group writes) that is the in-order result.  The reference's
     ``seg_bytes`` argument is not taken: the offsets come from ``lim``.
 
-    CUDA kernels (csrc/groups_v11.cu), two launches with nothing read
-    back between them: a thread per literal piece; then the grid-wide
-    source chase (csrc/chase.cuh), whose pointer pass unpacks each match
-    slot's words itself and spreads the live pieces' bytes over the lanes,
-    and whose chase resolves every body byte to the root of its chain of
-    sources.  No slot or group order is needed: the packer's pieces never
-    overlap and each reads below what it writes.  ``out_init`` may hold
-    any int32 values.
+    CUDA kernels (csrc/groups_v11.cu), two entries with nothing read back
+    between them: a thread per literal piece; then the group chase
+    (csrc/group_chase.cuh): each match slot's words unpacked in its mark
+    and pointer passes, each written byte's state chased to a value, the
+    last writer's value stored.  ``out_init`` may hold any int32 values.
     """
     _check_i32(out_init, lim, gpos, gmeta, lpos, lmeta, lit)
-    body_end = _body_end(out_init)
+    _body_end(out_init)
     if gpos.shape != gmeta.shape or lpos.shape != lmeta.shape:
         raise ValueError("position and meta words must have one shape")
     if gpos.numel() % V9_GROUP or lim.numel() % 8 or lim.numel() == 0:
@@ -177,16 +191,12 @@ def resolve_groups_v11(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
                                         lmeta, lit)
     out = out_init.clone()
     lims = lim.reshape(-1, 8).contiguous()
-    n_seg = lims.shape[0]
-    lits, chase = lpos.numel() > 0, gpos.numel() > 0 and body_end > BODY_START
+    lits = lpos.numel() > 0
     if lits:
-        _kernels.launch("dbg_groups_v11_lits", out, out.numel(), lims, n_seg,
-                        lpos, lmeta, lpos.numel(), lit, lit.numel())
-    if chase:
-        _kernels.launch("dbg_groups_v11_chase", out, body_end, lims, n_seg,
-                        gpos, gmeta, gpos.numel(),
-                        *lz.chase_state(body_end, out.device))
-    if lits or chase:
+        _kernels.launch("dbg_groups_v11_lits", out, out.numel(), lims,
+                        lims.shape[0], lpos, lmeta, lpos.numel(), lit,
+                        lit.numel())
+    if _group_chase("dbg_groups_v11_chase", out, lims, gpos, gmeta) or lits:
         resolve_groups_v11.launches += 1
     return out
 
@@ -519,7 +529,7 @@ resolve_matches_v2.launches = 0
 # ---------------------------------------------------------------------------
 
 #: Longest piece of a v9/v10 group (the packer cuts matches at 128 bytes;
-#: the card's walk holds 128 bytes a piece, 4 a lane).
+#: a longer meta is read as 128).
 V9_MAX_PIECE = 128
 
 
@@ -599,48 +609,30 @@ def _group_walk_plain(out, dst, length, src, group) -> None:
     out[p[last]] = vals[ptr[:e][last]]
 
 
-def _independent_order(dst, length, dist):
-    """Split a match list in a valid order into ranges that share no byte.
-    Each match touches the span [dst - dist, dst + len); a range is a run
-    of spans, taken by source position, that overlap or touch, so no match
-    of one range reads or writes a byte of another (the streams of a
-    merged batch are such ranges).  Returns (order, starts): the list's
-    indices range by range, each range in its original order, and each
-    range's first place in that order."""
-    src = dst - dist
-    by_src = torch.argsort(src, stable=True)
-    reach = torch.cummax((dst + length)[by_src], 0).values
-    new = torch.ones_like(by_src, dtype=torch.bool)
-    new[1:] = src[by_src][1:] >= reach[:-1]
-    comp = torch.empty_like(by_src)
-    comp[by_src] = torch.cumsum(new, 0) - 1
-    key, order = torch.sort(comp, stable=True)
-    return order, torch.nonzero(torch.diff(key, prepend=key[:1] - 1))[:, 0]
+#: Most slots of a group chase: a writer that is not its byte's last is
+#: named by -(slot * 128 + offset) - 2 in a 32-bit word.
+GROUP_CHASE_SLOTS = (2**31 - 2) // V9_MAX_PIECE
 
 
-def _walk_groups(out, dst, length, dist, group) -> bool:
-    """The group walk on the card (csrc/groups_v9.cu): the pieces split
-    into ranges that share no byte (``_independent_order``), each range's
-    part of a group a sub-group, one CTA per range.  Returns whether it
-    launched (not for an empty list)."""
-    n = dst.numel()
+def group_chase_state(n_out: int, device):
+    """The group chase's scratch (csrc/group_chase.cuh): the last and the
+    first writer of every buffer byte, and its 64-bit state."""
+    return (torch.empty(n_out, dtype=torch.int32, device=device),
+            torch.empty(n_out, dtype=torch.int32, device=device),
+            torch.empty(n_out, dtype=torch.int64, device=device))
+
+
+def _group_chase(entry: str, out, lims, gpos, gmeta) -> bool:
+    """Launch a group chase entry over every slot of gpos/gmeta into
+    ``out``; returns whether it launched (not for an empty list)."""
+    n = gpos.numel()
     if n == 0:
         return False
-    order, starts = _independent_order(dst, length, dist)
-    grp = group[order]
-    rid = torch.zeros(n, dtype=torch.long, device=dst.device)
-    rid[starts] = 1
-    rid = torch.cumsum(rid, 0)
-    new = torch.ones(n, dtype=torch.bool, device=dst.device)
-    new[1:] = (grp[1:] != grp[:-1]) | (rid[1:] != rid[:-1])
-    firsts = torch.nonzero(new)[:, 0]
-    sg_first = torch.cat([firsts, firsts.new_full((1,), n)]).to(torch.int32)
-    sg_id = torch.cumsum(new, 0) - 1
-    bounds = torch.cat([sg_id[starts], sg_id.new_full((1,), firsts.numel())])
-    pdst = dst[order].to(torch.int32)
-    pmeta = ((length << 16) | dist)[order].to(torch.int32)
-    _kernels.launch("dbg_groups_v9_walk", out, out.numel(), pdst, pmeta,
-                    sg_first, bounds, starts.numel())
+    if n > GROUP_CHASE_SLOTS or out.numel() >= 2**31:
+        raise ValueError("the group chase takes at most "
+                         f"{GROUP_CHASE_SLOTS} slots and 2^31 bytes")
+    _kernels.launch(entry, out, out.numel(), lims, lims.shape[0], gpos, gmeta,
+                    n, *group_chase_state(out.numel(), out.device))
     return True
 
 
@@ -673,18 +665,19 @@ def resolve_groups_v9(out_init, lim, gpos, gmeta):
     stream-global destinations and len << 16 | dist (len <= 128; padding
     len 0), so a piece at p lands at p - lim[0, 2] + BODY_START.  Groups
     run in slot order; a group's pieces all load before any of them
-    stores.  For the packer's groups (no piece reads what its group
-    writes) that is the in-order result.
+    stores, a later slot's store winning; a source outside the buffer
+    reads 0 and a store outside it is dropped.  For the packer's groups
+    (no piece reads what its group writes) that is the in-order result.
 
-    CUDA kernel (csrc/groups_v9.cu, ``dbg_groups_v9_walk``): the live
-    pieces split into ranges that share no byte, one CTA per range, a warp
-    per group, up to 32 groups a batch.
+    CUDA kernel (csrc/groups_v9.cu, ``dbg_groups_v9_chase``): the group
+    chase of csrc/group_chase.cuh over the slots, nothing read back.
     """
     _check_groups(out_init, lim, (gpos, gmeta))
     if _plain_here(out_init):
         return resolve_groups_v9_plain(out_init, lim, gpos, gmeta)
     out = out_init.clone()
-    if _walk_groups(out, *_match_pieces(lim.reshape(-1, 8), gpos, gmeta)):
+    if _group_chase("dbg_groups_v9_chase", out,
+                    lim.reshape(-1, 8).contiguous(), gpos, gmeta):
         resolve_groups_v9.launches += 1
     return out
 
@@ -719,8 +712,8 @@ def resolve_groups_v10(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
     them, then the match groups in slot order.  The reference's
     ``seg_bytes`` (its literal scratch size) is not taken.
 
-    CUDA kernels (csrc/groups_v9.cu): a thread per literal slot, then the
-    v9 group walk.
+    CUDA kernels (csrc/groups_v9.cu), two entries with nothing read back
+    between them: a thread per literal slot, then the v9 group chase.
     """
     _check_groups(out_init, lim, (gpos, gmeta), (lpos, lmeta))
     _check_i32(out_init, lit)
@@ -734,8 +727,7 @@ def resolve_groups_v10(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
         _kernels.launch("dbg_groups_v10_lits", out, out.numel(), lims,
                         lims.shape[0], lpos, lmeta, lpos.numel(), lit,
                         lit.numel())
-    launched |= _walk_groups(out, *_match_pieces(lims, gpos, gmeta))
-    if launched:
+    if _group_chase("dbg_groups_v9_chase", out, lims, gpos, gmeta) or launched:
         resolve_groups_v10.launches += 1
     return out
 

@@ -23,6 +23,7 @@ from debigulator_tpu_torch.ops.archive import host_fed as hf
 from debigulator_tpu_torch.ops.archive import inflate_generations as ig
 from debigulator_tpu_torch.ops.archive import lz77_generations as lg
 from debigulator_tpu_torch.parallel import merged as tm
+from torch_group_cases import emulate
 from torch_stream_cases import STREAMS, deflate, words
 
 SEG = 4096
@@ -316,55 +317,15 @@ def test_decode_against_zlib(driver, name):
         assert out[o : o + n].tobytes() == zlib.decompress(s, -15)
 
 
-def _emulate(made):
-    """The C entries of csrc/groups_v9.cu in Python, on the CPU tensors
-    the wrappers hand them: what the kernels compute, range by range."""
-    def lits(out, n_out, lims, n_seg, lpos, lmeta, n_slots, lit, n_lit):
-        lims2 = lims.view(-1, 8).long()
-        for t in range(n_slots):
-            f = t - t % 8
-            k = int(torch.searchsorted(lims2[:, 3].contiguous(), torch.tensor(f),
-                                       right=True)) - 1
-            if k < 0 or f >= lims2[k, 4]:
-                continue
-            m = int(lmeta.view(-1)[t])
-            d = int(lpos.view(-1)[t]) - int(lims2[0, 2]) + lz.BODY_START
-            s = int(lims2[k, 5]) * 128 + (m & 0xFFFFF) - 128
-            for i in range(m >> 20):
-                if 0 <= d + i < n_out and 0 <= s + i < n_lit:
-                    out.view(-1)[d + i] = lit.view(-1)[s + i]
-
-    def walk(out, n_out, pdst, pmeta, sg_first, bounds, n_ranges):
-        flat = out.view(-1)
-        assert bounds[0] == 0 and bounds[n_ranges] == sg_first.numel() - 1
-        for c in range(int(bounds[n_ranges])):
-            ps = range(int(sg_first[c]), int(sg_first[c + 1]))
-            assert 0 < len(ps) <= 8
-            got = []
-            for p in ps:
-                m = int(pmeta[p])
-                d, n = int(pdst[p]), min(m >> 16, 128)
-                src = d - (m & 0xFFFF)
-                got.append((d, [int(flat[src + i]) if 0 <= src + i < n_out
-                                else 0 for i in range(n)]))
-            for d, vals in got:
-                for i, v in enumerate(vals):
-                    if 0 <= d + i < n_out:
-                        flat[d + i] = v
-
-    def launch(entry, *args):
-        made.append(entry)
-        {"dbg_groups_v10_lits": lits, "dbg_groups_v9_walk": walk}[entry](*args)
-
-    return launch
-
-
 @pytest.mark.parametrize("case", ["clashing_v9", "clashing_v10", "packed_v10"])
 def test_card_branch_emulated(monkeypatch, case):
     """The card's branch of the wrappers, taken on CPU tensors with the C
-    entries emulated: the ranges, sub-groups and piece words handed to
-    the kernels give the plain version's bytes, and each call that
-    launches counts one."""
+    entries emulated by a Python model of the kernels
+    (torch_group_cases.emulate: the literal pass, then the group chase's
+    mark, pointer, chase and store passes over the arguments the wrapper
+    hands them, the last and first writer and the 64-bit state of every
+    buffer byte): the plain version's bytes, and each call that launches
+    counts one."""
     version = case.rsplit("_", 1)[1]
     if case.startswith("clashing"):
         init, lim, t = _clashing_groups(4, version == "v10")
@@ -378,15 +339,20 @@ def test_card_branch_emulated(monkeypatch, case):
     want = _port_call(version, init, lim, t)
     made = []
     monkeypatch.setattr(lg, "_plain_here", lambda x: False)
-    monkeypatch.setattr(_kernels, "launch", _emulate(made))
+    monkeypatch.setattr(_kernels, "launch", emulate(made))
     fn = lg.resolve_groups_v9 if version == "v9" else lg.resolve_groups_v10
     before = fn.launches
     got = _port_call(version, init, lim, t)
     assert torch.equal(got, want)
     assert fn.launches == before + 1
-    assert made[-1] == "dbg_groups_v9_walk"
-    assert ("dbg_groups_v10_lits" in made) == (version == "v10")
+    entries = [e for e, _ in made]
+    assert entries[-1] == "dbg_groups_v9_chase"
+    assert ("dbg_groups_v10_lits" in entries) == (version == "v10")
+    last, first, state = made[-1][1][-3:]
+    assert last.numel() == first.numel() == state.numel() == init.size
     if case == "packed_v10":
         assert got.view(-1)[lz.BODY_START : lz.BODY_START + len(data)].numpy() \
             .astype(np.uint8).tobytes() == data.tobytes()
+        # The packer's lists: every written byte has one writer.
+        assert (first == 0x7F7F7F7F).all() and (last >= 0).any()
     assert ref_lz.PAD == lz.PAD

@@ -226,7 +226,7 @@ def _c_params(entry: str) -> list[str]:
                                    "dbg_groups_v11_chase", "dbg_compact_v14",
                                    "dbg_walk_v14_runs", "dbg_walk_v14_chase",
                                    "dbg_groups_v10_lits",
-                                   "dbg_groups_v9_walk", "dbg_microbench_pb"])
+                                   "dbg_groups_v9_chase", "dbg_microbench_pb"])
 def test_ctypes_declarations_match_c_entries(entry):
     """ctypes cannot check a call against the C prototype: a missing or
     mistyped argument shifts every later one (and the stream).  Hold the
@@ -381,7 +381,7 @@ def test_archive_wrappers_count_only_calls_that_launch(monkeypatch, wrapper,
 
 
 def _chase_card_calls():
-    """resolve_groups_v11 and resolve_walk_v14 on CPU tensors with literal
+    """The four archive resolvers on a chase, on CPU tensors with literal
     and match pieces (runs and matches) to resolve: one live piece of 3
     bytes at distance 1 in slot range [0, 8), one literal piece; one run
     and one match in the dense lists."""
@@ -409,25 +409,38 @@ def _chase_card_calls():
     rdst = torch.zeros((1, 128), dtype=i32)
     rmeta = torch.tensor([[1] + [0] * 127], dtype=i32)
     lims = torch.tensor([0, 1, 0, 1, 0, 0, 0, 0], dtype=i32)
+    v9_pos = torch.zeros((1, 128), dtype=i32)
+    v9_pos[0, 0] = 1
+    v9_lpos = torch.zeros((1, 128), dtype=i32)
+    v9_lmeta = torch.zeros((1, 128), dtype=i32)
+    v9_lmeta[0, 0] = (1 << 20) | 128
     return {
         "resolve_groups_v11": lambda: lg.resolve_groups_v11(
             buf, lim, gpos, gmeta, lpos, lmeta, lit),
         "resolve_walk_v14": lambda: lg.resolve_walk_v14(
             buf, lims, mdst, mmeta, rdst, rmeta, lit),
+        "resolve_groups_v9": lambda: lg.resolve_groups_v9(
+            buf, lim, v9_pos, mmeta),
+        "resolve_groups_v10": lambda: lg.resolve_groups_v10(
+            buf, lim, v9_pos, mmeta, v9_lpos, v9_lmeta, lit),
     }
 
 
 @pytest.mark.parametrize("wrapper,entries", [
     ("resolve_groups_v11", ["dbg_groups_v11_lits", "dbg_groups_v11_chase"]),
-    ("resolve_walk_v14", ["dbg_walk_v14_runs", "dbg_walk_v14_chase"])])
+    ("resolve_walk_v14", ["dbg_walk_v14_runs", "dbg_walk_v14_chase"]),
+    ("resolve_groups_v9", ["dbg_groups_v9_chase"]),
+    ("resolve_groups_v10", ["dbg_groups_v10_lits", "dbg_groups_v9_chase"])])
 def test_chase_wrappers_launch_the_chase_and_read_nothing_back(monkeypatch,
                                                               wrapper,
                                                               entries):
-    """The card's branch of the two archive resolvers on the grid-wide
-    chase, taken here on CPU tensors with the launches recorded: exactly
-    the literal entry, then the chase entry (no in-order walk), each with
-    as many arguments as its C entry takes, the chase given a 64-bit state
-    and a bit for every body byte; and nothing read back to the host
+    """The card's branch of the archive resolvers on a grid-wide chase,
+    taken here on CPU tensors with the launches recorded: exactly the
+    literal entry (where the wrapper has one), then the chase entry (no
+    in-order walk), each with as many arguments as its C entry takes; the
+    flagged chase given a 64-bit state and a bit for every body byte, the
+    group chase (rows 10a, 10g, 10h) the last and first writer and a
+    64-bit state for every buffer byte; and nothing read back to the host
     after the first launch."""
     from debigulator_tpu_torch.ops import _kernels
     from debigulator_tpu_torch.ops.archive import lz77_generations as lg
@@ -458,10 +471,18 @@ def test_chase_wrappers_launch_the_chase_and_read_nothing_back(monkeypatch,
     assert fn.launches == before + 1
     for entry, args in made:
         assert len(args) == len(_kernels._ENTRIES[entry][1])
-    state, bits = made[1][1][-2:]
-    n_body = 4 * 128
-    assert state.dtype == torch.int64 and state.numel() == n_body
-    assert bits.dtype == torch.int32 and bits.numel() == n_body // 32
+    if wrapper == "resolve_walk_v14":
+        state, bits = made[-1][1][-2:]
+        n_body = 4 * 128
+        assert state.dtype == torch.int64 and state.numel() == n_body
+        assert bits.dtype == torch.int32 and bits.numel() == n_body // 32
+    else:
+        last, first, state = made[-1][1][-3:]
+        n_out = made[-1][1][0].numel()
+        assert made[-1][1][1] == n_out
+        assert last.dtype == first.dtype == torch.int32
+        assert state.dtype == torch.int64
+        assert last.numel() == first.numel() == state.numel() == n_out
 
 
 @pytest.mark.parametrize("entry", ["dbg_scan", "dbg_scan2", "dbg_pack_groups"])
