@@ -79,6 +79,9 @@ Each phase prints one JSON line:
   v14 walk (window tail, head and tail clip), and at the 29 streams (the
   v1 resolver on one stream); the v14 compaction also on cells empty, full
   and overflowed (library yardstick: masked_select of its five arrays);
+  the group resolver also on hand-made lists that break the packer's
+  rules (group_case: pieces reading their own group's and later groups'
+  writes, bytes written twice in a group, 4,096 pieces over one row);
 * archive_paths: the 29 streams through the host-fed v10 decode (record
   scan, group packer and piece words by tools/profile_merged's
   host_fed_inputs, then inflate_v10) and the v14 driver, one stream through tape_v3 and the v1
@@ -87,9 +90,11 @@ Each phase prints one JSON line:
   groups_v10_vs_plain, microbench_pb_vs_plain: the archived kernels no
   path of the JAX package calls, on a hand-made match list (overlaps, a
   window tail, padding rows) and one stream's tape; on one 512 KiB segment
-  cut from the middle of a body and at the 29 streams; the piece loop's
-  variants at 2^16 pieces and its full loop at 2^21, both on random
-  bytes;
+  cut from the middle of a body, at the 29 streams (replayed from a CUDA
+  graph too), on the walk's zero run, copies of copies and merged batch,
+  and on group_case's hand-made lists, with the group chase's scratch
+  bytes; the piece loop's variants at 2^16 pieces and its full loop at
+  2^21, both on random bytes;
 * microbench_pb: the tool's own run (python3 -m
   debigulator_tpu_torch.tools.microbench_pb), every variant at 2^21
   pieces, ns per piece;
@@ -97,7 +102,8 @@ Each phase prints one JSON line:
   match-list resolvers, the 29 streams through the record scan,
   build_group_arrays_v10 and the v9 and v10 group kernels, every stream
   checked against zlib; host ms and device ms;
-* kernels: per kernel its launches on its path, times and bound.
+* kernels: per kernel its launches on its path, times and bound (the
+  group rows also their replayed ms and scratch bytes).
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them, and the last line is {"ok": true, "device": {...}}.  Any
@@ -130,10 +136,15 @@ OPS_PER_SYMBOL = 120
 
 N_STREAMS = 29
 BASE_BYTES = 561_872
-#: The hand-made shapes of group_case, and the group chase's scratch per
-#: buffer byte (the last and first writer, int32, and a 64-bit state).
+#: The hand-made shapes of group_case.
 GROUP_SHAPES = ("clashing", "two_writer", "many_writer")
-GROUP_SCRATCH_BYTES = 16
+
+
+def group_scratch_bytes(n_out: int, n_slots: int) -> int:
+    """The group chase's scratch (lz77_generations.group_chase_state): the
+    last and first writer (int32) and a 64-bit state per buffer byte, a
+    list head per 128-byte row and a link per slot."""
+    return 16 * n_out + 4 * (-(-n_out // 128) + 2 + n_slots)
 
 
 def emit(obj) -> None:
@@ -1824,7 +1835,8 @@ def archive_phases(dev, base, streams):
             rec["plain_ms"] = time_ms(
                 lambda: lg.resolve_groups_v11_plain(*args), 1)
             rec.update(v11_work(mp, v9, args))
-            rec["scratch_bytes"] = GROUP_SCRATCH_BYTES * args[0].numel()
+            rec["scratch_bytes"] = group_scratch_bytes(args[0].numel(),
+                                                       args[2].numel())
             timed["groups_v11"] = rec
         vs["groups_v11"].append(rec)
         if label == "small":
@@ -1926,7 +1938,8 @@ def archive_phases(dev, base, streams):
             "ms": time_ms(lambda: lg.resolve_groups_v11(*args), 3),
             "replay_ms": replay_ms(lambda: lg.resolve_groups_v11(*args)),
             "plain_ms": time_ms(lambda: lg.resolve_groups_v11_plain(*args), 1),
-            "scratch_bytes": GROUP_SCRATCH_BYTES * args[0].numel(),
+            "scratch_bytes": group_scratch_bytes(args[0].numel(),
+                                                 args[2].numel()),
             **v11_work(mp, v9, args)})
         del got, args, v9
         mpf, c_args, w_args, _ = v14_inputs(strms)
@@ -2221,16 +2234,18 @@ def group_shape_record(dev, version: str, shape: str, fn, plain) -> dict:
             "pieces": int(live.sum()), "max_abs_err": err,
             "ms": time_ms(lambda: fn(*args), 3),
             "plain_ms": time_ms(lambda: plain(*args), 1),
-            "scratch_bytes": GROUP_SCRATCH_BYTES * args[0].numel()}
+            "scratch_bytes": group_scratch_bytes(args[0].numel(),
+                                                 args[2].numel())}
 
 
 def archive_kernel_phases(dev, base, streams):
     """The fifth slice: the v1/v2 match-list resolvers, the v9/v10 group
-    resolvers and the piece-loop microbenchmark against their plain
-    versions, the microbenchmark tool's run, then archive_paths_2: v1 and
-    v2 on one stream's token tape, v9 and the v10 kernel on the streams
-    through the record scan and build_group_arrays_v10.  Returns the five
-    kernels' entries for the `kernels` line."""
+    resolvers (also on the walk's shapes of `base` and on group_case's
+    lists) and the piece-loop microbenchmark against their plain versions,
+    the microbenchmark tool's run, then archive_paths_2: v1 and v2 on one
+    stream's token tape, v9 and the v10 kernel on the streams through the
+    record scan and build_group_arrays_v10.  Returns the five kernels'
+    entries for the `kernels` line."""
     import contextlib
     import io
 
@@ -2360,7 +2375,8 @@ def archive_kernel_phases(dev, base, streams):
                 # Nothing is read back in a call: its device time alone.
                 rec["replay_ms"] = replay_ms(lambda: fn(*a))
                 rec["plain_ms"] = time_ms(lambda: plain(*a), 1)
-                rec["scratch_bytes"] = GROUP_SCRATCH_BYTES * a[0].numel()
+                rec["scratch_bytes"] = group_scratch_bytes(a[0].numel(),
+                                                           a[2].numel())
                 lims = a[1]
                 n_pieces = int(((a[3].view(-1).long() >> 16) > 0).sum())
                 rec["pieces"] = n_pieces
@@ -2417,7 +2433,8 @@ def archive_kernel_phases(dev, base, streams):
                 "ms": time_ms(lambda: fn(*a), 3),
                 "replay_ms": replay_ms(lambda: fn(*a)),
                 "plain_ms": time_ms(lambda: plain(*a), 1),
-                "scratch_bytes": GROUP_SCRATCH_BYTES * a[0].numel()})
+                "scratch_bytes": group_scratch_bytes(a[0].numel(),
+                                                     a[2].numel())})
             del got
         del seen, arrays, runs
     for name, (fn, plain) in groups.items():

@@ -20,18 +20,21 @@
 //  * mark (`mark_kernel`): each event does atomicMax(last[p], t); an event
 //    that finds another writer there also does atomicMin(first[p], the
 //    smaller of the two), so `first` holds the first writer of every byte
-//    with two or more and stays kOneWriter elsewhere;
+//    with two or more and stays kOneWriter elsewhere.  Each live piece
+//    also joins the list of the 128-byte row its destination starts in
+//    (heads[row], next[t]), since a writer of byte s starts in s's row or
+//    the one before;
 //  * pointers (`pointer_kernel`): each byte's last writer stores its
 //    event's state in state[p].  With g its group: a source outside the
 //    buffer or with no writer is a value (0, or out[s], read here before
 //    any store); a source whose last writer lies in an earlier group is a
 //    pointer to that byte's state.  Otherwise an earlier writer of s
 //    exists only if first[s] lies in a group before g, and it is the
-//    largest covering slot below 8g, found by a scan down the slots from
-//    8g - 1 (never on the packer's lists, where every byte has one
-//    writer).  That event has no state of its own: the pointer names it
-//    as (slot, offset), and a chase that reaches it derives its source
-//    again (`entry_of`);
+//    largest covering slot below 8g: the kNear slots below 8g are tried
+//    first (dense rewrites of one row), then the two rows' lists (never on
+//    the packer's lists, where every byte has one writer).  That event
+//    has no state of its own: the pointer names it as (slot, offset), and
+//    a chase that reaches it derives its source again (`entry_of`);
 //  * chase (`chase_kernel`, chase::chase_elements over the buffer bytes):
 //    each last writer follows its pointers, publishing every pointer it
 //    reaches, until it holds a value.  Every pointer names an event of an
@@ -50,8 +53,9 @@
 // made; per buffer byte two words are set, and per written byte a 64-bit
 // state is written, chased (a hop is one L2 load: the publication above
 // cuts a chain of depth D to about log2 D rounds) and stored.  A reader
-// that falls between two writers of its source scans the slots between
-// them: the cost of hand-made lists only.
+// that falls between two writers of its source searches two rows' lists
+// of pieces, and a writer that is not its byte's last is derived again at
+// each visit: the cost of hand-made lists only.
 
 #pragma once
 
@@ -65,11 +69,7 @@ namespace group_chase {
 constexpr int kGroup = 8;
 constexpr int kMaxPiece = 128;
 constexpr int kOneWriter = 0x7F7F7F7F;  // first[] after a 0x7F memset
-constexpr unsigned kDone = chase::kDone;
-
-__device__ __forceinline__ unsigned long long value_entry(int v) {
-  return chase::value_entry(v);
-}
+constexpr int kNear = 32;  // slots tried below a group before the row lists
 
 __device__ __forceinline__ unsigned long long virtual_entry(int64_t t, int i) {
   return static_cast<unsigned>(static_cast<int>(-(t * kMaxPiece + i) - 2));
@@ -101,31 +101,58 @@ __device__ __forceinline__ void spread_events(int lane, int t, int dst,
   }
 }
 
+// The list of the row that a piece at dst starts in: rows shifted by one,
+// so that a piece starting in the 128 bytes before the buffer has one.
+__device__ __forceinline__ int64_t row_of(int64_t dst) {
+  return (dst >> 7) + 1;
+}
+
+// The scratch of one launch: last, first and state per buffer byte,
+// heads per row (row_of), next per slot.
+struct Scratch {
+  int* last;
+  int* first;
+  unsigned long long* state;
+  int* heads;
+  int* next;
+};
+
 // Where the last event on s before group g gets its value: see the header.
-// rec(u, dst, len, src) decodes slot u (len 0: it writes nothing).
+// rec(u, dst, len, src) decodes slot u (it sets len 0 for a slot that
+// writes nothing, and then leaves dst and src as they were).
 template <class Rec>
 __device__ __forceinline__ unsigned long long entry_of(
-    const Rec& rec, int64_t n_out, const int* out, const int* last,
-    const int* first, int64_t g, int64_t s) {
-  if (s < 0 || s >= n_out) return value_entry(0);
-  const int l = __ldg(last + s);
-  if (l < 0) return value_entry(__ldg(out + s));
+    const Rec& rec, int64_t n_out, const int* out, const Scratch& w,
+    int64_t g, int64_t s) {
+  if (s < 0 || s >= n_out) return chase::value_entry(0);
+  const int l = __ldg(w.last + s);
+  if (l < 0) return chase::value_entry(__ldg(out + s));
   if (l / kGroup < g) return static_cast<unsigned>(static_cast<int>(s));
-  const int f = __ldg(first + s);
-  if (f == kOneWriter || f / kGroup >= g) return value_entry(__ldg(out + s));
-  for (int64_t u = g * kGroup - 1; u >= f; --u) {
-    int dst = 0, len = 0, src = 0;
+  const int f = __ldg(w.first + s);
+  if (f == kOneWriter || f / kGroup >= g)
+    return chase::value_entry(__ldg(out + s));
+  int dst = 0, len = 0, src = 0;
+  const int64_t below = g * kGroup;  // slot f < below covers s
+  for (int64_t u = below - 1; u >= f && u >= below - kNear; --u) {
     rec(u, dst, len, src);
     if (len > 0 && dst <= s && s < static_cast<int64_t>(dst) + len)
       return virtual_entry(u, static_cast<int>(s - dst));
   }
-  return value_entry(__ldg(out + s));  // not reached: slot f covers s
+  int best = f;
+  for (int64_t r = row_of(s) - 1; r <= row_of(s); ++r) {
+    for (int u = __ldg(w.heads + r); u >= 0; u = __ldg(w.next + u)) {
+      if (u <= best || u >= below) continue;
+      rec(u, dst, len, src);
+      if (dst <= s && s < static_cast<int64_t>(dst) + len) best = u;
+    }
+  }
+  rec(best, dst, len, src);
+  return virtual_entry(best, static_cast<int>(s - dst));
 }
 
 template <class Rec>
 __global__ void __launch_bounds__(chase::kThreads)
-mark_kernel(const Rec rec, int64_t n, int64_t n_out, int* __restrict__ last,
-            int* __restrict__ first) {
+mark_kernel(const Rec rec, int64_t n, int64_t n_out, Scratch w) {
   const int lane = threadIdx.x & 31;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * chase::kWarps;
   for (int64_t g = static_cast<int64_t>(blockIdx.x) * chase::kWarps +
@@ -134,11 +161,13 @@ mark_kernel(const Rec rec, int64_t n, int64_t n_out, int* __restrict__ last,
     const int64_t t = g * 32 + lane;
     int dst = 0, len = 0, src = 0;
     if (t < n) rec(t, dst, len, src);
+    if (len > 0 && dst >= -kMaxPiece && dst < n_out)
+      w.next[t] = atomicExch(w.heads + row_of(dst), static_cast<int>(t));
     spread_events(lane, static_cast<int>(t), dst, len, src,
                   [&](bool live, int tr, int64_t p, int64_t) {
                     if (!live || p < 0 || p >= n_out) return;
-                    const int old = atomicMax(last + p, tr);
-                    if (old >= 0) atomicMin(first + p, min(old, tr));
+                    const int old = atomicMax(w.last + p, tr);
+                    if (old >= 0) atomicMin(w.first + p, min(old, tr));
                   });
   }
 }
@@ -146,9 +175,7 @@ mark_kernel(const Rec rec, int64_t n, int64_t n_out, int* __restrict__ last,
 template <class Rec>
 __global__ void __launch_bounds__(chase::kThreads)
 pointer_kernel(const Rec rec, int64_t n, int64_t n_out,
-               const int* __restrict__ out, const int* __restrict__ last,
-               const int* __restrict__ first,
-               unsigned long long* __restrict__ state) {
+               const int* __restrict__ out, Scratch w) {
   const int lane = threadIdx.x & 31;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * chase::kWarps;
   for (int64_t g = static_cast<int64_t>(blockIdx.x) * chase::kWarps +
@@ -160,9 +187,8 @@ pointer_kernel(const Rec rec, int64_t n, int64_t n_out,
     spread_events(lane, static_cast<int>(t), dst, len, src,
                   [&](bool live, int tr, int64_t p, int64_t s) {
                     if (!live || p < 0 || p >= n_out) return;
-                    if (__ldg(last + p) != tr) return;
-                    state[p] = entry_of(rec, n_out, out, last, first,
-                                        tr / kGroup, s);
+                    if (__ldg(w.last + p) != tr) return;
+                    w.state[p] = entry_of(rec, n_out, out, w, tr / kGroup, s);
                   });
   }
 }
@@ -174,31 +200,29 @@ struct Chain {
   Rec rec;
   int64_t n_out;
   const int* out;
-  const int* last;
-  const int* first;
-  unsigned long long* state;
+  Scratch w;
   using Hop = unsigned long long;
   __device__ __forceinline__ bool start(int64_t j, int& v) const {
-    if (__ldg(last + j) < 0) return false;
-    const unsigned long long e = state[j];
+    if (__ldg(w.last + j) < 0) return false;
+    const unsigned long long e = w.state[j];
     v = static_cast<int>(static_cast<unsigned>(e));
-    return static_cast<unsigned>(e) != kDone;
+    return static_cast<unsigned>(e) != chase::kDone;
   }
   // A byte's state, or a writer's that has none, derived again.
   __device__ __forceinline__ Hop load(int v) const {
-    if (v >= 0) return __ldcg(state + v);
+    if (v >= 0) return __ldcg(w.state + v);
     const int64_t id = -static_cast<int64_t>(v) - 2;
     const int64_t u = id / kMaxPiece;
     int dst = 0, len = 0, src = 0;
     rec(u, dst, len, src);
-    return entry_of(rec, n_out, out, last, first, u / kGroup,
+    return entry_of(rec, n_out, out, w, u / kGroup,
                     static_cast<int64_t>(src) + id % kMaxPiece);
   }
   // Publish what the hop reached: a value, or a pointer further down.
   __device__ __forceinline__ bool step(int64_t j, int& v, Hop h) const {
-    __stcg(state + j, h);
+    __stcg(w.state + j, h);
     v = static_cast<int>(static_cast<unsigned>(h));
-    return static_cast<unsigned>(h) != kDone;
+    return static_cast<unsigned>(h) != chase::kDone;
   }
 };
 
@@ -217,30 +241,34 @@ store_kernel(int* out, int64_t n_out, const int* __restrict__ last,
   if (p < n_out && last[p] >= 0) out[p] = static_cast<int>(state[p] >> 32);
 }
 
-// Resolve the n slots of `rec` into out[0, n_out): last and first are
-// n_out ints, state n_out 64-bit words, all scratch.  Seven steps on the
-// stream, nothing read back.
+// Rows of a buffer of n_out bytes in heads[] (row_of, one row more).
+inline int64_t n_rows(int64_t n_out) { return (n_out + 127) / 128 + 2; }
+
+// Resolve the n slots of `rec` into out[0, n_out), with the scratch w:
+// last, first (n_out ints), state (n_out 64-bit words), heads
+// (n_rows(n_out) ints), next (n ints).  Eight steps on the stream, nothing
+// read back.
 template <class Rec>
 inline int launch(int* out, int64_t n_out, const Rec& rec, int64_t n,
-                  int* last, int* first, unsigned long long* state,
-                  cudaStream_t stream) {
+                  const Scratch& w, cudaStream_t stream) {
   if (n <= 0 || n_out <= 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaMemsetAsync(last, 0xFF, n_out * 4, stream);
-  if (err == cudaSuccess) err = cudaMemsetAsync(first, 0x7F, n_out * 4, stream);
+  cudaError_t err = cudaMemsetAsync(w.last, 0xFF, n_out * 4, stream);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(w.first, 0x7F, n_out * 4, stream);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(w.heads, 0xFF, n_rows(n_out) * 4, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   int64_t blocks = (n + 32 * chase::kWarps - 1) / (32 * chase::kWarps);
   if (blocks > chase::kPointerBlocks) blocks = chase::kPointerBlocks;
   const unsigned pb = static_cast<unsigned>(blocks);
-  mark_kernel<<<pb, chase::kThreads, 0, stream>>>(rec, n, n_out, last, first);
-  pointer_kernel<<<pb, chase::kThreads, 0, stream>>>(rec, n, n_out, out, last,
-                                                     first, state);
+  mark_kernel<<<pb, chase::kThreads, 0, stream>>>(rec, n, n_out, w);
+  pointer_kernel<<<pb, chase::kThreads, 0, stream>>>(rec, n, n_out, out, w);
   const int64_t per = static_cast<int64_t>(chase::kThreads) * chase::kChase;
   chase_kernel<<<static_cast<unsigned>((n_out + per - 1) / per),
-                 chase::kThreads, 0, stream>>>(
-      Chain<Rec>{rec, n_out, out, last, first, state});
+                 chase::kThreads, 0, stream>>>(Chain<Rec>{rec, n_out, out, w});
   store_kernel<<<static_cast<unsigned>((n_out + chase::kThreads - 1) /
                                        chase::kThreads),
-                 chase::kThreads, 0, stream>>>(out, n_out, last, state);
+                 chase::kThreads, 0, stream>>>(out, n_out, w.last, w.state);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -97,6 +97,7 @@ struct PieceRec {
   const int* __restrict__ gmeta;
   __device__ __forceinline__ void operator()(int64_t t, int& dst, int& len,
                                              int& src) const {
+    len = 0;
     const int seg = segment_of(lims, n_seg, 0, 1, t - t % kGroup);
     if (seg < 0) return;
     const Piece p = unpack(gpos[t], gmeta[t]);
@@ -124,14 +125,15 @@ extern "C" int dbg_groups_v11_lits(int* out, int64_t n_out, const int* lims,
   return static_cast<int>(cudaGetLastError());
 }
 
-// last, first: n_out ints, state: n_out 64-bit words, all scratch.
+// last, first: n_out ints; state: n_out 64-bit words; heads: (n_out +
+// 127) / 128 + 2 ints; next: n_slots ints; all scratch.
 extern "C" int dbg_groups_v11_chase(int* out, int64_t n_out, const int* lims,
                                     int n_seg, const int* gpos,
                                     const int* gmeta, int64_t n_slots,
                                     int* last, int* first,
-                                    unsigned long long* state,
-                                    cudaStream_t stream) {
+                                    unsigned long long* state, int* heads,
+                                    int* next, cudaStream_t stream) {
   const groups_v11::PieceRec rec{lims, n_seg, gpos, gmeta};
-  return group_chase::launch(out, n_out, rec, n_slots, last, first, state,
-                             stream);
+  return group_chase::launch(out, n_out, rec, n_slots,
+                             {last, first, state, heads, next}, stream);
 }

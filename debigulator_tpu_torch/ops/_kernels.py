@@ -65,7 +65,7 @@ _ENTRIES = {
     "dbg_groups_v11_lits": ("groups_v11", [_P, _I64, _P, _I32, _P, _P, _I64,
                                            _P, _I64]),
     "dbg_groups_v11_chase": ("groups_v11", [_P, _I64, _P, _I32, _P, _P, _I64,
-                                            _P, _P, _P]),
+                                            _P, _P, _P, _P, _P]),
     "dbg_compact_v14": ("compact_v14", [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _I32, _I32, _P, _P, _P, _P, _I64, _P,
                                         _I64]),
@@ -76,7 +76,7 @@ _ENTRIES = {
     "dbg_groups_v10_lits": ("groups_v9", [_P, _I64, _P, _I32, _P, _P, _I64,
                                           _P, _I64]),
     "dbg_groups_v9_chase": ("groups_v9", [_P, _I64, _P, _I32, _P, _P, _I64,
-                                          _P, _P, _P]),
+                                          _P, _P, _P, _P, _P]),
     "dbg_microbench_pb": ("microbench_pb", [_P, _I64, _P, _P, _I32, _I32,
                                             _I32, _I32]),
 }

@@ -614,12 +614,17 @@ def _group_walk_plain(out, dst, length, src, group) -> None:
 GROUP_CHASE_SLOTS = (2**31 - 2) // V9_MAX_PIECE
 
 
-def group_chase_state(n_out: int, device):
+def group_chase_state(n_out: int, n_slots: int, device):
     """The group chase's scratch (csrc/group_chase.cuh): the last and the
-    first writer of every buffer byte, and its 64-bit state."""
-    return (torch.empty(n_out, dtype=torch.int32, device=device),
-            torch.empty(n_out, dtype=torch.int32, device=device),
-            torch.empty(n_out, dtype=torch.int64, device=device))
+    first writer of every buffer byte and its 64-bit state, the head of
+    each 128-byte row's list of pieces (one row more on each side) and
+    each slot's link in it."""
+    i32 = torch.int32
+    return (torch.empty(n_out, dtype=i32, device=device),
+            torch.empty(n_out, dtype=i32, device=device),
+            torch.empty(n_out, dtype=torch.int64, device=device),
+            torch.empty(-(-n_out // 128) + 2, dtype=i32, device=device),
+            torch.empty(n_slots, dtype=i32, device=device))
 
 
 def _group_chase(entry: str, out, lims, gpos, gmeta) -> bool:
@@ -632,7 +637,7 @@ def _group_chase(entry: str, out, lims, gpos, gmeta) -> bool:
         raise ValueError("the group chase takes at most "
                          f"{GROUP_CHASE_SLOTS} slots and 2^31 bytes")
     _kernels.launch(entry, out, out.numel(), lims, lims.shape[0], gpos, gmeta,
-                    n, *group_chase_state(out.numel(), out.device))
+                    n, *group_chase_state(out.numel(), n, out.device))
     return True
 
 

@@ -110,7 +110,7 @@ def test_the_chase_ends_within_the_groups(monkeypatch):
     init, lims, t = make("many_writers", "v9")
     out = torch.from_numpy(init.copy())
     n = out.numel()
-    scratch = lg.group_chase_state(n, "cpu")
+    scratch = lg.group_chase_state(n, t["gpos"].numel(), "cpu")
     rounds = group_chase(v9_rec(torch.from_numpy(lims), lims.shape[0],
                                 t["gpos"], t["gmeta"]),
                          out, n, t["gpos"].numel(), *scratch)

@@ -323,9 +323,9 @@ def test_card_branch_emulated(monkeypatch, case):
     entries emulated by a Python model of the kernels
     (torch_group_cases.emulate: the literal pass, then the group chase's
     mark, pointer, chase and store passes over the arguments the wrapper
-    hands them, the last and first writer and the 64-bit state of every
-    buffer byte): the plain version's bytes, and each call that launches
-    counts one."""
+    hands them: the last and first writer and the 64-bit state of every
+    buffer byte, the rows' lists of pieces): the plain version's bytes,
+    and each call that launches counts one."""
     version = case.rsplit("_", 1)[1]
     if case.startswith("clashing"):
         init, lim, t = _clashing_groups(4, version == "v10")
@@ -348,7 +348,7 @@ def test_card_branch_emulated(monkeypatch, case):
     entries = [e for e, _ in made]
     assert entries[-1] == "dbg_groups_v9_chase"
     assert ("dbg_groups_v10_lits" in entries) == (version == "v10")
-    last, first, state = made[-1][1][-3:]
+    last, first, state = made[-1][1][-5:-2]
     assert last.numel() == first.numel() == state.numel() == init.size
     if case == "packed_v10":
         assert got.view(-1)[lz.BODY_START : lz.BODY_START + len(data)].numpy() \

@@ -440,8 +440,9 @@ def test_chase_wrappers_launch_the_chase_and_read_nothing_back(monkeypatch,
     in-order walk), each with as many arguments as its C entry takes; the
     flagged chase given a 64-bit state and a bit for every body byte, the
     group chase (rows 10a, 10g, 10h) the last and first writer and a
-    64-bit state for every buffer byte; and nothing read back to the host
-    after the first launch."""
+    64-bit state for every buffer byte, a list head for every row and a
+    link for every slot; and nothing read back to the host after the
+    first launch."""
     from debigulator_tpu_torch.ops import _kernels
     from debigulator_tpu_torch.ops.archive import lz77_generations as lg
 
@@ -477,12 +478,15 @@ def test_chase_wrappers_launch_the_chase_and_read_nothing_back(monkeypatch,
         assert state.dtype == torch.int64 and state.numel() == n_body
         assert bits.dtype == torch.int32 and bits.numel() == n_body // 32
     else:
-        last, first, state = made[-1][1][-3:]
+        last, first, state, heads, nxt = made[-1][1][-5:]
         n_out = made[-1][1][0].numel()
         assert made[-1][1][1] == n_out
-        assert last.dtype == first.dtype == torch.int32
+        assert last.dtype == first.dtype == heads.dtype == nxt.dtype \
+            == torch.int32
         assert state.dtype == torch.int64
         assert last.numel() == first.numel() == state.numel() == n_out
+        assert heads.numel() == n_out // 128 + 2
+        assert nxt.numel() == made[-1][1][6]
 
 
 @pytest.mark.parametrize("entry", ["dbg_scan", "dbg_scan2", "dbg_pack_groups"])

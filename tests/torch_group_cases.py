@@ -365,19 +365,30 @@ def _signed(x):
     return x - (1 << 32) if x >= 1 << 31 else x
 
 
-def group_chase(rec, out, n_out, n, last, first, state, seed=0):
+NEAR = 32
+
+
+def group_chase(rec, out, n_out, n, last, first, state, heads, nxt, seed=0):
     """group_chase::launch on CPU tensors: the memsets, then the mark,
     pointer, chase and store passes as the kernels compute them, the
-    events of the two spread passes in a random order (the kernels keep
-    none) and the chase in lockstep rounds, every element's hop loaded
-    before any is published.  Returns the chase's number of rounds."""
+    events of the two spread passes and the rows' lists in a random order
+    (the kernels keep none) and the chase in lockstep rounds, every
+    element's hop loaded before any is published.  Returns the chase's
+    number of rounds."""
     flat = out.view(-1)
     recs = [rec(t) for t in range(n)]
     events = [(t, d + i, s + i) for t, (d, ln, s) in enumerate(recs)
               for i in range(ln)]
-    order = np.random.default_rng(seed).permutation(len(events))
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(len(events))
     L = [-1] * n_out  # memset 0xFF
     F = [ONE_WRITER] * n_out  # memset 0x7F
+    H = [-1] * heads.numel()  # memset 0xFF
+    N = [0] * n
+    for t in rng.permutation(n).tolist():  # atomicExch: any order
+        d, ln, _ = recs[t]
+        if ln > 0 and -128 <= d < n_out:
+            N[t], H[(d >> 7) + 1] = H[(d >> 7) + 1], t
     for e in order:
         t, p, _ = events[e]
         if 0 <= p < n_out:
@@ -400,11 +411,20 @@ def group_chase(rec, out, n_out, n, last, first, state, seed=0):
         f = F[s]
         if f == ONE_WRITER or f // 8 >= g:
             return value(out0[s])
-        for u in range(g * 8 - 1, f - 1, -1):
+        for u in range(g * 8 - 1, max(f, g * 8 - NEAR) - 1, -1):
             d, ln, src = recs[u]
             if ln > 0 and d <= s < d + ln:
                 return (-(u * 128 + s - d) - 2) & 0xFFFFFFFF
-        return value(out0[s])
+        best = f  # covers s; the rows' lists hold every live piece
+        for r in ((s >> 7), (s >> 7) + 1):
+            u = H[r]
+            while u >= 0:
+                d, ln, src = recs[u]
+                if best < u < g * 8 and d <= s < d + ln:
+                    best = u
+                u = N[u]
+        d = recs[best][0]
+        return (-(best * 128 + s - d) - 2) & 0xFFFFFFFF
 
     S = {}
     for e in order:
@@ -431,6 +451,8 @@ def group_chase(rec, out, n_out, n, last, first, state, seed=0):
         flat[p] = _signed(e >> 32)
     last.copy_(torch.tensor(L, dtype=torch.int32))
     first.copy_(torch.tensor(F, dtype=torch.int32))
+    heads.copy_(torch.tensor(H, dtype=torch.int32))
+    nxt.copy_(torch.tensor(N, dtype=torch.int32))
     for p, e in S.items():
         state[p] = _signed(e >> 32) << 32 | (e & 0xFFFFFFFF)
     return rounds
@@ -466,12 +488,15 @@ def emulate(made: list):
     entry and records the entries and their arguments in ``made``."""
     def chase(make_rec):
         def run(out, n_out, lims, n_seg, gpos, gmeta, n_slots, last, first,
-                state):
+                state, heads, nxt):
             assert last.numel() == first.numel() == state.numel() == n_out
+            assert heads.numel() == -(-n_out // 128) + 2
+            assert nxt.numel() == n_slots
             assert last.dtype == first.dtype == torch.int32
+            assert heads.dtype == nxt.dtype == torch.int32
             assert state.dtype == torch.int64
             group_chase(make_rec(lims, n_seg, gpos, gmeta), out, n_out,
-                        n_slots, last, first, state)
+                        n_slots, last, first, state, heads, nxt)
         return run
 
     entries = {"dbg_groups_v10_lits": _lits("v10"),
