@@ -64,8 +64,13 @@ Each phase prints one JSON line:
   operation; row 6's call also replayed from a CUDA graph); the segment
   resolvers also on the walk's shapes (zero run, copies of copies, both
   merged with a text stream; chain-depth histograms, ms, plain ms) and on
-  a buffer and tapes padded with -1; the match-list resolver on one
-  stream and on a hand-made list;
+  a buffer and tapes padded with -1; the match-list resolver (the group
+  chase with groups of one) on one stream, on a hand-made list and on
+  lists that rewrite bytes (REWRITE_LISTS: a reader between two writers, a
+  write after a read, three writers of a byte, distance 0 and length 0, a
+  258-long overlapping run, n_matches short of the list), each also
+  against a serial walk in numpy; its ms replayed from a CUDA graph and
+  its scratch bytes;
 * fallback_paths: the same 29 streams through the speculative drivers
   (Python scans, no cell entries: the merged plan through prepare_merged ->
   v5, one stream through inflate_device under DBG_NO_NATIVE=1 -> v4), the
@@ -81,7 +86,11 @@ Each phase prints one JSON line:
   and overflowed (library yardstick: masked_select of its five arrays);
   the group resolver also on hand-made lists that break the packer's
   rules (group_case: pieces reading their own group's and later groups'
-  writes, bytes written twice in a group, 4,096 pieces over one row);
+  writes, bytes written twice in a group, 4,096 pieces over one row); the
+  v14 walk also on dense lists that write bytes twice in and out of
+  groups marked clean and on a clean group split by two segments
+  (v14_rewrite_case), and at two streams, each against a serial walk in
+  numpy; at 29 streams its launches replayed from a CUDA graph;
 * archive_paths: the 29 streams through the host-fed v10 decode (record
   scan, group packer and piece words by tools/profile_merged's
   host_fed_inputs, then inflate_v10) and the v14 driver, one stream through tape_v3 and the v1
@@ -89,7 +98,9 @@ Each phase prints one JSON line:
 * match_v1_vs_plain, match_v2_vs_plain, groups_v9_vs_plain,
   groups_v10_vs_plain, microbench_pb_vs_plain: the archived kernels no
   path of the JAX package calls, on a hand-made match list (overlaps, a
-  window tail, padding rows) and one stream's tape; on one 512 KiB segment
+  window tail, padding rows), the lists that rewrite bytes and one
+  stream's tape, each against a serial walk in numpy too, one stream's
+  list also replayed from a CUDA graph; on one 512 KiB segment
   cut from the middle of a body, at the 29 streams (replayed from a CUDA
   graph too), on the walk's zero run, copies of copies and merged batch,
   and on group_case's hand-made lists, with the group chase's scratch
@@ -103,7 +114,7 @@ Each phase prints one JSON line:
   build_group_arrays_v10 and the v9 and v10 group kernels, every stream
   checked against zlib; host ms and device ms;
 * kernels: per kernel its launches on its path, times and bound (the
-  group rows also their replayed ms and scratch bytes).
+  rows on the group chase also their replayed ms and scratch bytes).
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them, and the last line is {"ok": true, "device": {...}}.  Any
@@ -140,11 +151,11 @@ BASE_BYTES = 561_872
 GROUP_SHAPES = ("clashing", "two_writer", "many_writer")
 
 
-def group_scratch_bytes(n_out: int, n_slots: int) -> int:
-    """The group chase's scratch (lz77_generations.group_chase_state): the
-    last and first writer (int32) and a 64-bit state per buffer byte, a
-    list head per 128-byte row and a link per slot."""
-    return 16 * n_out + 4 * (-(-n_out // 128) + 2 + n_slots)
+def group_scratch_bytes(n_out: int, n_slots: int, piece: int = 128) -> int:
+    """The group chase's scratch (ops.lz77.group_chase_state): the last and
+    first writer (int32) and a 64-bit state per buffer byte, a list head
+    per `piece`-byte row and a link per slot."""
+    return 16 * n_out + 4 * (-(-n_out // piece) + 2 + n_slots)
 
 
 def emit(obj) -> None:
@@ -1275,6 +1286,87 @@ def png_and_encode_phases(dev):
     return kernels, times
 
 
+def match_v4_records(dev, stream: bytes, data: bytes):
+    """Row 8 (``resolve_matches_v4``) against its plain twin and the serial
+    walk: on one stream's match list (the v4 driver's shape: its token
+    tape through match_v4_inputs, with ms, replayed ms, plain ms, scratch
+    and bytes moved), on a hand-made list and on REWRITE_LISTS.  Returns
+    (the stream's record, every shape's record)."""
+    from debigulator_tpu_torch.ops import inflate as inf
+    from debigulator_tpu_torch.ops import lz77 as lz
+    from debigulator_tpu_torch.ops import phase_a as pa
+    from debigulator_tpu_torch.ops import plan as tp
+    from debigulator_tpu_torch.parallel.merged import build_merged_plan
+
+    # One stream's match list (the v4 driver's shape), then a
+    # hand-made list on a random buffer: sources in the window tail, dist 1,
+    # period 3, the full length 258, a match reading the one before it;
+    # then the lists that rewrite bytes (REWRITE_LISTS).  Each against the
+    # plain twin and the serial walk.
+    one = build_merged_plan([stream])
+    st1 = inf.stage_plan(one.plan, dev)
+    cells1 = one.plan.num_cells
+    tape1, _ = pa.phase_a_tape(st1.pa, st1.slots)
+    out_size = one.plan.out_size
+    out_rows = tp._round_pow2(
+        -(-(out_size + lz.BODY_START + lz.MAXLEN + 512) // 128), 64)
+    m_rows = tp._round_pow2(-(-(out_size // 3 + 130) // 128), 16)
+    args8 = inf.match_v4_inputs(
+        tape1[:cells1], torch.from_numpy(one.plan.cell_block).to(dev),
+        torch.from_numpy(one.plan.block_out_base).to(dev), out_rows, m_rows,
+        st1.stored_pos, st1.stored_val,
+        torch.zeros(lz.WINDOW, dtype=torch.int32, device=dev))
+    n8 = int(args8[3])
+    got8 = lz.resolve_matches_v4(*args8[:3], n8)
+    torch.cuda.synchronize()
+    rec = {"shape": "path", "out_rows": out_rows, "m_rows": m_rows,
+           "matches": n8, "max_abs_err": same(
+               "lz77_match", (got8,),
+               (lz.resolve_matches_v4_plain(*args8[:3], n8),)),
+           "serial_err": serial_check("lz77_match", got8, *args8[:3], n8)}
+    if got8.view(-1)[lz.BODY_START : lz.BODY_START + out_size].to(
+            torch.uint8).cpu().numpy().tobytes() != data:
+        raise AssertionError("lz77_match: decode is not bit-exact")
+    rec["ms"] = time_ms(lambda: lz.resolve_matches_v4(*args8[:3], n8), 3)
+    # Nothing is read back in a call: its device time alone.
+    rec["replay_ms"] = replay_ms(lambda: lz.resolve_matches_v4(*args8[:3], n8))
+    rec["plain_ms"] = time_ms(
+        lambda: lz.resolve_matches_v4_plain(*args8[:3], n8), 1)
+    rec["scratch_bytes"] = group_scratch_bytes(got8.numel(), n8,
+                                               lz.MATCH_PIECE)
+    rec["bytes"] = 4 * (2 * got8.numel() + 2 * n8)
+    shapes = [rec]
+    rng = np.random.default_rng(0)
+    buf = torch.from_numpy(rng.integers(
+        0, 256, (lz.BODY_START // 128 + 40, 128)).astype(np.int32)).to(dev)
+    s0 = lz.BODY_START
+    recs = [(s0, 258, 32768), (s0 + 258, 100, 1), (s0 + 358, 200, 3),
+            (s0 + 600, 258, 258), (s0 + 858, 40, 20), (s0 + 900, 3, 30000),
+            (s0 + 1000, 258, 142), (s0 + 1300, 77, 300), (s0 + 1400, 0, 7)]
+    pos = torch.full((8 * 128,), s0, dtype=torch.int32)
+    meta = torch.zeros(8 * 128, dtype=torch.int32)
+    for i, (p, ln, d) in enumerate(recs):
+        pos[i], meta[i] = p, (ln << 16) | d
+    pos, meta = pos.view(8, 128).to(dev), meta.view(8, 128).to(dev)
+    for n in (None, 5):
+        got = lz.resolve_matches_v4(buf, pos, meta, n)
+        shapes.append({
+            "shape": "hand-made", "n_matches": n, "max_abs_err": same(
+                "lz77_match hand-made", (got,),
+                (lz.resolve_matches_v4_plain(buf, pos, meta, n),)),
+            "serial_err": serial_check("lz77_match hand-made", got, buf, pos,
+                                       meta, pos.numel() if n is None else n)})
+    for name in REWRITE_LISTS:
+        a = rewrite_list(dev, name, lz.BODY_START)
+        got = lz.resolve_matches_v4(*a)
+        shapes.append({
+            "shape": name, "n_matches": a[3], "max_abs_err": same(
+                f"lz77_match {name}", (got,),
+                (lz.resolve_matches_v4_plain(*a),)),
+            "serial_err": serial_check(f"lz77_match {name}", got, *a)})
+    return rec, shapes
+
+
 def fallback_phases(dev, base, streams):
     """The third slice: the token-tape Phase A and the three lz77 resolvers
     against their plain versions, then the speculative, v13, v7 and v3
@@ -1507,57 +1599,9 @@ def fallback_phases(dev, base, streams):
                         "max_abs_err": err})
     del a7, a9, tape2, cnts2, got
 
-    # Row 8: one stream's match list (the v4 driver's shape), then a
-    # hand-made list on a random buffer: sources in the window tail, dist 1,
-    # period 3, the full length 258, a match reading the one before it.
-    one = build_merged_plan(streams[:1])
-    st1 = inf.stage_plan(one.plan, dev)
-    cells1 = one.plan.num_cells
-    tape1, _ = pa.phase_a_tape(st1.pa, st1.slots)
-    out_size = one.plan.out_size
-    out_rows = tp._round_pow2(
-        -(-(out_size + lz.BODY_START + lz.MAXLEN + 512) // 128), 64)
-    m_rows = tp._round_pow2(-(-(out_size // 3 + 130) // 128), 16)
-    args8 = inf.match_v4_inputs(
-        tape1[:cells1], torch.from_numpy(one.plan.cell_block).to(dev),
-        torch.from_numpy(one.plan.block_out_base).to(dev), out_rows, m_rows,
-        st1.stored_pos, st1.stored_val,
-        torch.zeros(lz.WINDOW, dtype=torch.int32, device=dev))
-    n8 = int(args8[3])
-    got8 = lz.resolve_matches_v4(*args8[:3], n8)
-    torch.cuda.synchronize()
-    rec = {"shape": "path", "out_rows": out_rows, "m_rows": m_rows,
-           "matches": n8, "max_abs_err": same(
-               "lz77_match", (got8,),
-               (lz.resolve_matches_v4_plain(*args8[:3], n8),))}
-    if got8.view(-1)[lz.BODY_START : lz.BODY_START + out_size].to(
-            torch.uint8).cpu().numpy().tobytes() != datas[0]:
-        raise AssertionError("lz77_match: decode is not bit-exact")
-    rec["ms"] = time_ms(lambda: lz.resolve_matches_v4(*args8[:3], n8), 3)
-    rec["plain_ms"] = time_ms(
-        lambda: lz.resolve_matches_v4_plain(*args8[:3], n8), 1)
-    rec["bytes"] = 4 * (2 * got8.numel() + 2 * n8)
-    timed["lz77_match"] = rec
-    vs["lz77_match"].append(rec)
-    rng = np.random.default_rng(0)
-    buf = torch.from_numpy(rng.integers(
-        0, 256, (lz.BODY_START // 128 + 40, 128)).astype(np.int32)).to(dev)
-    s0 = lz.BODY_START
-    recs = [(s0, 258, 32768), (s0 + 258, 100, 1), (s0 + 358, 200, 3),
-            (s0 + 600, 258, 258), (s0 + 858, 40, 20), (s0 + 900, 3, 30000),
-            (s0 + 1000, 258, 142), (s0 + 1300, 77, 300), (s0 + 1400, 0, 7)]
-    pos = torch.full((8 * 128,), s0, dtype=torch.int32)
-    meta = torch.zeros(8 * 128, dtype=torch.int32)
-    for i, (p, ln, d) in enumerate(recs):
-        pos[i], meta[i] = p, (ln << 16) | d
-    pos, meta = pos.view(8, 128).to(dev), meta.view(8, 128).to(dev)
-    for n in (None, 5):
-        vs["lz77_match"].append({
-            "shape": "hand-made", "n_matches": n, "max_abs_err": same(
-                "lz77_match hand-made",
-                (lz.resolve_matches_v4(buf, pos, meta, n),),
-                (lz.resolve_matches_v4_plain(buf, pos, meta, n),))})
-    del got8, args8, tape1, st1
+    # Row 8 (match_v4_records).
+    timed["lz77_match"], shp = match_v4_records(dev, streams[0], datas[0])
+    vs["lz77_match"] += shp
     for name, shp in vs.items():
         emit({"phase": f"{name}_vs_plain", "max_abs_err": 0, "shapes": shp})
 
@@ -1718,7 +1762,9 @@ def fallback_phases(dev, base, streams):
                     / ALU_OPS_PER_S * 1e3)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            **({"via": GROUP_CHASE_VIA} if name == "lz77_match" else {}),
             "launches": launches[name], "max_abs_err": 0, "ms": rec["ms"],
+            **{k: rec[k] for k in ("replay_ms", "scratch_bytes") if k in rec},
             "plain_ms": rec["plain_ms"], "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": None})
@@ -1732,6 +1778,7 @@ def archive_phases(dev, base, streams):
     v10, v14 and v1 paths over the main path's streams.  Returns the four
     kernels' entries for the `kernels` line."""
     from debigulator_tpu_torch.ops import inflate as inf
+    from debigulator_tpu_torch.ops import lz77 as lz
     from debigulator_tpu_torch.ops import phase_a as pa
     from debigulator_tpu_torch.ops import plan as tp
     from debigulator_tpu_torch.ops.archive import inflate_generations as ig
@@ -1868,6 +1915,8 @@ def archive_phases(dev, base, streams):
         rec_w = {"shape": label, "max_abs_err": same(
             "walk_v14", (got_w,), (lg.resolve_walk_v14_plain(*w_args),))}
         pm.check(body_of(got_w, mpf.plan.out_size), mpf, datas[:k])
+        if label == "small":
+            rec_w["serial_err"] = serial_v14_check("walk_v14", got_w, *w_args)
         if label == "path":
             slots = c_args[-1]
             cnt = c_args[5].view(-1).long()
@@ -1894,8 +1943,18 @@ def archive_phases(dev, base, streams):
                                 + sum(t.numel() for t in got_c))
             timed["compact_v14"] = rec
             rec_w["ms"] = time_ms(lambda: lg.resolve_walk_v14(*w_args), reps)
+            # The call reads its limits first; its launches alone, with the
+            # limits read once, replayed from a CUDA graph.
+            limits = lg._walk_limits(w_args[0], w_args[1])
+            out_w = w_args[0].clone()
+            rec_w["replay_ms"] = replay_ms(
+                lambda: lg.walk_v14_launch(out_w, limits, *w_args[1:]))
+            if not torch.equal(out_w, got_w):
+                raise AssertionError("walk_v14: the replayed launches differ")
             rec_w["plain_ms"] = time_ms(
                 lambda: lg.resolve_walk_v14_plain(*w_args), 1)
+            rec_w["scratch_bytes"] = group_scratch_bytes(
+                got_w.numel(), limits[1] - limits[0], lz.MATCH_PIECE)
             rec_w.update(v14_work(c_args, w_args))
             timed["walk_v14"] = rec_w
         vs["compact_v14"].append(rec)
@@ -1956,6 +2015,18 @@ def archive_phases(dev, base, streams):
             "plain_ms": time_ms(lambda: lg.resolve_walk_v14_plain(*w_args), 1),
             **v14_work(c_args, w_args)})
         del got, c_args, w_args
+
+    # Row 10c on dense lists that write bytes twice, in and out of groups
+    # marked clean (v14_rewrite_case): against the plain twin and the
+    # serial walk.
+    for name in ("rewritten", "clean_across_segments"):
+        args = v14_rewrite_case(dev, name)
+        got = lg.resolve_walk_v14(*args)
+        vs["walk_v14"].append({
+            "shape": name, "max_abs_err": same(
+                f"walk_v14 {name}", (got,),
+                (lg.resolve_walk_v14_plain(*args),)),
+            "serial_err": serial_v14_check(f"walk_v14 {name}", got, *args)})
 
     # Row 10a on hand-made lists that break the packer's rules
     # (group_case): the group semantics against the plain twin.
@@ -2062,8 +2133,7 @@ def archive_phases(dev, base, streams):
                     "debigulator_tpu/ops/archive/lz77_generations.py:49"),
     }
     # The resolvers whose matches go through a grid-wide chase.
-    via_chase = {"groups_v11": GROUP_CHASE_VIA,
-                 "walk_v14": "debigulator_tpu_torch/csrc/chase.cuh",
+    via_chase = {"groups_v11": GROUP_CHASE_VIA, "walk_v14": GROUP_CHASE_VIA,
                  "tape_v1": "debigulator_tpu_torch/csrc/chase.cuh"}
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -2118,6 +2188,170 @@ def match_list_case(dev, seed: int = 0, body: int = 60_000):
     meta[at] = [e[1] for e in entries]
     return tuple(torch.from_numpy(a.reshape(-1, 128)).to(dev)
                  for a in (buf, pos, meta))
+
+
+#: Hand-made match lists that rewrite bytes, which DEFLATE never makes
+#: (rows 8, 10e and 10f): (dst, len, dist) offset from the body start, and
+#: the n_matches row 8 resolves (None: every entry).
+REWRITE_LISTS = {
+    "reader_between_writers": ([(1000, 20, 100), (2000, 20, 1000),
+                                (1010, 20, 800), (3000, 20, 1990)], None),
+    "write_after_read": ([(1000, 20, 500), (500, 20, 300)], None),
+    "three_writers": ([(1000, 30, 200), (1010, 30, 400), (1005, 10, 700),
+                       (2000, 40, 1000), (1200, 30, 195)], None),
+    "dist0_len0": ([(1000, 20, 0), (1100, 0, 50), (1000, 10, 300),
+                    (1300, 5, 0), (1400, 30, 400), (1410, 0, 0)], None),
+    "overlap_258": ([(1000, 258, 3), (1100, 258, 1), (1400, 258, 258),
+                     (1127, 40, 7), (2000, 258, 900)], None),
+    "n_matches_8": ([(1000 + 37 * i, 30 + i, 25 + 11 * i)
+                     for i in range(16)], 8),
+}
+
+
+def rewrite_list(dev, name: str, origin: int, seed: int = 0):
+    """(buffer, pos, meta, n) of REWRITE_LISTS[name] on `dev`: a buffer of
+    random bytes (numpy `seed`) whose body starts at `origin` (the pad row
+    and the window, or the window alone, before it) and holds 40 rows;
+    pos and meta (8, 128) int32, padded with length-0 entries."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 256, origin + 40 * 128).astype(np.int32)
+    recs, n = REWRITE_LISTS[name]
+    pos = np.full(8 * 128, origin, np.int32)
+    meta = np.zeros(8 * 128, np.int32)
+    for i, (d, ln, dist) in enumerate(recs):
+        pos[i], meta[i] = origin + d, ln << 16 | dist
+    return (*(torch.from_numpy(a.reshape(-1, 128)).to(dev)
+              for a in (buf, pos, meta)), len(recs) if n is None else n)
+
+
+def copy_match_np(out: np.ndarray, d: int, n: int, dist: int) -> None:
+    """Match (d, n, dist) applied to the flat numpy buffer: byte d + i
+    takes byte d - dist + i % dist (the sources must lie in the buffer)."""
+    if dist <= 0 or n <= 0:
+        return
+    if d - dist < 0 or d + n > out.size:
+        raise AssertionError("the serial walk takes matches inside the buffer")
+    if dist >= n:
+        out[d : d + n] = out[d - dist : d - dist + n]
+    else:
+        out[d : d + n] = np.resize(out[d - dist : d], n)
+
+
+def serial_check(name, got, buf, pos, meta, n) -> int:
+    """Matches 0..n-1 of (pos, meta) applied one at a time in numpy to a
+    copy of `buf` (the in-order walk of the TPU kernels of rows 8, 10e and
+    10f); raises unless `got` equals it, else returns 0."""
+    out = buf.reshape(-1).cpu().numpy().copy()
+    for p, m in zip(pos.reshape(-1)[:n].tolist(),
+                    meta.reshape(-1)[:n].tolist()):
+        copy_match_np(out, p, m >> 16, m & 0xFFFF)
+    if not np.array_equal(got.reshape(-1).cpu().numpy(), out):
+        raise AssertionError(f"{name} disagrees with the serial walk")
+    return 0
+
+
+def v14_rewrite_case(dev, name: str):
+    """Row 10c's arguments on a dense list that the v14 compaction never
+    makes, over random bytes (numpy seed 0 or 1), with no runs:
+    * rewritten: one 8 KiB segment; a group marked clean (bit 31 on its
+      first match) holding a match of distance 5 and length 40, a group
+      that writes bytes 1010..1019 twice, groups reading them, a clean
+      group whose two members write one byte range (the later wins), a
+      clean group with a member of distance 0 over bytes another member
+      writes, and a group reading both;
+    * clean_across_segments: two 4 KiB segments whose record ranges split
+      a clean group of 8 (slots 16..19 and 20..23), the second part
+      reading what the first wrote."""
+    from debigulator_tpu_torch.ops import lz77 as lz
+
+    b = lz.BODY_START
+    dst = np.zeros(16 * 128, np.int64)
+    meta = np.zeros(16 * 128, np.int64)
+    if name == "rewritten":
+        rng = np.random.default_rng(0)
+        init = rng.integers(0, 256, b + 8192 + 512)
+        groups = [[(500, 30, 200, 1), (600, 40, 5, 0), (700, 20, 300, 0)],
+                  [(1000, 20, 100, 0), (1010, 20, 800, 0), (1100, 30, 90, 0)],
+                  [(1500, 30, 495, 1), (1600, 25, 595, 0)],
+                  [(2000, 20, 990, 0)],
+                  [(2500, 20, 700, 1), (2510, 20, 1500, 0)],
+                  [(3010, 20, 900, 1), (3000, 40, 0, 0)],
+                  [(3500, 40, 1000, 0), (3600, 40, 1100, 0)]]
+        for g, grp in enumerate(groups):
+            for j, (d, n, dist, clean) in enumerate(grp):
+                dst[g * 8 + j] = d
+                meta[g * 8 + j] = clean << 31 | n << 16 | dist
+        lims = np.array([[0, 8 * len(groups), 0, 0, 0, 0, 0, 0]])
+    else:
+        seg = 4096
+        rng = np.random.default_rng(1)
+        init = rng.integers(0, 256, b + 2 * seg + 512)
+        for q in range(16):
+            dst[q], meta[q] = 200 * q + 50, 20 << 16 | (30 + q)
+        recs = {16: (3000, 20, 2000), 17: (3100, 30, 2500),
+                18: (3200, 10, 100), 19: (3300, 40, 1200),
+                20: (seg + 100, 30, seg + 100 - 3105),
+                21: (seg + 300, 30, seg + 300 - 3000),
+                22: (seg + 500, 20, 7), 23: (seg + 600, 40, 0)}
+        for q, (d, n, dist) in recs.items():
+            dst[q], meta[q] = d, n << 16 | dist
+        meta[16] |= 1 << 31
+        lims = np.array([[0, 20, 0, 0, 0, 0, 0, 0],
+                         [20, 24, 0, 0, seg, 0, 0, 0]])
+    t = [torch.from_numpy(a.astype(np.uint32).astype(np.int32).reshape(-1, 128))
+         .to(dev) for a in (init, dst, meta)]
+    z = torch.zeros((16, 128), dtype=torch.int32, device=dev)
+    return (t[0], torch.from_numpy(lims.astype(np.int32)).to(dev), t[1], t[2],
+            z, z, torch.zeros((8, 128), dtype=torch.int32, device=dev))
+
+
+def serial_v14_check(name, got, buf, lims, mdst, mmeta, rdst, rmeta,
+                     lit) -> int:
+    """The v14 walk in numpy, one segment of `lims` after another as the
+    TPU kernel's calls go: the runs, then each segment's matches in
+    groups of 8 aligned to the dense index, a group whose first slot has
+    bit 31 set loading all its members before it stores them (no wrap),
+    any other match one at a time (distance 0 doing nothing); matches
+    clipped to the body and cut at 512 - (dst & 127).  Raises unless `got`
+    equals it, else returns 0."""
+    from debigulator_tpu_torch.ops import lz77 as lz
+
+    out = buf.reshape(-1).cpu().numpy().copy()
+    rows = lims.reshape(-1, 8).cpu().numpy().astype(np.int64)
+    body_end = (buf.shape[0] - lz.SLACK_ROWS) * 128
+    adj = lz.BODY_START - int(rows[0, 4])
+    rd, md = rdst.reshape(-1).cpu().numpy(), mdst.reshape(-1).cpu().numpy()
+    rm = rmeta.reshape(-1).cpu().numpy().view(np.uint32)
+    mm = mmeta.reshape(-1).cpu().numpy()
+    fl = lit.reshape(-1).cpu().numpy()
+    for i in range(int(rows[0, 2]), int(rows[-1, 3])):
+        ln, lf = int(rm[i] & 0x7F), int(rm[i] >> 7)
+        d = int(rd[i]) + adj
+        for j in range(ln):
+            if lz.BODY_START <= d + j < body_end and lf + j < fl.size:
+                out[d + j] = fl[lf + j]
+    for m_lo, m_hi in rows[:, :2].tolist():
+        for g0 in range(m_lo & ~7, m_hi, 8):
+            pieces = []
+            for q in range(max(g0, m_lo), min(g0 + 8, m_hi)):
+                m = int(mm[q])
+                d = int(md[q]) + adj
+                delta = max(lz.BODY_START - d, 0)
+                eff = max(((m >> 16) & 0x1FF) - delta, 0)
+                d += delta
+                eff = min(eff, max(body_end - d, 0), 512 - (d & 127))
+                pieces.append((d, eff, m & 0xFFFF))
+            if mm[g0] < 0:
+                loads = [out[d - dist : d - dist + n].copy()
+                         for d, n, dist in pieces]
+                for (d, n, _), v in zip(pieces, loads):
+                    out[d : d + n] = v
+            else:
+                for d, n, dist in pieces:
+                    copy_match_np(out, d, n, dist)
+    if not np.array_equal(got.reshape(-1).cpu().numpy(), out):
+        raise AssertionError(f"{name} disagrees with the serial walk")
+    return 0
 
 
 def group_case(dev, version: str, shape: str, seed: int = 0):
@@ -2289,12 +2523,25 @@ def archive_kernel_phases(dev, base, streams):
             return buf, pos, meta
         return buf[lz.PAD // 128 :], pos - lz.PAD, meta
 
+    # Each list against the plain twin and the serial walk: the hand-made
+    # list, the lists that rewrite bytes (REWRITE_LISTS), one stream's.
     hand = match_list_case(dev)
-    for name, (fn, plain, _) in lists.items():
+    for name, (fn, plain, origin) in lists.items():
         a = layout(name, *hand)
+        got = fn(*a)
         vs[name].append({"shape": "hand-made", "entries": a[1].numel(),
-                         "max_abs_err": same(f"{name} hand-made", (fn(*a),),
-                                             (plain(*a),))})
+                         "max_abs_err": same(f"{name} hand-made", (got,),
+                                             (plain(*a),)),
+                         "serial_err": serial_check(f"{name} hand-made", got,
+                                                    *a, a[1].numel())})
+        for shape in REWRITE_LISTS:
+            a = rewrite_list(dev, shape, origin)[:3]
+            got = fn(*a)
+            vs[name].append({
+                "shape": shape, "entries": a[1].numel(),
+                "max_abs_err": same(f"{name} {shape}", (got,), (plain(*a),)),
+                "serial_err": serial_check(f"{name} {shape}", got, *a,
+                                           a[1].numel())})
     one = build_merged_plan(streams[:1])
     arrays1 = tp.plan_arrays_v3(one.plan, dev)
     out_size = one.plan.out_size
@@ -2322,11 +2569,16 @@ def archive_kernel_phases(dev, base, streams):
         got = fn(*a)
         torch.cuda.synchronize()
         rec = {"shape": "path", "entries": pos1.numel(), "matches": int(n1),
-               "max_abs_err": same(name, (got,), (plain(*a),))}
+               "max_abs_err": same(name, (got,), (plain(*a),)),
+               "serial_err": serial_check(name, got, *a, a[1].numel())}
         if decoded(got, origin) != datas[0]:
             raise AssertionError(f"{name}: decode is not bit-exact")
         rec["ms"] = time_ms(lambda: fn(*a), 3)
+        # Nothing is read back in a call: its device time alone.
+        rec["replay_ms"] = replay_ms(lambda: fn(*a))
         rec["plain_ms"] = time_ms(lambda: plain(*a), 1)
+        rec["scratch_bytes"] = group_scratch_bytes(a[0].numel(), a[1].numel(),
+                                                   lz.MATCH_PIECE)
         # The window and body read and written once; the meta of every
         # entry (the walk has no n_matches bound), the position of each
         # live match.
@@ -2547,7 +2799,7 @@ def archive_kernel_phases(dev, base, streams):
         rec = timed[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            **({"via": GROUP_CHASE_VIA} if name in groups else {}),
+            **({"via": GROUP_CHASE_VIA} if name != "microbench_pb" else {}),
             "launches": launches[name], "max_abs_err": 0, "ms": rec["ms"],
             **{k: rec[k] for k in ("replay_ms", "scratch_bytes") if k in rec},
             "plain_ms": rec["plain_ms"],

@@ -1,20 +1,19 @@
 // Grid-wide LZ77 source chase for Hopper, shared by the flat walk
-// (walk.cu, row 3 of PERF.md's kernel table), the two segment resolvers
-// (lz77_tape.cu and lz77_ops.cu, rows 7 and 9) and the archive resolver
-// of a flat match list (walk_v14.cu, row 10c); the group resolvers' chase
-// (group_chase.cuh, rows 10a, 10g and 10h) runs chase_elements and
-// spreads bytes as spread_bytes does, with group semantics instead of the
-// overlap rule.
+// (walk.cu, row 3 of PERF.md's kernel table) and the two segment resolvers
+// (lz77_tape.cu and lz77_ops.cu, rows 7 and 9, and row 10d through
+// lz77_tape.cu); the chase of every match or piece list (group_chase.cuh,
+// rows 8, 10a, 10c and 10e-10h) runs chase_elements with group semantics
+// instead of the overlap rule alone.
 //
 // A DEFLATE match copies `len` bytes from `dist` bytes back: byte d + i of
 // a match at d takes the value of byte s = d - dist + i % dist (the
-// overlap rule of lz77::copy_match; s < d + i always, and a head-clipped
-// match, its destination moved up and its distance kept, resolves as the
-// in-order walk does).  So the bytes of all matches form chains of
-// pointers that run strictly downwards and end at a byte that no match
-// writes: a literal, a stored byte, the window prologue or a byte of the
-// caller's buffer.  Resolving them needs no stream order, only the chains'
-// roots:
+// overlap rule; s < d + i always, and a head-clipped match, its
+// destination moved up and its distance kept, resolves as the in-order
+// walk does).  A DEFLATE tape writes each byte once, so the bytes of all
+// matches form chains of pointers that run strictly downwards and end at a
+// byte that no match writes: a literal, a stored byte, the window
+// prologue or a byte of the caller's buffer.  Resolving them needs no
+// stream order, only the chains' roots:
 //
 //  * a pointer pass stores a pointer for every match byte.  A persistent
 //    grid of warps takes 32 records at a time, one a lane, and spreads
@@ -37,21 +36,19 @@
 //  * in place (row 3, `InPlaceStore` / `InPlaceChain`): out[d] = -(s + 1).
 //    The walk's buffer holds byte values 0..255 (the caller's window,
 //    stored bytes, literals), so a negative value is a pointer.
-//  * flagged (rows 7, 9 and 10c, `FlagStore` / `FlagChain`,
-//    launched by `launch_cells` and `launch_list`): these resolvers get
-//    their buffer from the caller and row 9 stores its literals unmasked,
-//    so any int32 may be a
-//    final value (a tape or buffer padded with -1, for one).  A bitmap
-//    over the body marks the match bytes (zeroed first: body / 8 bytes,
-//    not a pass over the buffer) and a side array holds each match byte's
-//    state in one 64-bit word: its pointer while it is chased, its value
-//    once resolved, so a chase that reaches a resolved byte stops there
-//    as the in-place chase does.  The buffer itself only ever holds
-//    values.  A hop loads the source's bit, its state and its value
-//    together; a source outside the body (the window prologue of a
-//    segment, the pad row) has no bit and is final.  The chase follows a
-//    pointer only while it moves strictly down, so it ends on any input,
-//    an overflowed tape included.
+//  * flagged (rows 7 and 9, `FlagStore` / `FlagChain`, launched by
+//    `launch_cells`): these resolvers get their buffer from the caller and
+//    row 9 stores its literals unmasked, so any int32 may be a final value
+//    (a tape or buffer padded with -1, for one).  A bitmap over the body
+//    marks the match bytes (zeroed first: body / 8 bytes, not a pass over
+//    the buffer) and a side array holds each match byte's state in one
+//    64-bit word: its pointer while it is chased, its value once resolved,
+//    so a chase that reaches a resolved byte stops there as the in-place
+//    chase does.  The buffer itself only ever holds values.  A hop loads
+//    the source's bit, its state and its value together; a source outside
+//    the body (the window prologue of a segment, the pad row) has no bit
+//    and is final.  The chase follows a pointer only while it moves
+//    strictly down, so it ends on any input, an overflowed tape included.
 //
 // The segment resolvers' matches come as per-cell lists, `slots` entries a
 // cell with kc[c] of them valid (87% of the 8.4 M slots are padding at the
@@ -61,14 +58,6 @@
 // inclusive prefix sums of kc, made on the card between the launches) and
 // finds each record's cell by a binary search, so the padding is never
 // read and the bytes spread evenly over the warps.
-//
-// Row 10c's matches come as one flat list instead (its dense match list),
-// so `list_pointer_kernel` takes records g * 32 + lane directly, with no
-// prefix sum and no search; a record source `Rec` decodes record q into
-// its clipped buffer position, length (0 for padding) and distance.  The chase equals the in-order walk
-// of such a list whenever each body byte is written by at most one match
-// and every source lies strictly below the byte it feeds: both hold for
-// DEFLATE output (written once) and so for the v14 compaction's list.
 
 // What bounds it on the H100: bytes and latency, across all 132 SMs.  The
 // pointer pass reads each valid record once and writes a pointer per match
@@ -309,27 +298,6 @@ cells_pointer_kernel(const int* __restrict__ mpos,
   }
 }
 
-// The match bytes of a flat list of n records: rec(q, dst, len, dist)
-// gives record q's buffer position (clipped to the body), length (0 for a
-// record that writes nothing) and distance (> 0 wherever len > 0).  A
-// persistent grid of warps takes records g * 32 + lane.
-template <class Rec>
-__global__ void __launch_bounds__(kThreads)
-list_pointer_kernel(const Rec rec, int64_t n, int body_start, int body_end,
-                    unsigned long long* __restrict__ ptr,
-                    unsigned* __restrict__ bits) {
-  const int lane = threadIdx.x & 31;
-  const FlagStore store{ptr, bits, body_start, lane};
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-       g * 32 < n; g += warps) {
-    const int64_t q = g * 32 + lane;
-    int dst = 0, len = 0, dist = 0;
-    if (q < n) rec(q, dst, len, dist);
-    spread_bytes(lane, 0, dst, len, dist, body_end, store);
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 flag_chase_kernel(int* out, unsigned long long* ptr,
                   const unsigned* __restrict__ bits, int body_start,
@@ -340,60 +308,28 @@ flag_chase_kernel(int* out, unsigned long long* ptr,
   chase_elements(FlagChain{out, ptr, bits, body_start}, j0, body_end);
 }
 
-// Zero the bitmap of the body [body_start, body_end), run a pointer pass
-// (`pointer`, given its number of blocks), then the chase.  ptr: body_end -
-// body_start 64-bit words, bits: (that + 31) / 32 words, both scratch.
-template <class Pointer>
-inline int launch_flagged(int* out, int body_start, int body_end,
-                          int64_t blocks, const Pointer& pointer,
-                          unsigned long long* ptr, unsigned* bits,
-                          cudaStream_t stream) {
+// Resolve the listed matches of n_cells cells into `out` over the body
+// [body_start, body_end): zero the bitmap, run the pointer pass, then the
+// chase.  ptr: body_end - body_start 64-bit words, bits: (that + 31) / 32
+// words, both scratch.
+inline int launch_cells(int* out, int body_start, int body_end,
+                        const int* mpos, const int* mmeta, const int* kinc,
+                        int n_cells, int slots, unsigned long long* ptr,
+                        unsigned* bits, cudaStream_t stream) {
   const int64_t n_body = static_cast<int64_t>(body_end) - body_start;
-  if (blocks <= 0 || n_body <= 0) return static_cast<int>(cudaGetLastError());
+  if (n_cells <= 0 || n_body <= 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err = cudaMemsetAsync(bits, 0, (n_body + 31) / 32 * 4, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t most = static_cast<int64_t>(n_cells) * slots;  // records
+  int64_t blocks = (most + 32 * kWarps - 1) / (32 * kWarps);
   if (blocks > kPointerBlocks) blocks = kPointerBlocks;
-  pointer(static_cast<unsigned>(blocks));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cells_pointer_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      mpos, mmeta, kinc, n_cells, slots, body_start, body_end, ptr, bits);
   const int64_t per = static_cast<int64_t>(kThreads) * kChase;
   flag_chase_kernel<<<static_cast<unsigned>((n_body + per - 1) / per),
                       kThreads, 0, stream>>>(out, ptr, bits, body_start,
                                              body_end);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Resolve the listed matches of n_cells cells into `out` over the body
-// [body_start, body_end).
-inline int launch_cells(int* out, int body_start, int body_end,
-                        const int* mpos, const int* mmeta, const int* kinc,
-                        int n_cells, int slots, unsigned long long* ptr,
-                        unsigned* bits, cudaStream_t stream) {
-  if (n_cells <= 0) return static_cast<int>(cudaGetLastError());
-  const int64_t most = static_cast<int64_t>(n_cells) * slots;  // records
-  return launch_flagged(
-      out, body_start, body_end, (most + 32 * kWarps - 1) / (32 * kWarps),
-      [&](unsigned blocks) {
-        cells_pointer_kernel<<<blocks, kThreads, 0, stream>>>(
-            mpos, mmeta, kinc, n_cells, slots, body_start, body_end, ptr,
-            bits);
-      },
-      ptr, bits, stream);
-}
-
-// Resolve the n records of a flat list (`Rec`, see list_pointer_kernel)
-// into `out` over the body [body_start, body_end).
-template <class Rec>
-inline int launch_list(int* out, int body_start, int body_end, const Rec& rec,
-                       int64_t n, unsigned long long* ptr, unsigned* bits,
-                       cudaStream_t stream) {
-  return launch_flagged(
-      out, body_start, body_end, (n + 32 * kWarps - 1) / (32 * kWarps),
-      [&](unsigned blocks) {
-        list_pointer_kernel<<<blocks, kThreads, 0, stream>>>(
-            rec, n, body_start, body_end, ptr, bits);
-      },
-      ptr, bits, stream);
 }
 
 }  // namespace chase

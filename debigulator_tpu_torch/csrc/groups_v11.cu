@@ -41,7 +41,7 @@
 
 namespace {
 
-constexpr int kGroup = group_chase::kGroup;
+constexpr int kGroup = 8;  // pieces per group
 
 struct Piece {
   int dst, len, src;
@@ -89,16 +89,17 @@ namespace groups_v11 {
 // Slot t's piece for the group chase: its buffer position and source
 // (segment-local positions plus the segment's offset) and its length; 0
 // for a slot outside every segment's range (its group's first slot
-// decides) and for a padding piece.
+// decides) and for a padding piece.  No wrap (period = len); groups of 8.
 struct PieceRec {
+  static constexpr int kPiece = 128;  // a row's bytes
   const int* __restrict__ lims;
   int n_seg;
   const int* __restrict__ gpos;
   const int* __restrict__ gmeta;
   __device__ __forceinline__ void operator()(int64_t t, int& dst, int& len,
-                                             int& src) const {
+                                             int& src, int& period) const {
     len = 0;
-    const int seg = segment_of(lims, n_seg, 0, 1, t - t % kGroup);
+    const int seg = segment_of(lims, n_seg, 0, 1, lo(t));
     if (seg < 0) return;
     const Piece p = unpack(gpos[t], gmeta[t]);
     if (p.len <= 0) return;
@@ -106,6 +107,10 @@ struct PieceRec {
     dst = p.dst + off;
     src = p.src + off;
     len = p.len;
+    period = p.len;
+  }
+  __device__ __forceinline__ int64_t lo(int64_t t) const {
+    return t - t % kGroup;
   }
 };
 

@@ -37,7 +37,7 @@
 
 namespace {
 
-constexpr int kGroup = group_chase::kGroup;
+constexpr int kGroup = 8;  // pieces per group
 constexpr int kBodyStart = 128 + 32768;
 
 // Literal slot t of segment k (the segment whose literal slot range holds
@@ -72,22 +72,28 @@ namespace groups_v9 {
 // Slot t's piece: buffer position (stream-global position less lims[0][2],
 // plus the body start), length (meta >> 16, at most 128; 0 for padding and
 // for a slot whose group's first slot lies outside every segment's range)
-// and source (position less the 16-bit distance).
+// and source (position less the 16-bit distance), with no wrap (period =
+// len); groups of 8.
 struct V9Rec {
+  static constexpr int kPiece = 128;
   const int* __restrict__ lims;
   int n_seg;
   const int* __restrict__ gpos;
   const int* __restrict__ gmeta;
   __device__ __forceinline__ void operator()(int64_t t, int& dst, int& len,
-                                             int& src) const {
+                                             int& src, int& period) const {
     len = 0;
-    if (lz77::segment_of(lims, n_seg, 0, 1, t - t % kGroup) < 0) return;
+    if (lz77::segment_of(lims, n_seg, 0, 1, lo(t)) < 0) return;
     const int m = gmeta[t];
-    const int n = min(m >> 16, group_chase::kMaxPiece);
+    const int n = min(m >> 16, kPiece);
     if (n <= 0) return;
     dst = gpos[t] - lims[2] + kBodyStart;
     src = dst - (m & 0xFFFF);
     len = n;
+    period = n;
+  }
+  __device__ __forceinline__ int64_t lo(int64_t t) const {
+    return t - t % kGroup;
   }
 };
 

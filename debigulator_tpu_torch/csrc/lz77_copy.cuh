@@ -1,60 +1,20 @@
-// In-order LZ77 match application for Hopper.  Its users: the match-list
-// resolver of ops/lz77.py (lz77_match.cu: copy_match, leading_ok),
-// clip_match for the resolvers whose matches the grid-wide chase of
-// chase.cuh resolves (lz77_tape.cu, lz77_ops.cu, walk_v14.cu; that chase
-// keeps copy_match's overlap rule) and segment_of for the group resolvers
-// on group_chase.cuh (groups_v9.cu, groups_v11.cu).
+// Match helpers for Hopper shared by the LZ77 resolvers: clip_match for
+// the resolvers that clip their matches to a body (lz77_tape.cu and
+// lz77_ops.cu over chase.cuh's source chase, walk_v14.cu over
+// group_chase.cuh) and segment_of for the resolvers whose records carry a
+// segment's limits (groups_v9.cu, groups_v11.cu, walk_v14.cu).
 //
-// A DEFLATE match copies `len` bytes from `dist` bytes back; matches must
-// take effect in stream order because a source may be bytes an earlier
-// match wrote.  The TPU kernels (debigulator_tpu/ops/lz77_pallas.py) load
-// aligned 4-row spans, rotate lanes, test groups of 8 matches pairwise for
-// hazards and double the pattern nine times for the overlapping case; all
-// of that answers Mosaic's 128-lane alignment.  Here memory is byte
-// addressable (one int32 per byte), so:
-//
-//  * one warp copies one match, lane i taking bytes i, i + 32, ...:
-//    out[dst + i] = out[dst - dist + i % dist].  Every source index lies
-//    below dst, so the bytes read were final before the match began and
-//    the overlapping (dist < len) case needs no doubling;
-//  * one CTA of 32 warps walks a list in order.  A batch is the longest
-//    run of matches whose sources do not reach into what the batch itself
-//    writes; the batch copies in parallel, then one __syncthreads() makes
-//    its bytes visible to the next.
-//
-// What bounds it on the H100: latency.  A list's batches are serialised,
-// each costs about two L2 round trips, and a list uses one of 132 SMs.
+// No resolver walks a list in order any more: every match list goes
+// through a grid-wide chase (chase.cuh for DEFLATE tapes, whose bytes are
+// written once; group_chase.cuh for lists, with their kernels' group
+// semantics on any list).
 
 #pragma once
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace lz77 {
-
-constexpr int kWalkThreads = 1024;
-constexpr int kWalkWarps = kWalkThreads / 32;
-
-// One warp copies one match.  `dist` 0 (a corrupt record) copies nothing;
-// stores are clipped to [0, limit) and sources below 0 are skipped.
-__device__ __forceinline__ void copy_match(int* out, int64_t limit, int dst,
-                                           int len, int dist, int lane) {
-  if (dist <= 0) return;
-  const int64_t src = static_cast<int64_t>(dst) - dist;
-  for (int i = lane; i < len; i += 32) {
-    const int64_t s = src + (i % dist);
-    const int64_t d = static_cast<int64_t>(dst) + i;
-    if (s >= 0 && d < limit) out[d] = out[s];
-  }
-}
-
-// Number of leading set flags among the CTA's per-warp flags.
-__device__ __forceinline__ int leading_ok(const int* s_ok) {
-  int n = 0;
-  while (n < kWalkWarps && s_ok[n]) ++n;
-  return n;
-}
 
 // Head and tail clip of a match at buffer position dst to the body
 // [body_start, body_end): the destination moves up, the length shrinks,

@@ -31,11 +31,12 @@ SOURCES = {"phase_a": "phase_a.cu", "compact": "compact.cu", "walk": "walk.cu",
            "walk_v14": "walk_v14.cu", "groups_v9": "groups_v9.cu",
            "microbench_pb": "microbench_pb.cu"}
 #: Headers a source includes: hashed with it, so an edit rebuilds it.
-HEADERS = {"walk": ["chase.cuh"], "lz77_match": ["lz77_copy.cuh"],
+HEADERS = {"walk": ["chase.cuh"],
+           "lz77_match": ["chase.cuh", "group_chase.cuh"],
            **{name: ["lz77_copy.cuh", "chase.cuh"]
-              for name in ("lz77_tape", "lz77_ops", "walk_v14")},
+              for name in ("lz77_tape", "lz77_ops")},
            **{name: ["lz77_copy.cuh", "chase.cuh", "group_chase.cuh"]
-              for name in ("groups_v11", "groups_v9")}}
+              for name in ("groups_v11", "groups_v9", "walk_v14")}}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -51,7 +52,8 @@ _ENTRIES = {
                           _I64]),
     "dbg_unfilter": ("unfilter", [_P, _P, _I32, _I32, _I32, _I32, _P]),
     "dbg_greedy_walk": ("greedy_walk", [_P, _P, _I64, _P, _P, _P, _P]),
-    "dbg_lz77_match": ("lz77_match", [_P, _I64, _P, _P, _I32]),
+    "dbg_lz77_match": ("lz77_match", [_P, _I64, _P, _P, _I64, _P, _P, _P,
+                                      _P, _P]),
     "dbg_lz77_tape_place": ("lz77_tape", [_P, _I32, _P, _P, _P, _I32, _I32,
                                           _I32, _I32, _P, _P, _P]),
     "dbg_lz77_tape_chase": ("lz77_tape", [_P, _I32, _P, _P, _P, _I32, _I32,
@@ -71,8 +73,8 @@ _ENTRIES = {
                                         _I64]),
     "dbg_walk_v14_runs": ("walk_v14", [_P, _I32, _I32, _P, _P, _I32, _I32, _P,
                                        _I64]),
-    "dbg_walk_v14_chase": ("walk_v14", [_P, _I32, _I32, _P, _P, _I32, _I32,
-                                        _P, _P]),
+    "dbg_walk_v14_chase": ("walk_v14", [_P, _I64, _I32, _I32, _P, _I32, _P,
+                                        _P, _I32, _I32, _P, _P, _P, _P, _P]),
     "dbg_groups_v10_lits": ("groups_v9", [_P, _I64, _P, _I32, _P, _P, _I64,
                                           _P, _I64]),
     "dbg_groups_v9_chase": ("groups_v9", [_P, _I64, _P, _I32, _P, _P, _I64,

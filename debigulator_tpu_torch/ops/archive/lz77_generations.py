@@ -34,20 +34,21 @@ The wrappers return a new buffer and leave ``out_init`` as it was.
 On the card each resolver is a grid-wide pass for what reads no output
 (literal pieces, literal runs, literals of the tape), then a pass that
 resolves the matches, in no order, with nothing read back between the
-launches.  Row 10c (v14 walk) and the v1 tape hand theirs to the
-grid-wide source chase of csrc/chase.cuh: a pointer for every match byte,
-then every body byte chased to its root (csrc/walk_v14.cu, lz77_tape.cu).
-The three group resolvers (rows 10a, 10g, 10h) hand theirs to the group
-chase of csrc/group_chase.cuh, which keeps the TPU kernels' group
-semantics on any piece list: every written byte takes the value its
-source held before the piece's group, and a later slot's store wins
-(csrc/groups_v11.cu, groups_v9.cu).  The archived match lists keep an
-in-order walk, a warp per match, up to 32 a batch (csrc/lz77_match.cu).
-A wrapper adds one to its launch count in a call that launched a kernel,
-and nowhere else.  The plain versions place the literals, point every
-match byte at its source byte and follow the pointers by doubling
-(ops.lz77._apply_copies_plain; for the group resolvers
-``_group_walk_plain``).
+launches.  The v1 tape hands its matches to the grid-wide source chase of
+csrc/chase.cuh: a pointer for every match byte, then every body byte
+chased to its root (csrc/lz77_tape.cu).  Every other resolver hands its
+list to the group chase of csrc/group_chase.cuh, which keeps its TPU
+kernel's groups on any list: every written byte takes the value its
+source held before the piece's group, and a later slot's store wins.  The
+group resolvers (rows 10a, 10g, 10h) have groups of 8 pieces
+(csrc/groups_v11.cu, groups_v9.cu); the match lists (rows 10e, 10f) have
+groups of one under the overlap rule, the in-order walk (csrc/
+lz77_match.cu); the v14 walk (row 10c) has a group of 8 for each group
+marked clean and groups of one elsewhere (csrc/walk_v14.cu).  A wrapper
+adds one to its launch count in a call that launched a kernel, and
+nowhere else.  The plain versions place the literals and resolve the
+matches by ops.lz77.group_walk_plain (the v1 tape by
+ops.lz77._apply_copies_plain).
 """
 
 from __future__ import annotations
@@ -152,7 +153,7 @@ def resolve_groups_v11_plain(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
     ok = (p >= 0) & (p < out.numel()) & (s >= 0) & (s < flat_lit.numel())
     out[p[ok]] = flat_lit[s[ok]]
 
-    _group_walk_plain(out, *_v11_pieces(lims, gpos, gmeta))
+    lz.group_walk_plain(out, *_v11_pieces(lims, gpos, gmeta))
     return out.view_as(out_init)
 
 
@@ -297,6 +298,36 @@ def _walk_limits(out_init, lims):
             body_end)
 
 
+def _v14_matches(lims, mdst, mmeta, m_lo: int, m_hi: int, base_adj: int,
+                 body_end: int):
+    """The dense matches [m_lo, m_hi) that write something, in slot order,
+    as the card's chase reads them: (dst, length, source, group key,
+    period).  A match is clipped to the body and cut at MATCH_PIECE - (dst
+    & 127).  A group of 8 aligned to the dense index whose first slot has
+    bit 31 set is one group (its key the first slot, not below its
+    segment's first record nor below m_lo) with no wrap, a member of
+    distance 0 included; every other match is its own group under the
+    overlap rule, and distance 0 writes nothing."""
+    flat = mmeta.reshape(-1).long()
+    q = torch.arange(m_lo, max(m_hi, m_lo), device=mmeta.device)
+    mm = flat[q]
+    dst, eff = lz._clip_matches(mdst.reshape(-1).long()[q] + base_adj,
+                                (mm >> 16) & 0x1FF, body_end)
+    eff = torch.minimum(eff, lz.MATCH_PIECE - (dst & 127))
+    dist = mm & 0xFFFF
+    q0 = q & ~7
+    clean = flat[q0] < 0
+    rows = lims.reshape(-1, 8).long()
+    seg = torch.searchsorted(rows[:, 0].contiguous(), q, right=True) - 1
+    segc = seg.clamp(min=0)
+    inseg = (seg >= 0) & (q < rows[segc, 1])
+    first = torch.where(inseg, torch.maximum(q0, rows[segc, 0]), q0)
+    key = torch.where(clean, first.clamp(min=m_lo), q)
+    live = (eff > 0) & (clean | (dist > 0))
+    return (dst[live], eff[live], (dst - dist)[live], key[live],
+            torch.where(clean, eff, dist)[live])
+
+
 def resolve_walk_v14_plain(out_init, lims, mdst, mmeta, rdst, rmeta, lit2d):
     m_lo, m_hi, r_lo, r_hi, base_adj, body_end = _walk_limits(out_init, lims)
     out = out_init.reshape(-1).clone()
@@ -307,10 +338,8 @@ def resolve_walk_v14_plain(out_init, lims, mdst, mmeta, rdst, rmeta, lit2d):
     src = (rm >> 7)[rec] + o
     ok = (pos >= BODY_START) & (pos < body_end) & (src < lit.numel())
     out[pos[ok]] = lit[src[ok]]
-    mm = mmeta.reshape(-1)[m_lo:m_hi].long()
-    dst, eff = lz._clip_matches(mdst.reshape(-1)[m_lo:m_hi].long() + base_adj,
-                                (mm >> 16) & 0x1FF, body_end)
-    lz._apply_copies_plain(out, dst, eff, mm & 0xFFFF)
+    lz.group_walk_plain(out, *_v14_matches(lims, mdst, mmeta, m_lo, m_hi,
+                                           base_adj, body_end))
     return out.view_as(out_init)
 
 
@@ -325,18 +354,23 @@ def resolve_walk_v14(out_init, lims, mdst, mmeta, rdst, rmeta, lit2d):
     31 | len << 16 | dist); rdst/rmeta: dense runs (position; lit_flat << 7
     | run_len, the run's bytes being lit2d's flat lit_flat ...).  Stores
     are clipped to the body [BODY_START, (rows - 4) * 128); a match that
-    begins before it is head-clipped.  ``lit_row0`` and the clean bit are
-    the reference's VMEM window base and fast-path hint: the card reads
-    the whole literal array and needs no hint.  The reference's ``slots``
-    argument (its staging size) is not taken.
+    begins before it is head-clipped.  The matches keep the reference's
+    groups: a group of 8 aligned to the dense index whose first slot has
+    bit 31 set loads before it stores (each member's byte d + i gets what
+    d - dist + i held before the group; a later member's store wins), and
+    a segment of ``lims`` that starts inside such a group starts a group
+    of its own there, as the reference's call a segment does; every other
+    match takes effect in order under the overlap rule, and distance 0
+    does nothing.  A source outside the buffer reads 0; a length past 258
+    is cut at 512 - (dst & 127).  ``lit_row0`` is the reference's VMEM
+    window base: the card reads the whole literal array.  The reference's
+    ``slots`` argument (its staging size) is not taken.
 
     CUDA kernels (csrc/walk_v14.cu), two launches with nothing read back
-    between them: a thread per run; then the grid-wide source chase
-    (csrc/chase.cuh), whose pointer pass reads and clips each dense match
-    itself and spreads its bytes over the lanes, and whose chase resolves
-    every body byte to the root of its chain of sources.  No stream order
-    is needed: the matches never overlap and each reads below what it
-    writes.  ``out_init`` may hold any int32 values.
+    between them (``walk_v14_launch``; the limits are read once before):
+    a thread per run; then the group chase (csrc/group_chase.cuh), whose
+    record source reads and clips each dense match and its group's clean
+    bit.  ``out_init`` may hold any int32 values.
     """
     _check_i32(out_init, lims, mdst, mmeta, rdst, rmeta, lit2d)
     if mdst.numel() != mmeta.numel() or rdst.numel() != rmeta.numel():
@@ -344,19 +378,35 @@ def resolve_walk_v14(out_init, lims, mdst, mmeta, rdst, rmeta, lit2d):
     if _plain_here(out_init):
         return resolve_walk_v14_plain(out_init, lims, mdst, mmeta, rdst,
                                       rmeta, lit2d)
-    m_lo, m_hi, r_lo, r_hi, base_adj, body_end = _walk_limits(out_init, lims)
+    limits = _walk_limits(out_init, lims)
     out = out_init.clone()
+    if walk_v14_launch(out, limits, lims, mdst, mmeta, rdst, rmeta, lit2d):
+        resolve_walk_v14.launches += 1
+    return out
+
+
+def walk_v14_launch(out, limits, lims, mdst, mmeta, rdst, rmeta,
+                    lit2d) -> bool:
+    """The card's launches of ``resolve_walk_v14`` in place on ``out``,
+    with its ``limits`` (``_walk_limits``): the runs, then the group chase;
+    returns whether it launched.  It reads nothing back, so it replays
+    from a CUDA graph."""
+    m_lo, m_hi, r_lo, r_hi, base_adj, body_end = limits
     runs, chase = r_hi > r_lo, m_hi > m_lo and body_end > BODY_START
+    if chase:
+        lz.check_chase(m_hi - m_lo, out.numel(),
+                       lz.chase_slots(lz.MATCH_PIECE))
     if runs:
         _kernels.launch("dbg_walk_v14_runs", out, body_end, base_adj, rdst,
                         rmeta, r_lo, r_hi, lit2d, lit2d.numel())
     if chase:
-        _kernels.launch("dbg_walk_v14_chase", out, body_end, base_adj, mdst,
-                        mmeta, m_lo, m_hi,
-                        *lz.chase_state(body_end, out.device))
-    if runs or chase:
-        resolve_walk_v14.launches += 1
-    return out
+        rows = lims.reshape(-1, 8)
+        _kernels.launch("dbg_walk_v14_chase", out, out.numel(), body_end,
+                        base_adj, rows, rows.shape[0], mdst, mmeta, m_lo,
+                        m_hi, *lz.group_chase_state(
+                            out.numel(), m_hi - m_lo, out.device,
+                            lz.MATCH_PIECE))
+    return runs or chase
 
 
 resolve_walk_v14.launches = 0
@@ -459,11 +509,8 @@ def _check_list(out_init, pos, meta, prologue: int) -> None:
 
 
 def resolve_matches_plain(out_init, match_pos, match_meta):
-    out = out_init.reshape(-1).clone()
-    m = match_meta.reshape(-1).long()
-    lz._apply_copies_plain(out, match_pos.reshape(-1).long(), m >> 16,
-                           m & 0xFFFF)
-    return out.view_as(out_init)
+    return lz.match_list_plain(out_init, match_pos, match_meta,
+                               match_pos.numel())
 
 
 def resolve_matches(out_init, match_pos, match_meta):
@@ -473,20 +520,20 @@ def resolve_matches(out_init, match_pos, match_meta):
     prologue, then the body with its literals (and stored bytes) placed.
     match_pos/match_meta: (Mr, 128) int32, every row in order: the
     destination (offset by WINDOW) and len << 16 | dist; entries of length
-    0 are padding.  ``dist < len`` repeats the pattern.  Returns the
-    resolved buffer.
+    0 are padding.  ``dist < len`` repeats the pattern; as
+    ``ops.lz77.resolve_matches_v4`` on every entry, exact on any list.
+    Returns the resolved buffer.
 
-    CUDA kernel (csrc/lz77_match.cu, ``dbg_lz77_match``, row 8's list
-    walk over every entry): one CTA walks the whole list, 32 matches a
-    batch, a warp per match.
+    CUDA kernel (csrc/lz77_match.cu, ``dbg_lz77_match``, row 8's chase
+    over every entry): the group chase with groups of one, nothing read
+    back.
     """
     _check_list(out_init, match_pos, match_meta, WINDOW)
     if _plain_here(out_init):
         return resolve_matches_plain(out_init, match_pos, match_meta)
     out = out_init.clone()
     if match_pos.numel():
-        _kernels.launch("dbg_lz77_match", out, out.numel(), match_pos,
-                        match_meta, match_pos.numel())
+        lz.match_chase(out, match_pos, match_meta, match_pos.numel())
         resolve_matches.launches += 1
     return out
 
@@ -508,15 +555,14 @@ def resolve_matches_v2(out_init, match_pos, match_meta):
     and len << 16 | dist; entries of length 0 are padding.  Returns the
     resolved buffer.
 
-    CUDA kernel: the v1 walk (csrc/lz77_match.cu, ``dbg_lz77_match``).
+    CUDA kernel: the v1 chase (csrc/lz77_match.cu, ``dbg_lz77_match``).
     """
     _check_list(out_init, match_pos, match_meta, BODY_START)
     if _plain_here(out_init):
         return resolve_matches_v2_plain(out_init, match_pos, match_meta)
     out = out_init.clone()
     if match_pos.numel():
-        _kernels.launch("dbg_lz77_match", out, out.numel(), match_pos,
-                        match_meta, match_pos.numel())
+        lz.match_chase(out, match_pos, match_meta, match_pos.numel())
         resolve_matches_v2.launches += 1
     return out
 
@@ -569,62 +615,8 @@ def _lit_pieces(lims, lpos, lmeta):
     return dst[live], ln[live], src[live]
 
 
-def _group_walk_plain(out, dst, length, src, group) -> None:
-    """Group semantics on the flat buffer, in place: pieces (dst, length,
-    src) in slot order, ``group`` rising; a piece's loads see the buffer as
-    the groups before its own left it, stores follow in slot order (a
-    later one wins).  A source byte outside the buffer reads as 0.
-
-    Every written byte is an event; an event's value is the byte its
-    source held before the event's group: the last event on that byte
-    from an earlier group (found by one search over events sorted by
-    byte and slot), else the buffer's own byte.  The pointers are followed
-    by doubling."""
-    n_out = out.numel()
-    rec, off = _expand(length)
-    p, s = dst[rec] + off, src[rec] + off
-    first = torch.searchsorted(group, group)[rec]  # first piece of its group
-    keep = (p >= 0) & (p < n_out)
-    p, s, first, t = p[keep], s[keep], first[keep], rec[keep]
-    e = p.numel()
-    if e == 0:
-        return
-    span = length.numel() + 1
-    key, order = torch.sort(p * span + t)
-    p, s, first = p[order], s[order], first[order]
-    prev = torch.searchsorted(key, s * span + first) - 1
-    found = (prev >= 0) & (p[prev.clamp(min=0)] == s)
-    inside = (s >= 0) & (s < n_out)
-    ptr = torch.cat([
-        torch.where(found, prev, torch.where(inside, e + s, e + n_out)),
-        torch.arange(e, e + n_out + 1, device=out.device)])
-    while True:
-        nxt = ptr[ptr]
-        if torch.equal(nxt, ptr):
-            break
-        ptr = nxt
-    vals = torch.cat([out.new_zeros(e), out, out.new_zeros(1)])
-    last = torch.ones(e, dtype=torch.bool, device=out.device)
-    last[:-1] = p[1:] != p[:-1]
-    out[p[last]] = vals[ptr[:e][last]]
-
-
-#: Most slots of a group chase: a writer that is not its byte's last is
-#: named by -(slot * 128 + offset) - 2 in a 32-bit word.
-GROUP_CHASE_SLOTS = (2**31 - 2) // V9_MAX_PIECE
-
-
-def group_chase_state(n_out: int, n_slots: int, device):
-    """The group chase's scratch (csrc/group_chase.cuh): the last and the
-    first writer of every buffer byte and its 64-bit state, the head of
-    each 128-byte row's list of pieces (one row more on each side) and
-    each slot's link in it."""
-    i32 = torch.int32
-    return (torch.empty(n_out, dtype=i32, device=device),
-            torch.empty(n_out, dtype=i32, device=device),
-            torch.empty(n_out, dtype=torch.int64, device=device),
-            torch.empty(-(-n_out // 128) + 2, dtype=i32, device=device),
-            torch.empty(n_slots, dtype=i32, device=device))
+#: Most slots of a group chase over pieces of at most V9_MAX_PIECE bytes.
+GROUP_CHASE_SLOTS = lz.chase_slots(V9_MAX_PIECE)
 
 
 def _group_chase(entry: str, out, lims, gpos, gmeta) -> bool:
@@ -633,11 +625,9 @@ def _group_chase(entry: str, out, lims, gpos, gmeta) -> bool:
     n = gpos.numel()
     if n == 0:
         return False
-    if n > GROUP_CHASE_SLOTS or out.numel() >= 2**31:
-        raise ValueError("the group chase takes at most "
-                         f"{GROUP_CHASE_SLOTS} slots and 2^31 bytes")
+    lz.check_chase(n, out.numel(), GROUP_CHASE_SLOTS)
     _kernels.launch(entry, out, out.numel(), lims, lims.shape[0], gpos, gmeta,
-                    n, *group_chase_state(out.numel(), n, out.device))
+                    n, *lz.group_chase_state(out.numel(), n, out.device))
     return True
 
 
@@ -656,7 +646,7 @@ def _check_groups(out_init, lim, *pairs) -> None:
 def resolve_groups_v9_plain(out_init, lim, gpos, gmeta):
     out = out_init.reshape(-1).clone()
     dst, ln, dist, grp = _match_pieces(lim.reshape(-1, 8), gpos, gmeta)
-    _group_walk_plain(out, dst, ln, dst - dist, grp)
+    lz.group_walk_plain(out, dst, ln, dst - dist, grp)
     return out.view_as(out_init)
 
 
@@ -700,7 +690,7 @@ def resolve_groups_v10_plain(out_init, lim, gpos, gmeta, lpos, lmeta, lit):
     ok = (p >= 0) & (p < out.numel()) & (s >= 0) & (s < flat_lit.numel())
     out[p[ok]] = flat_lit[s[ok]]
     dst, ln, dist, grp = _match_pieces(lims, gpos, gmeta)
-    _group_walk_plain(out, dst, ln, dst - dist, grp)
+    lz.group_walk_plain(out, dst, ln, dst - dist, grp)
     return out.view_as(out_init)
 
 

@@ -24,20 +24,24 @@ buffer and leave ``out_init`` as it was.
 
 The TPU kernels' (rows, 128) lane arithmetic, SMEM staging chunks, match
 list caps and speculative groups of 8 answer Mosaic's constraints and are
-not carried over.  On the card each resolver starts with a placement pass
-over all cells (literals read no output, so any order).  The match-list
-resolver then applies its matches in stream order, a warp per match,
-batching the ones whose sources are already final (csrc/lz77_copy.cuh).
-The segment resolvers list each cell's clipped matches instead and hand
-them to the grid-wide source chase of csrc/chase.cuh: a pointer for every
-match byte to the byte it copies (in a side array flagged by a bitmap, so
-the buffer may hold any int32), then every body byte chased to its root,
-with no stream order and no read-back between the launches.
+not carried over.  On the card the match-list resolver hands its list to
+the group chase of csrc/group_chase.cuh with groups of one
+(csrc/lz77_match.cu): every match byte takes what its source holds after
+every earlier slot, a later slot's store winning, on any list, with no
+stream order and nothing read back.  The segment resolvers start with a
+placement pass over all cells (literals read no output, so any order),
+list each cell's clipped matches and hand them to the grid-wide source
+chase of csrc/chase.cuh: a pointer for every match byte to the byte it
+copies (in a side array flagged by a bitmap, so the buffer may hold any
+int32), then every body byte chased to its root, with no stream order and
+no read-back between the launches.
 
-The plain versions place literals, point every match byte at its source
-byte and follow the pointers by doubling (``ptr = ptr[ptr]``) until
-nothing changes.  They assume what a DEFLATE stream guarantees: match
-destinations do not overlap and every source lies before its destination.
+The plain versions of the segment resolvers place literals, point every
+match byte at its source byte and follow the pointers by doubling
+(``ptr = ptr[ptr]``) until nothing changes (``_apply_copies_plain``).  They
+assume what a DEFLATE tape guarantees: each byte is written once and every
+source lies before its destination.  The match-list resolver's plain
+version is ``group_walk_plain`` with groups of one, exact on any list.
 """
 
 from __future__ import annotations
@@ -79,8 +83,11 @@ def _check_i32(*tensors) -> None:
 
 
 def _apply_copies_plain(out: torch.Tensor, dst, length, dist) -> None:
-    """out[dst + i] = out[dst + i - dist] for every match, in stream order,
-    by pointer doubling; in place on the flat buffer."""
+    """out[dst + i] = out[dst - dist + i % dist] for every match, by
+    pointer doubling; in place on the flat buffer.  Equal to the in-order
+    walk where each byte is written once and every source lies before its
+    destination, as on the Phase A tapes of rows 3, 7, 9 and 10d; the match
+    lists (rows 8, 10c, 10e, 10f) use ``group_walk_plain``."""
     live = (length > 0) & (dist > 0)
     dst, length, dist = dst[live], length[live], dist[live]
     rec, off = _expand(length)
@@ -97,31 +104,145 @@ def _apply_copies_plain(out: torch.Tensor, dst, length, dist) -> None:
     out.copy_(out[ptr])
 
 
+def group_walk_plain(out, dst, length, src, group, period=None) -> None:
+    """Group semantics on the flat buffer, in place: pieces (dst, length,
+    src) in slot order, each of length > 0, ``group`` rising (a group is a
+    run of pieces with one key); byte dst + i of a piece reads byte src +
+    i % period (``period`` per piece; the length where None, so nothing
+    wraps).  A piece's loads see the buffer as the groups before its own
+    left it, stores follow in slot order (a later one wins).  A source
+    byte outside the buffer reads as 0; a store outside it is dropped.
+
+    Every written byte is an event; an event's value is the byte its
+    source held before the event's group: the last event on that byte
+    from an earlier group (found by one search over events sorted by
+    byte and slot), else the buffer's own byte.  The pointers are followed
+    by doubling."""
+    n_out = out.numel()
+    rec, off = _expand(length)
+    wrap = off if period is None else off % period[rec]
+    p, s = dst[rec] + off, src[rec] + wrap
+    first = torch.searchsorted(group, group)[rec]  # first piece of its group
+    keep = (p >= 0) & (p < n_out)
+    p, s, first, t = p[keep], s[keep], first[keep], rec[keep]
+    e = p.numel()
+    if e == 0:
+        return
+    span = length.numel() + 1
+    key, order = torch.sort(p * span + t)
+    p, s, first = p[order], s[order], first[order]
+    prev = torch.searchsorted(key, s * span + first) - 1
+    found = (prev >= 0) & (p[prev.clamp(min=0)] == s)
+    inside = (s >= 0) & (s < n_out)
+    ptr = torch.cat([
+        torch.where(found, prev, torch.where(inside, e + s, e + n_out)),
+        torch.arange(e, e + n_out + 1, device=out.device)])
+    while True:
+        nxt = ptr[ptr]
+        if torch.equal(nxt, ptr):
+            break
+        ptr = nxt
+    vals = torch.cat([out.new_zeros(e), out, out.new_zeros(1)])
+    last = torch.ones(e, dtype=torch.bool, device=out.device)
+    last[:-1] = p[1:] != p[:-1]
+    out[p[last]] = vals[ptr[:e][last]]
+
+
+#: Longest piece of the group chase over a match list (csrc/lz77_match.cu,
+#: walk_v14.cu): a match is cut at MATCH_PIECE - (dst & 127) bytes, where
+#: the TPU kernels' 4-row span ends.  Only lengths past 258, which DEFLATE
+#: never makes, reach it.
+MATCH_PIECE = 512
+
+
+def chase_slots(piece: int) -> int:
+    """Most slots of a group chase over pieces of at most ``piece`` bytes:
+    a writer that is not its byte's last is named by -(slot * piece +
+    offset) - 2 in a 32-bit word."""
+    return (2**31 - 2) // piece
+
+
+def check_chase(n_slots: int, n_out: int, most: int) -> None:
+    if n_slots > most or n_out >= 2**31:
+        raise ValueError(f"the group chase takes at most {most} slots and "
+                         "2^31 bytes")
+
+
+def group_chase_state(n_out: int, n_slots: int, device, piece: int = 128):
+    """The group chase's scratch (csrc/group_chase.cuh): the last and the
+    first writer of every buffer byte and its 64-bit state, the head of
+    each ``piece``-byte row's list of pieces (one row more on each side)
+    and each slot's link in it."""
+    i32 = torch.int32
+    return (torch.empty(n_out, dtype=i32, device=device),
+            torch.empty(n_out, dtype=i32, device=device),
+            torch.empty(n_out, dtype=torch.int64, device=device),
+            torch.empty(-(-n_out // piece) + 2, dtype=i32, device=device),
+            torch.empty(n_slots, dtype=i32, device=device))
+
+
+def match_pieces(pos, meta):
+    """The matches of a list (pos, meta = len << 16 | dist) that write
+    something, in slot order, as the match-list chase reads them: (dst,
+    length cut at MATCH_PIECE - (dst & 127), source dst - dist, slot,
+    dist).  Length 0 and distance 0 write nothing."""
+    dst = pos.reshape(-1).long()
+    m = meta.reshape(-1).long()
+    dist = m & 0xFFFF
+    ln = torch.minimum(m >> 16, MATCH_PIECE - (dst & 127))
+    live = (ln > 0) & (dist > 0)
+    slot = torch.arange(dst.numel(), device=dst.device)
+    return (dst[live], ln[live], (dst - dist)[live], slot[live], dist[live])
+
+
+def match_list_plain(out_init, pos, meta, n: int):
+    """Matches 0..n-1 of (pos, meta) applied in order to a copy of
+    ``out_init``: the group walk with groups of one, each byte d + i of a
+    match reading d - dist + i % dist (the overlap rule)."""
+    out = out_init.reshape(-1).clone()
+    dst, ln, src, slot, dist = match_pieces(pos.reshape(-1)[:n],
+                                            meta.reshape(-1)[:n])
+    group_walk_plain(out, dst, ln, src, slot, dist)
+    return out.view_as(out_init)
+
+
+def match_chase(out, pos, meta, n: int) -> None:
+    """Launch the match-list chase (``dbg_lz77_match``) over entries
+    0..n-1 (n > 0) of (pos, meta) into ``out``, in place."""
+    check_chase(n, out.numel(), chase_slots(MATCH_PIECE))
+    _kernels.launch("dbg_lz77_match", out, out.numel(), pos, meta, n,
+                    *group_chase_state(out.numel(), n, out.device,
+                                       MATCH_PIECE))
+
+
 # ---------------------------------------------------------------------------
 # v4: compacted match list
 # ---------------------------------------------------------------------------
 
 
 def resolve_matches_v4_plain(out_init, pos, meta, n_matches=None):
-    out = out_init.reshape(-1).clone()
-    p = pos.reshape(-1).long()
-    m = meta.reshape(-1).long()
-    n = p.numel() if n_matches is None else min(_scalar(n_matches), p.numel())
-    _apply_copies_plain(out, p[:n], m[:n] >> 16, m[:n] & 0xFFFF)
-    return out.view_as(out_init)
+    n = pos.numel() if n_matches is None else min(_scalar(n_matches),
+                                                  pos.numel())
+    return match_list_plain(out_init, pos, meta, max(n, 0))
 
 
 def resolve_matches_v4(out_init, pos, meta, n_matches=None):
     """Apply matches 0..n_matches-1 of (pos, meta) to ``out_init`` in
     order: meta = len << 16 | dist, pos = destination in the buffer
-    (offset by PAD + WINDOW); ``dist < len`` repeats the pattern.  Entries
-    past ``n_matches`` and entries of length 0 do nothing.  Returns the
-    resolved (rows, 128) buffer.
+    (offset by PAD + WINDOW); byte pos + i takes what byte pos - dist + i
+    % dist holds after every earlier match (``dist < len`` repeats the
+    pattern), and a later match's store wins, on any list.  Entries past
+    ``n_matches`` and entries of length 0 or distance 0 do nothing.  A
+    source outside the buffer reads 0 and a store outside it is dropped;
+    a length past 258 is cut at 512 - (pos & 127).  Returns the resolved
+    (rows, 128) buffer.
 
-    CUDA kernel (csrc/lz77_match.cu): one CTA walks the list, 32 matches a
-    batch, a warp per match; a batch ends before the first match whose
-    source or destination touches an earlier member's ranges.  Bound by
-    latency, not bytes: batches are serialised by ``__syncthreads``.
+    CUDA kernel (csrc/lz77_match.cu): the group chase of
+    csrc/group_chase.cuh with groups of one: each match byte's state
+    points at its source byte's last writer before the match, every
+    written byte is chased to a value and the last writer's value stored;
+    no slot order, nothing read back (scratch: 16 bytes a buffer byte, a
+    word a 512-byte row and a match).
     """
     _check_i32(out_init, pos, meta)
     if pos.shape != meta.shape:
@@ -132,7 +253,7 @@ def resolve_matches_v4(out_init, pos, meta, n_matches=None):
         return resolve_matches_v4_plain(out_init, pos, meta, n)
     out = out_init.clone()
     if n > 0:
-        _kernels.launch("dbg_lz77_match", out, out.numel(), pos, meta, n)
+        match_chase(out, pos, meta, n)
         resolve_matches_v4.launches += 1
     return out
 

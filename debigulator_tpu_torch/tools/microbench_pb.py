@@ -23,6 +23,7 @@ import torch
 
 from debigulator_tpu_torch.device import resolve as resolve_device
 from debigulator_tpu_torch.ops import _kernels
+from debigulator_tpu_torch.ops import lz77 as lz
 from debigulator_tpu_torch.ops.archive import lz77_generations as lzgen
 from debigulator_tpu_torch.ops.phase_b import _expand
 
@@ -128,7 +129,7 @@ def microbench_plain(variant: str, w0, w1, init, stage_rows: int = STAGE_ROWS):
             pos = base[rec] + rp[rec] + o
             out[pos[(pos >= 0) & (pos < out.numel())]] = 0
         else:  # full and unrollN: the group walk itself
-            lzgen._group_walk_plain(
+            lz.group_walk_plain(
                 out, base + rp, length, q + rp,
                 torch.arange(n, device=out.device) // GROUP)
     return out.view_as(init)

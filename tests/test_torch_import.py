@@ -423,6 +423,9 @@ def _chase_card_calls():
             buf, lim, v9_pos, mmeta),
         "resolve_groups_v10": lambda: lg.resolve_groups_v10(
             buf, lim, v9_pos, mmeta, v9_lpos, v9_lmeta, lit),
+        "resolve_matches": lambda: lg.resolve_matches(buf, v9_pos, mmeta),
+        "resolve_matches_v2": lambda: lg.resolve_matches_v2(buf, v9_pos,
+                                                            mmeta),
     }
 
 
@@ -430,7 +433,9 @@ def _chase_card_calls():
     ("resolve_groups_v11", ["dbg_groups_v11_lits", "dbg_groups_v11_chase"]),
     ("resolve_walk_v14", ["dbg_walk_v14_runs", "dbg_walk_v14_chase"]),
     ("resolve_groups_v9", ["dbg_groups_v9_chase"]),
-    ("resolve_groups_v10", ["dbg_groups_v10_lits", "dbg_groups_v9_chase"])])
+    ("resolve_groups_v10", ["dbg_groups_v10_lits", "dbg_groups_v9_chase"]),
+    ("resolve_matches", ["dbg_lz77_match"]),
+    ("resolve_matches_v2", ["dbg_lz77_match"])])
 def test_chase_wrappers_launch_the_chase_and_read_nothing_back(monkeypatch,
                                                               wrapper,
                                                               entries):
@@ -438,11 +443,11 @@ def test_chase_wrappers_launch_the_chase_and_read_nothing_back(monkeypatch,
     taken here on CPU tensors with the launches recorded: exactly the
     literal entry (where the wrapper has one), then the chase entry (no
     in-order walk), each with as many arguments as its C entry takes; the
-    flagged chase given a 64-bit state and a bit for every body byte, the
-    group chase (rows 10a, 10g, 10h) the last and first writer and a
-    64-bit state for every buffer byte, a list head for every row and a
-    link for every slot; and nothing read back to the host after the
-    first launch."""
+    group chase the last and first writer and a 64-bit state for every
+    buffer byte, a list head for every row (128 bytes for the group rows
+    10a, 10g and 10h, 512 for the match lists of rows 10c, 10e and 10f)
+    and a link for every slot; and nothing read back to the host after
+    the first launch."""
     from debigulator_tpu_torch.ops import _kernels
     from debigulator_tpu_torch.ops.archive import lz77_generations as lg
 
@@ -472,21 +477,22 @@ def test_chase_wrappers_launch_the_chase_and_read_nothing_back(monkeypatch,
     assert fn.launches == before + 1
     for entry, args in made:
         assert len(args) == len(_kernels._ENTRIES[entry][1])
+    args = made[-1][1]
+    last, first, state, heads, nxt = args[-5:]
+    n_out = args[0].numel()
+    assert args[1] == n_out
+    assert last.dtype == first.dtype == heads.dtype == nxt.dtype \
+        == torch.int32
+    assert state.dtype == torch.int64
+    assert last.numel() == first.numel() == state.numel() == n_out
     if wrapper == "resolve_walk_v14":
-        state, bits = made[-1][1][-2:]
-        n_body = 4 * 128
-        assert state.dtype == torch.int64 and state.numel() == n_body
-        assert bits.dtype == torch.int32 and bits.numel() == n_body // 32
+        piece, slots = 512, args[9] - args[8]
+    elif wrapper.startswith("resolve_matches"):
+        piece, slots = 512, args[4]
     else:
-        last, first, state, heads, nxt = made[-1][1][-5:]
-        n_out = made[-1][1][0].numel()
-        assert made[-1][1][1] == n_out
-        assert last.dtype == first.dtype == heads.dtype == nxt.dtype \
-            == torch.int32
-        assert state.dtype == torch.int64
-        assert last.numel() == first.numel() == state.numel() == n_out
-        assert heads.numel() == n_out // 128 + 2
-        assert nxt.numel() == made[-1][1][6]
+        piece, slots = 128, args[6]
+    assert heads.numel() == -(-n_out // piece) + 2
+    assert nxt.numel() == slots > 0
 
 
 @pytest.mark.parametrize("entry", ["dbg_scan", "dbg_scan2", "dbg_pack_groups"])

@@ -27,6 +27,7 @@ from debigulator_tpu_torch.ops import phase_a as tpa
 from debigulator_tpu_torch.ops import plan as tp
 from debigulator_tpu_torch.ops.archive import lz77_generations as tlg
 from debigulator_tpu_torch.ops.scanner import scan_stream_cells
+from torch_group_cases import MATCH_LISTS, match_list, serial_matches
 from torch_stream_cases import STREAMS
 
 SEG = 4096  # body bytes of one test segment
@@ -248,6 +249,28 @@ def test_resolve_matches_v4_window_sources_and_overlap():
     flat = want.reshape(-1)
     assert np.array_equal(flat[s : s + 258], out2d.reshape(-1)[s - 32768 : s - 32510])
     assert (flat[s + 258 : s + 358] == flat[s + 257]).all()
+
+
+@pytest.mark.parametrize("name", list(MATCH_LISTS))
+def test_resolve_matches_v4_on_lists_that_rewrite_bytes(name):
+    """Row 8 on hand-made lists that DEFLATE never makes (numpy seed 0, a
+    random buffer: its pad row and window, then 40 rows): a reader between
+    two writers of its source, a write after a read, a byte written by
+    three matches, entries of distance 0 and length 0, a 258-long
+    overlapping run, and n_matches = 8 short of the list.  The JAX kernel
+    is strictly in order (its output is the serial walk's), and the port
+    gives its bytes.  The first two lists failed on the parent tree, whose
+    plain twin followed pointers by doubling (fault C4): body bytes
+    2010..2019 and 1000..1019 differed."""
+    buf, pos, meta, n = match_list(name, lz.PAD + lz.WINDOW,
+                                   lz.PAD + lz.WINDOW)
+    assert n % 8 == 0 or n == len(MATCH_LISTS[name][0])
+    want = np.asarray(_ref_v4(buf, pos, meta, n))
+    assert np.array_equal(want, serial_matches(buf, pos, meta, n))
+    got = tlz.resolve_matches_v4(*(torch.from_numpy(a.copy())
+                                   for a in (buf, pos, meta)), n)
+    assert np.array_equal(got.numpy(), want)
+    assert not np.array_equal(want, buf)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

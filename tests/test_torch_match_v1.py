@@ -19,6 +19,7 @@ from debigulator_tpu_torch.ops import plan as tp
 from debigulator_tpu_torch.ops.archive import inflate_generations as ig
 from debigulator_tpu_torch.ops.archive import lz77_generations as lg
 from debigulator_tpu_torch.ops.scanner import scan_stream_cells
+from torch_group_cases import MATCH_LISTS, match_list, serial_matches
 from torch_stream_cases import STREAMS, deflate, words
 
 #: Where each layout's body starts: v1 has no pad row.
@@ -92,6 +93,28 @@ def test_match_list_matches_the_reference_kernel(version, seed):
     assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("name", list(MATCH_LISTS))
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_match_list_on_lists_that_rewrite_bytes(version, name):
+    """Rows 10e and 10f on hand-made lists that DEFLATE never makes (numpy
+    seed 0, a random buffer: its window (and v2's pad row), then 40 rows),
+    every entry of the list: a reader between two writers of its source,
+    a write after a read, a byte written by three matches, entries of
+    distance 0 and length 0, a 258-long overlapping run, 16 clashing
+    matches.  The JAX kernels are serial, and the port gives their bytes.
+    The first two lists failed on the parent tree, whose plain twin
+    followed pointers by doubling (fault C4): body bytes 2010..2019 and
+    1000..1019 differed."""
+    origin = ORIGIN[version]
+    buf, pos, meta, _ = match_list(name, origin, origin)
+    want = np.asarray(REF[version](jnp.asarray(buf), jnp.asarray(pos),
+                                   jnp.asarray(meta), interpret=True))
+    assert np.array_equal(want, serial_matches(buf, pos, meta, pos.size))
+    got = PORT[version](*(torch.from_numpy(a.copy()) for a in (buf, pos, meta)))
+    assert np.array_equal(got.numpy(), want)
+    assert not np.array_equal(want, buf)
+
+
 def test_the_layouts_are_not_converted():
     """Each wrapper takes its own layout: the v2 list on a v1 buffer (or
     the reverse) is refused or resolves other bytes, never silently
@@ -110,12 +133,15 @@ def test_the_layouts_are_not_converted():
 @pytest.mark.parametrize("version", ["v1", "v2"])
 def test_card_branch_walks_the_whole_list(monkeypatch, version):
     """The card's branch, taken here on CPU tensors with the launch
-    recorded instead of made: both layouts launch row 8's list walk over
-    every entry of the list (no n_matches cut), on a copy of the buffer."""
+    recorded instead of made: both layouts launch row 8's chase over
+    every entry of the list (no n_matches cut), on a copy of the buffer,
+    with the group chase's scratch: three words for every buffer byte, a
+    list head for every 512-byte row and a link for every entry."""
     from debigulator_tpu_torch.ops import _kernels
 
     made = []
-    monkeypatch.setattr(lg, "_plain_here", lambda t: False)
+    for mod in (lg, lz):
+        monkeypatch.setattr(mod, "_plain_here", lambda t: False)
     monkeypatch.setattr(_kernels, "launch",
                         lambda entry, *a: made.append((entry, a)))
     buf, pos, meta = (torch.from_numpy(a) for a in _list_case(version, 0))
@@ -123,10 +149,14 @@ def test_card_branch_walks_the_whole_list(monkeypatch, version):
     got = PORT[version](buf, pos, meta)
     assert PORT[version].launches == before + 1
     assert len(made) == 1
-    entry, (out, n_out, p, m, n) = made[0]
+    entry, (out, n_out, p, m, n, last, first, state, heads, nxt) = made[0]
     assert entry == "dbg_lz77_match" and out is got and out is not buf
     assert n_out == buf.numel() and p is pos and m is meta
-    assert n == pos.numel()
+    assert n == pos.numel() == nxt.numel()
+    assert last.numel() == first.numel() == state.numel() == n_out
+    assert state.dtype == torch.int64
+    assert heads.numel() == -(-n_out // lz.MATCH_PIECE) + 2
+
 
 def _tape_inputs(stream):
     blocks, lengths, cells = scan_stream_cells(stream, tp.CELL_BITS)
@@ -162,6 +192,38 @@ def test_tape_driver_matches_the_reference_kernel(version):
     assert np.array_equal(got.numpy(), np.asarray(want))
     body = got.view(-1)[ORIGIN[version] : ORIGIN[version] + plan.out_size]
     assert body.to(torch.uint8).numpy().tobytes() == zlib.decompress(stream, -15)
+
+
+@pytest.mark.parametrize("version", ["v4", "v1", "v2"])
+def test_card_branch_model_on_a_stream(monkeypatch, version):
+    """Rows 8, 10e and 10f on one stream's real match list (a token tape
+    through match_v4_inputs), the card's branch taken on CPU tensors with
+    ``dbg_lz77_match`` run by the model of the chase (groups of one,
+    torch_group_cases.emulate): the plain twin's bytes, which decode the
+    stream."""
+    from debigulator_tpu_torch.ops import _kernels
+    from torch_group_cases import emulate
+
+    stream = deflate(words(2000, seed=21), 6)
+    plan, args = _tape_inputs(stream)
+    out_init, pos, meta, n = inf.match_v4_inputs(*args)
+    if version == "v1":
+        out_init, pos = out_init[1:].contiguous(), (pos - lz.PAD).contiguous()
+    call = {"v4": lambda: lz.resolve_matches_v4(out_init, pos, meta, n),
+            "v1": lambda: lg.resolve_matches(out_init, pos, meta),
+            "v2": lambda: lg.resolve_matches_v2(out_init, pos, meta)}[version]
+    want = call()
+    origin = lz.WINDOW if version == "v1" else lz.BODY_START
+    body = want.view(-1)[origin : origin + plan.out_size]
+    assert body.to(torch.uint8).numpy().tobytes() == zlib.decompress(stream, -15)
+    made = []
+    for mod in (lg, lz):
+        monkeypatch.setattr(mod, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "launch", emulate(made))
+    got = call()
+    monkeypatch.undo()
+    assert torch.equal(got, want)
+    assert [e for e, _ in made] == ["dbg_lz77_match"]
 
 
 def _text(seed, n=30000):

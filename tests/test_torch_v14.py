@@ -235,6 +235,45 @@ def test_resolve_walk_v14_chase_cases(monkeypatch, name):
         assert np.array_equal(body.numpy(), flat[off : off + m])
 
 
+@pytest.mark.parametrize("name", list(WALK_V14_CASES))
+def test_walk_v14_card_branch_model_matches_the_plain_twin(monkeypatch,
+                                                           name):
+    """Row 10c's card branch on CPU tensors, its two C entries run by the
+    model of the kernels (torch_group_cases.emulate: the runs, then the
+    group chase under walk_v14's record source, clean groups included) on
+    the calls of WALK_V14_CASES: the plain twin's bytes, one launch
+    counted, each entry given as many arguments as its C entry takes and
+    the chase its scratch for every buffer byte and every match."""
+    from debigulator_tpu_torch.ops import _kernels
+    from torch_group_cases import emulate
+
+    make, k0, n, odd = WALK_V14_CASES[name]
+    flat = np.frombuffer(make(), np.uint8)
+    *_, seen = _port_v14(monkeypatch, deflate(flat.tobytes(), 9))
+    _, _, mdst, mmeta, rdst, rmeta, lit_d = seen["resolve_walk_v14"][0]
+    assert bool((mmeta < 0).any())  # clean groups
+    seg = 8192
+    lims = ig.segment_lims(*seen["segment_lims"][0][:6], -(-len(flat) // seg),
+                           seg_bytes=seg)[k0 : k0 + n].contiguous()
+    init = torch.from_numpy(segments_init(flat, k0, n, seg, odd))
+    args = (init, lims, mdst, mmeta, rdst, rmeta, lit_d)
+    want = lzgen.resolve_walk_v14(*args)
+    made = []
+    monkeypatch.setattr(lzgen, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "launch", emulate(made))
+    before = lzgen.resolve_walk_v14.launches
+    got = lzgen.resolve_walk_v14(*args)
+    monkeypatch.undo()
+    assert torch.equal(got, want)
+    assert lzgen.resolve_walk_v14.launches == before + 1
+    assert [e for e, _ in made] == ["dbg_walk_v14_runs", "dbg_walk_v14_chase"]
+    for entry, a in made:
+        assert len(a) == len(_kernels._ENTRIES[entry][1])
+    chase = made[-1][1]
+    assert chase[1] == init.numel() and chase[5] == n
+    assert chase[9] - chase[8] == int(lims[-1, 1] - lims[0, 0])
+
+
 def test_inflate_v14_against_the_jit():
     """The whole driver against _inflate_v14_jit on a few KB."""
     data = (b"experiment " * 300 + b"\x00" * 1500

@@ -1,11 +1,14 @@
 """Hand-made piece lists for the group resolvers of the PyTorch port (v9,
 v10 and v11: rows 10g, 10h and 10a), the same pieces in each version's
-encoding, and a Python model of the group chase's C entries
-(csrc/group_chase.cuh) for the card-branch tests.
+encoding, hand-made match lists that rewrite bytes for the match-list
+resolvers (v4, v1, v2: rows 8, 10e and 10f) with a serial walk in numpy,
+and a Python model of the group chase's C entries (csrc/group_chase.cuh
+under each record source: groups_v9.cu, groups_v11.cu, lz77_match.cu,
+walk_v14.cu) for the card-branch tests.
 
-A case is a list of groups of at most 8 pieces per segment, each piece
-(dst, len, src) in buffer positions of one buffer that holds the cases'
-segments one after another (pad row, 32 KiB window, bodies, 4 slack
+A piece case is a list of groups of at most 8 pieces per segment, each
+piece (dst, len, src) in buffer positions of one buffer that holds the
+cases' segments one after another (pad row, 32 KiB window, bodies, 4 slack
 rows).  Every piece stays inside its 128-byte row (v11's words need it),
 and pieces of segment 1 read no further back than its window, so the JAX
 kernels, one call a segment with the window carried, see the same bytes.
@@ -328,37 +331,98 @@ def _unpack(w0, w1):
             (w1 >> 16) * 128 + ((w1 >> 8) & 127) + rp)
 
 
+def _rec(fn, lo, piece: int = 128):
+    """A record source of the model: fn(t) -> (dst, len, src, period), len
+    0 for none; lo(t) the first slot of t's group; piece the bound."""
+    fn.lo, fn.piece = lo, piece
+    return fn
+
+
+def _groups_of_8(t):
+    return t - t % 8
+
+
 def v9_rec(lims, n_seg, gpos, gmeta):
-    """groups_v9::V9Rec: slot t -> (dst, len, src), len 0 for none."""
+    """groups_v9::V9Rec: slot t -> (dst, len, src, period)."""
     L, P, M = (x.reshape(-1).tolist() for x in (lims, gpos, gmeta))
 
     def rec(t):
         if _segment_of(L, n_seg, 0, 1, t - t % 8) < 0:
-            return 0, 0, 0
+            return 0, 0, 0, 0
         n = min(M[t] >> 16, 128)
         if n <= 0:
-            return 0, 0, 0
+            return 0, 0, 0, 0
         d = P[t] - L[2] + B
-        return d, n, d - (M[t] & 0xFFFF)
+        return d, n, d - (M[t] & 0xFFFF), n
 
-    return rec
+    return _rec(rec, _groups_of_8)
 
 
 def v11_rec(lims, n_seg, gpos, gmeta):
-    """groups_v11::PieceRec: slot t -> (dst, len, src), len 0 for none."""
+    """groups_v11::PieceRec: slot t -> (dst, len, src, period)."""
     L, P, M = (x.reshape(-1).tolist() for x in (lims, gpos, gmeta))
 
     def rec(t):
         k = _segment_of(L, n_seg, 0, 1, t - t % 8)
         if k < 0:
-            return 0, 0, 0
+            return 0, 0, 0, 0
         d, n, s = _unpack(P[t], M[t])
         if n <= 0:
-            return 0, 0, 0
+            return 0, 0, 0, 0
         off = L[k * 8 + 2] - L[2]
-        return d + off, n, s + off
+        return d + off, n, s + off, n
 
-    return rec
+    return _rec(rec, _groups_of_8)
+
+
+MATCH_PIECE = 512
+
+
+def match_rec(pos, meta):
+    """lz77_match::MatchRec: match t under the overlap rule, a group of
+    its own; len cut at 512 - (dst & 127), none for dist 0."""
+    P, M = (x.reshape(-1).tolist() for x in (pos, meta))
+
+    def rec(t):
+        dist = M[t] & 0xFFFF
+        if M[t] >> 16 <= 0 or dist == 0:
+            return 0, 0, 0, 0
+        d = P[t]
+        return d, min(M[t] >> 16, MATCH_PIECE - (d & 127)), d - dist, dist
+
+    return _rec(rec, lambda t: t, MATCH_PIECE)
+
+
+def v14_rec(lims, n_seg, mdst, mmeta, m_lo, base_adj, body_end):
+    """walk_v14::V14Rec: dense match m_lo + t, clipped to the body; a
+    clean group (bit 31 on its aligned first slot) one group with no wrap,
+    every other match its own group under the overlap rule."""
+    L, D, M = (x.reshape(-1).tolist() for x in (lims, mdst, mmeta))
+
+    def rec(t):
+        q = m_lo + t
+        meta = M[q]
+        d = D[q] + base_adj
+        delta = max(B - d, 0)
+        eff = max(((meta >> 16) & 0x1FF) - delta, 0)
+        d += delta
+        eff = min(eff, max(body_end - d, 0), MATCH_PIECE - (d & 127))
+        dist = meta & 0xFFFF
+        clean = M[q & ~7] < 0
+        if eff <= 0 or (dist == 0 and not clean):
+            return 0, 0, 0, 0
+        return d, eff, d - dist, eff if clean else dist
+
+    def lo(t):
+        q = m_lo + t
+        q0 = q & ~7
+        if M[q0] >= 0:
+            return t
+        k = _segment_of(L, n_seg, 0, 1, q)
+        first = max(q0, L[k * 8]) if k >= 0 else q0
+        return max(first - m_lo, 0)
+
+    return _rec(rec, lo, MATCH_PIECE)
 
 
 def _signed(x):
@@ -373,11 +437,14 @@ def group_chase(rec, out, n_out, n, last, first, state, heads, nxt, seed=0):
     pointer, chase and store passes as the kernels compute them, the
     events of the two spread passes and the rows' lists in a random order
     (the kernels keep none) and the chase in lockstep rounds, every
-    element's hop loaded before any is published.  Returns the chase's
-    number of rounds."""
+    element's hop loaded before any is published.  ``rec`` is a record
+    source of the model (``_rec``).  Returns the chase's number of
+    rounds."""
     flat = out.view(-1)
+    piece = rec.piece
+    shift = piece.bit_length() - 1
     recs = [rec(t) for t in range(n)]
-    events = [(t, d + i, s + i) for t, (d, ln, s) in enumerate(recs)
+    events = [(t, d + i, s + i % per) for t, (d, ln, s, per) in enumerate(recs)
               for i in range(ln)]
     rng = np.random.default_rng(seed)
     order = rng.permutation(len(events))
@@ -386,9 +453,9 @@ def group_chase(rec, out, n_out, n, last, first, state, heads, nxt, seed=0):
     H = [-1] * heads.numel()  # memset 0xFF
     N = [0] * n
     for t in rng.permutation(n).tolist():  # atomicExch: any order
-        d, ln, _ = recs[t]
-        if ln > 0 and -128 <= d < n_out:
-            N[t], H[(d >> 7) + 1] = H[(d >> 7) + 1], t
+        d, ln, _, _ = recs[t]
+        if ln > 0 and -piece <= d < n_out:
+            N[t], H[(d >> shift) + 1] = H[(d >> shift) + 1], t
     for e in order:
         t, p, _ = events[e]
         if 0 <= p < n_out:
@@ -401,43 +468,46 @@ def group_chase(rec, out, n_out, n, last, first, state, heads, nxt, seed=0):
     def value(v):
         return (v & 0xFFFFFFFF) << 32 | K_DONE
 
-    def entry_of(g, s):
+    def virtual(u, i):
+        return (-(u * piece + i) - 2) & 0xFFFFFFFF
+
+    def entry_of(below, s):
         if s < 0 or s >= n_out:
             return value(0)
         if L[s] < 0:
             return value(out0[s])
-        if L[s] // 8 < g:
+        if L[s] < below:
             return s
         f = F[s]
-        if f == ONE_WRITER or f // 8 >= g:
+        if f == ONE_WRITER or f >= below:
             return value(out0[s])
-        for u in range(g * 8 - 1, max(f, g * 8 - NEAR) - 1, -1):
-            d, ln, src = recs[u]
+        for u in range(below - 1, max(f, below - NEAR) - 1, -1):
+            d, ln, src, _ = recs[u]
             if ln > 0 and d <= s < d + ln:
-                return (-(u * 128 + s - d) - 2) & 0xFFFFFFFF
+                return virtual(u, s - d)
         best = f  # covers s; the rows' lists hold every live piece
-        for r in ((s >> 7), (s >> 7) + 1):
+        for r in ((s >> shift), (s >> shift) + 1):
             u = H[r]
             while u >= 0:
-                d, ln, src = recs[u]
-                if best < u < g * 8 and d <= s < d + ln:
+                d, ln, src, _ = recs[u]
+                if best < u < below and d <= s < d + ln:
                     best = u
                 u = N[u]
-        d = recs[best][0]
-        return (-(best * 128 + s - d) - 2) & 0xFFFFFFFF
+        return virtual(best, s - recs[best][0])
 
     S = {}
     for e in order:
         t, p, s = events[e]
         if 0 <= p < n_out and L[p] == t:
-            S[p] = entry_of(t // 8, s)
+            S[p] = entry_of(rec.lo(t), s)
 
     def load(v):
         if v >= 0:
             return S[v]
         ident = -v - 2
-        d, ln, src = recs[ident // 128]
-        return entry_of(ident // 128 // 8, src + ident % 128)
+        u, i = ident >> shift, ident & (piece - 1)
+        d, ln, src, per = recs[u]
+        return entry_of(rec.lo(u), src + i % per)
 
     active = [p for p in S if S[p] & 0xFFFFFFFF != K_DONE]
     rounds = 0
@@ -483,29 +553,120 @@ def _lits(version):
     return lits
 
 
+def _check_scratch(n_out, n_slots, piece, last, first, state, heads, nxt):
+    assert last.numel() == first.numel() == state.numel() == n_out
+    assert heads.numel() == -(-n_out // piece) + 2
+    assert nxt.numel() == n_slots
+    assert last.dtype == first.dtype == torch.int32
+    assert heads.dtype == nxt.dtype == torch.int32
+    assert state.dtype == torch.int64
+
+
+def _v14_runs(out, body_end, base_adj, rdst, rmeta, r_lo, r_hi, lit, n_lit):
+    """dbg_walk_v14_runs on CPU tensors."""
+    flat, fl = out.view(-1), lit.view(-1)
+    D, M = rdst.reshape(-1).tolist(), rmeta.reshape(-1).tolist()
+    for i in range(r_lo, r_hi):
+        ln, lf = M[i] & 0x7F, (M[i] & 0xFFFFFFFF) >> 7
+        for j in range(ln):
+            p = D[i] + base_adj + j
+            if B <= p < body_end and lf + j < n_lit:
+                flat[p] = fl[lf + j]
+
+
 def emulate(made: list):
     """A stand-in for _kernels.launch that runs the model of each group
-    entry and records the entries and their arguments in ``made``."""
+    chase entry (and of the literal entries before them) and records the
+    entries and their arguments in ``made``."""
     def chase(make_rec):
         def run(out, n_out, lims, n_seg, gpos, gmeta, n_slots, last, first,
                 state, heads, nxt):
-            assert last.numel() == first.numel() == state.numel() == n_out
-            assert heads.numel() == -(-n_out // 128) + 2
-            assert nxt.numel() == n_slots
-            assert last.dtype == first.dtype == torch.int32
-            assert heads.dtype == nxt.dtype == torch.int32
-            assert state.dtype == torch.int64
+            _check_scratch(n_out, n_slots, 128, last, first, state, heads,
+                           nxt)
             group_chase(make_rec(lims, n_seg, gpos, gmeta), out, n_out,
                         n_slots, last, first, state, heads, nxt)
         return run
 
+    def match(out, n_out, pos, meta, n, last, first, state, heads, nxt):
+        _check_scratch(n_out, n, MATCH_PIECE, last, first, state, heads, nxt)
+        group_chase(match_rec(pos, meta), out, n_out, n, last, first, state,
+                    heads, nxt)
+
+    def v14(out, n_out, body_end, base_adj, lims, n_seg, mdst, mmeta, m_lo,
+            m_hi, last, first, state, heads, nxt):
+        _check_scratch(n_out, m_hi - m_lo, MATCH_PIECE, last, first, state,
+                       heads, nxt)
+        group_chase(v14_rec(lims, n_seg, mdst, mmeta, m_lo, base_adj,
+                            body_end),
+                    out, n_out, m_hi - m_lo, last, first, state, heads, nxt)
+
     entries = {"dbg_groups_v10_lits": _lits("v10"),
                "dbg_groups_v11_lits": _lits("v11"),
                "dbg_groups_v9_chase": chase(v9_rec),
-               "dbg_groups_v11_chase": chase(v11_rec)}
+               "dbg_groups_v11_chase": chase(v11_rec),
+               "dbg_lz77_match": match,
+               "dbg_walk_v14_runs": _v14_runs,
+               "dbg_walk_v14_chase": v14}
 
     def launch(entry, *args):
         made.append((entry, args))
         entries[entry](*args)
 
     return launch
+
+
+# ---------------------------------------------------------------------------
+# Match lists that rewrite bytes (rows 8, 10e, 10f)
+# ---------------------------------------------------------------------------
+
+#: Hand-made match lists, each (dst, len, dist) offset from the body
+#: start, and the n_matches to resolve (None: every entry).
+MATCH_LISTS = {
+    # A reader falls between two writers of its source.
+    "reader_between_writers": ([(1000, 20, 100), (2000, 20, 1000),
+                                (1010, 20, 800), (3000, 20, 1990)], None),
+    # A later match overwrites an earlier match's source.
+    "write_after_read": ([(1000, 20, 500), (500, 20, 300)], None),
+    # One byte written by three matches, then read.
+    "three_writers": ([(1000, 30, 200), (1010, 30, 400), (1005, 10, 700),
+                       (2000, 40, 1000), (1200, 30, 195)], None),
+    # Distance 0 and length 0 entries between live ones.
+    "dist0_len0": ([(1000, 20, 0), (1100, 0, 50), (1000, 10, 300),
+                    (1300, 5, 0), (1400, 30, 400), (1410, 0, 0)], None),
+    # A 258-long overlapping run, rewritten and read by later matches.
+    "overlap_258": ([(1000, 258, 3), (1100, 258, 1), (1400, 258, 258),
+                     (1127, 40, 7), (2000, 258, 900)], None),
+    # 16 matches that clash, resolved up to n_matches = 8.
+    "n_matches_8": ([(1000 + 37 * i, 30 + i, 25 + 11 * i)
+                     for i in range(16)], 8),
+}
+
+
+def match_list(name: str, origin: int, prologue: int, body_rows: int = 40,
+               seed: int = 0):
+    """(buffer, pos, meta, n_matches) of MATCH_LISTS[name] as numpy: a
+    buffer of random bytes (numpy ``seed``) of ``prologue`` bytes (the pad
+    row and the window, or the window alone) and ``body_rows`` rows, the
+    body starting at ``origin``; pos and meta (8, 128) int32, padded with
+    length-0 entries at ``origin``."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 256, prologue + body_rows * 128).astype(np.int32)
+    recs, n = MATCH_LISTS[name]
+    pos = np.full(8 * 128, origin, np.int32)
+    meta = np.zeros(8 * 128, np.int32)
+    for i, (d, ln, dist) in enumerate(recs):
+        pos[i], meta[i] = origin + d, ln << 16 | dist
+    return (buf.reshape(-1, 128), pos.reshape(8, 128), meta.reshape(8, 128),
+            len(recs) if n is None else n)
+
+
+def serial_matches(buf, pos, meta, n):
+    """The in-order walk of matches 0..n-1 in numpy, a byte at a time."""
+    out = buf.reshape(-1).copy()
+    for p, m in zip(pos.reshape(-1)[:n].tolist(), meta.reshape(-1)[:n].tolist()):
+        ln, d = m >> 16, m & 0xFFFF
+        if d == 0:
+            continue
+        for i in range(ln):
+            out[p + i] = out[p - d + i]
+    return out.reshape(buf.shape)
