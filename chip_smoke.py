@@ -2208,12 +2208,12 @@ REWRITE_LISTS = {
 }
 
 
-def rewrite_list(dev, name: str, origin: int, seed: int = 0):
+def rewrite_list(dev, name: str, origin: int):
     """(buffer, pos, meta, n) of REWRITE_LISTS[name] on `dev`: a buffer of
-    random bytes (numpy `seed`) whose body starts at `origin` (the pad row
+    random bytes (numpy seed 0) whose body starts at `origin` (the pad row
     and the window, or the window alone, before it) and holds 40 rows;
     pos and meta (8, 128) int32, padded with length-0 entries."""
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(0)
     buf = rng.integers(0, 256, origin + 40 * 128).astype(np.int32)
     recs, n = REWRITE_LISTS[name]
     pos = np.full(8 * 128, origin, np.int32)

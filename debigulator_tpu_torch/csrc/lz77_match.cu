@@ -25,9 +25,9 @@
 // match is cut at 512 - (dst & 127) bytes, where the TPU kernels' 4-row
 // span ends.
 //
-// What bounds it on the H100: bytes and latency (group_chase.cuh): two
-// words a match read twice, two words set per buffer byte and a 64-bit
-// state per written byte, against the in-order walk's one SM.
+// What bounds it on the H100: bytes and latency (group_chase.cuh), across
+// all 132 SMs: two words a match read twice, two words set per buffer
+// byte and a 64-bit state per written byte.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -181,28 +181,21 @@ def group_chase_state(n_out: int, n_slots: int, device, piece: int = 128):
             torch.empty(n_slots, dtype=i32, device=device))
 
 
-def match_pieces(pos, meta):
-    """The matches of a list (pos, meta = len << 16 | dist) that write
-    something, in slot order, as the match-list chase reads them: (dst,
-    length cut at MATCH_PIECE - (dst & 127), source dst - dist, slot,
-    dist).  Length 0 and distance 0 write nothing."""
-    dst = pos.reshape(-1).long()
-    m = meta.reshape(-1).long()
+def match_list_plain(out_init, pos, meta, n: int):
+    """Matches 0..n-1 of (pos, meta = len << 16 | dist) applied in order to
+    a copy of ``out_init``: the group walk with groups of one, each byte
+    d + i of a match reading d - dist + i % dist (the overlap rule).
+    Length 0 and distance 0 write nothing; a length is cut at MATCH_PIECE
+    - (d & 127), as on the card."""
+    out = out_init.reshape(-1).clone()
+    dst = pos.reshape(-1)[:n].long()
+    m = meta.reshape(-1)[:n].long()
     dist = m & 0xFFFF
     ln = torch.minimum(m >> 16, MATCH_PIECE - (dst & 127))
     live = (ln > 0) & (dist > 0)
     slot = torch.arange(dst.numel(), device=dst.device)
-    return (dst[live], ln[live], (dst - dist)[live], slot[live], dist[live])
-
-
-def match_list_plain(out_init, pos, meta, n: int):
-    """Matches 0..n-1 of (pos, meta) applied in order to a copy of
-    ``out_init``: the group walk with groups of one, each byte d + i of a
-    match reading d - dist + i % dist (the overlap rule)."""
-    out = out_init.reshape(-1).clone()
-    dst, ln, src, slot, dist = match_pieces(pos.reshape(-1)[:n],
-                                            meta.reshape(-1)[:n])
-    group_walk_plain(out, dst, ln, src, slot, dist)
+    group_walk_plain(out, dst[live], ln[live], (dst - dist)[live], slot[live],
+                     dist[live])
     return out.view_as(out_init)
 
 

@@ -642,15 +642,14 @@ MATCH_LISTS = {
 }
 
 
-def match_list(name: str, origin: int, prologue: int, body_rows: int = 40,
-               seed: int = 0):
+def match_list(name: str, origin: int, prologue: int):
     """(buffer, pos, meta, n_matches) of MATCH_LISTS[name] as numpy: a
-    buffer of random bytes (numpy ``seed``) of ``prologue`` bytes (the pad
-    row and the window, or the window alone) and ``body_rows`` rows, the
-    body starting at ``origin``; pos and meta (8, 128) int32, padded with
+    buffer of random bytes (numpy seed 0) of ``prologue`` bytes (the pad
+    row and the window, or the window alone) and 40 rows, the body
+    starting at ``origin``; pos and meta (8, 128) int32, padded with
     length-0 entries at ``origin``."""
-    rng = np.random.default_rng(seed)
-    buf = rng.integers(0, 256, prologue + body_rows * 128).astype(np.int32)
+    rng = np.random.default_rng(0)
+    buf = rng.integers(0, 256, prologue + 40 * 128).astype(np.int32)
     recs, n = MATCH_LISTS[name]
     pos = np.full(8 * 128, origin, np.int32)
     meta = np.zeros(8 * 128, np.int32)
