@@ -113,8 +113,20 @@ Each phase prints one JSON line:
   match-list resolvers, the 29 streams through the record scan,
   build_group_arrays_v10 and the v9 and v10 group kernels, every stream
   checked against zlib; host ms and device ms;
+* parallel_paths: the split-stream decode of one stream over four shards
+  (the 29 rotations as one 16,294,288-byte stream at level 6, and a 4 MiB
+  b"ab" run whose taint reaches every shard's tail: three rounds), each
+  through decode_split_emulated on the card and decode_split_stream on a
+  4-entry sp mesh of it; decode_batch_device on the 29 streams (one
+  device, and a one-device mesh) and decode_png_batch(mesh=make_mesh())
+  on the PNG corpus; every output exact.  Per stream: rounds, tainted
+  matches and their share, host plan and staging ms, phase 1 and each
+  round by CUDA events, e2e ms and walk launches; the walk against its
+  plain version on shard 1's phase-1 list and first patch round;
 * kernels: per kernel its launches on its path, times and bound (the
-  rows on the group chase also their replayed ms and scratch bytes).
+  rows on the group chase also their replayed ms and scratch bytes; the
+  walk and the unfilter also their launches on parallel_paths, the walk
+  its split shapes).
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them, and the last line is {"ok": true, "device": {...}}.  Any
@@ -599,7 +611,7 @@ def stages(st, slots):
     mdst, mmeta, rdst, rmeta = c_k
     init = pb.init_body(st.n_seg, st.stored_pos, st.stored_val,
                         device=mdst.device)
-    w_k = pb.walk(init.clone(), mdst, mmeta, None, rdst, rmeta, rec.lit)
+    w_k = pb.walk(init.clone(), mdst, mmeta, rdst, rmeta, rec.lit)
     w_p = pb.walk_plain(init.clone(), mdst, mmeta, rdst, rmeta, rec.lit)
     torch.cuda.synchronize()
     return {"a_k": a_k, "a_p": a_p, "rec": rec, "c_k": c_k, "c_p": c_p,
@@ -935,7 +947,7 @@ def walk_phases(dev, base: bytes) -> dict:
         mp = build_merged_plan(streams)
         w = walk_args(mp, dev)
         mdst, mmeta, rdst, rmeta, lit = w["lists"]
-        got = pb.walk(w["init"].clone(), mdst, mmeta, None, rdst, rmeta, lit)
+        got = pb.walk(w["init"].clone(), mdst, mmeta, rdst, rmeta, lit)
         torch.cuda.synchronize()
         want = pb.walk_plain(w["init"].clone(), mdst, mmeta, rdst, rmeta, lit)
         err = same(f"walk at {name}", (got,), (want,))
@@ -949,7 +961,7 @@ def walk_phases(dev, base: bytes) -> dict:
             "shape": name, "streams": len(streams), "out_bytes": mp.plan.out_size,
             "max_abs_err": err, **w["work"],
             "depths": chain_depths(got.numel(), mdst, mmeta),
-            "ms": time_ms(lambda: pb.walk(out, mdst, mmeta, None, rdst, rmeta,
+            "ms": time_ms(lambda: pb.walk(out, mdst, mmeta, rdst, rmeta,
                                           lit), 5),
             "plain_ms": time_ms(lambda: pb.walk_plain(
                 w["init"].clone(), mdst, mmeta, rdst, rmeta, lit), 1),
@@ -962,9 +974,9 @@ def walk_phases(dev, base: bytes) -> dict:
     calls = []
     real_walk = pb.walk
 
-    def keep_walk(out, mdst, mmeta, s8, rdst, rmeta, lit, stream_starts=None):
+    def keep_walk(out, mdst, mmeta, rdst, rmeta, lit):
         calls.append((out.clone(), mdst, mmeta, rdst, rmeta, lit))
-        return real_walk(out, mdst, mmeta, s8, rdst, rmeta, lit)
+        return real_walk(out, mdst, mmeta, rdst, rmeta, lit)
 
     long_data = base * 3
     c = zlib.compressobj(6, zlib.DEFLATED, -15)
@@ -986,7 +998,7 @@ def walk_phases(dev, base: bytes) -> dict:
         raise AssertionError("no walk of the long stream had a window prologue")
     for init, mdst, mmeta, rdst, rmeta, lit in with_tail:
         same("walk with a window prologue",
-             (pb.walk(init.clone(), mdst, mmeta, None, rdst, rmeta, lit),),
+             (pb.walk(init.clone(), mdst, mmeta, rdst, rmeta, lit),),
              (pb.walk_plain(init.clone(), mdst, mmeta, rdst, rmeta, lit),))
     return {"phase": "walk_vs_plain", "max_abs_err": 0, "shapes": shapes,
             "window_prologue": {"walks": len(calls),
@@ -2808,6 +2820,172 @@ def archive_kernel_phases(dev, base, streams):
     return kernels
 
 
+def rotations(base: bytes, k: int) -> bytes:
+    """The k rotations that make_streams compresses, one after another (the
+    29 at BASE_BYTES are 16,294,288 bytes)."""
+    return b"".join(base[r:] + base[:r]
+                    for r in ((i * 40961) % len(base) for i in range(k)))
+
+
+def split_walk_bytes(plan: dict, out_len: int, patch: bool) -> int:
+    """What one walk of a split shard must move, walk_work's way: its run
+    records (2 words), literals and match records (2 words), and the
+    buffer written once; a patch round also reads the buffer it replays
+    over once.  Bytes at 4 per int32 element."""
+    lits = int((plan["rmeta"] & 0x7F).sum())
+    return 4 * (2 * len(plan["rdst"]) + lits + 2 * len(plan["mdst"])
+                + out_len * (2 if patch else 1))
+
+
+def split_walk_vs_plain(name, staged, p1_outs) -> list:
+    """Row 3 against its plain version on shard 1 of a split plan: its
+    phase-1 list, and its first patch round with shard 0's phase-1 tail
+    as the window and its own phase-1 output as the body."""
+    from debigulator_tpu_torch.ops import phase_b as pb
+
+    p1, pp = staged[1]
+    rows = []
+    for kind, plan, buf in (
+            ("phase1", p1, pb.records_buffer(p1)),
+            ("patch", pp, pb.records_buffer(pp, tail0=p1_outs[0][-pb.WINDOW:],
+                                            body_init=p1_outs[1]))):
+        lists = (plan["mdst"], plan["mmeta"], plan["rdst"], plan["rmeta"],
+                 plan["lit"])
+        got = pb.walk(buf.clone(), *lists)
+        torch.cuda.synchronize()
+        err = same(f"walk on {name} shard 1 {kind}", (got,),
+                   (pb.walk_plain(buf.clone(), *lists),))
+        out = got.clone()
+        host = {k: plan[k].cpu().numpy() for k in ("mdst", "rdst", "rmeta")}
+        n_bytes = split_walk_bytes(host, buf.numel(), kind == "patch")
+        rows.append({
+            "shape": f"{name}_shard1_{kind}", "matches": len(host["mdst"]),
+            "runs": len(host["rdst"]), "out_len": buf.numel(),
+            "max_abs_err": err,
+            "ms": time_ms(lambda: pb.walk(out, *lists), 5),
+            "plain_ms": time_ms(lambda: pb.walk_plain(buf.clone(), *lists), 1),
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": n_bytes})
+        if not torch.equal(out, got):
+            raise AssertionError(f"repeated walk on {name} changed its output")
+    return rows
+
+
+def parallel_phases(dev, base: bytes, streams: list[bytes]):
+    """The thirteenth slice: the split-stream decode of one stream over
+    four shards (the 29 rotations as one 16,294,288-byte stream, and a 4
+    MiB b"ab" run whose taint reaches every tail), emulated on one device
+    and through a 4-entry sp mesh of it; the batch layer on the 29 streams
+    (one device, and a mesh of it) and on the PNG corpus through
+    decode_png_batch(mesh=make_mesh()).  Every output exact.  Then the
+    split path's parts: host plan, phase 1 and each round by CUDA events,
+    and row 3 against its plain version on the split shapes.  Returns the
+    phase's line and extra fields of the `kernels` entries."""
+    from debigulator_tpu_torch.models import pipeline as pl
+    from debigulator_tpu_torch.ops import phase_b as pb
+    from debigulator_tpu_torch.ops import unfilter as uf
+    from debigulator_tpu_torch.parallel import batch
+    from debigulator_tpu_torch.parallel import split_stream as ss
+    from debigulator_tpu_torch.parallel.mesh import make_mesh
+
+    n = 4
+    text = rotations(base, len(streams))
+    rle = b"ab" * (1 << 21)
+    cases = {}
+    for name, data in (("text", text), ("rle", rle)):
+        c = zlib.compressobj(6, zlib.DEFLATED, -15)
+        cases[name] = (c.compress(data) + c.flush(), data)
+    corpus = make_corpus(0)
+    sp_mesh = make_mesh(dp=1, sp=n, devices=[dev] * n)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # --- the path, driven once between a reset and a read of the counts --
+    pb.walk.launches = uf.unfilter.launches = 0
+    split = {}
+    for name, (stream, data) in cases.items():
+        w0 = pb.walk.launches
+        got, e2e = timed(lambda: ss.decode_split_emulated(stream, n,
+                                                          device=dev))
+        if got != data:
+            raise AssertionError(f"split decode of {name} is not bit-exact")
+        w1 = pb.walk.launches
+        got, mesh_e2e = timed(lambda: ss.decode_split_stream(stream,
+                                                             mesh=sp_mesh))
+        if got != data:
+            raise AssertionError(f"mesh split decode of {name} is not exact")
+        split[name] = {"out_bytes": len(data), "compressed_bytes": len(stream),
+                       "e2e_ms": e2e, "mesh_e2e_ms": mesh_e2e,
+                       "walk_launches": w1 - w0,
+                       "mesh_walk_launches": pb.walk.launches - w1}
+    want = [zlib.decompress(s, -15) for s in streams]
+    outs, batch_ms = timed(lambda: batch.decode_batch_device(streams,
+                                                             device=dev))
+    if outs != want:
+        raise AssertionError("batch decode is not bit-exact")
+    outs, batch_mesh_ms = timed(lambda: batch.decode_batch_device(
+        streams, mesh=make_mesh(devices=[dev])))
+    if outs != want:
+        raise AssertionError("batch decode over a mesh is not bit-exact")
+    imgs, png_ms = timed(lambda: pl.decode_png_batch(
+        [c[1] for c in corpus], mesh=make_mesh(), device=dev))
+    for img, c in zip(imgs, corpus, strict=True):
+        if not np.array_equal(img, c[2]):
+            raise AssertionError(f"decode_png_batch(mesh=) differs at {c[0]}")
+    launches = {"walk": pb.walk.launches, "unfilter": uf.unfilter.launches}
+    require_launches("parallel_paths", launches, launches)
+    n_images = len(imgs)
+    del outs, imgs, corpus
+    torch.cuda.empty_cache()
+
+    # --- the split path's parts, and row 3 on its shapes -----------------
+    shapes = []
+    for name, (stream, data) in cases.items():
+        plan = ss.plan_split_stream(stream, n)
+        staged = ss.stage_split(plan, [dev] * n)
+        p1 = ss.phase1(staged)
+        outs = p1
+        zero = torch.zeros(pb.WINDOW, dtype=torch.int32, device=dev)
+        round_ms = []
+        for _ in range(plan.rounds):
+            tails = [zero] + [o[-pb.WINDOW:] for o in outs[:-1]]
+            round_ms.append(time_ms(lambda: ss.patch_round(staged, outs,
+                                                           tails), 3))
+            outs = ss.patch_round(staged, outs, tails)
+        body = torch.cat(outs)[: plan.out_size].to(torch.uint8).cpu().numpy()
+        if body.tobytes() != data:
+            raise AssertionError(f"split rounds of {name} are not bit-exact")
+        n_m = sum(len(p["mdst"]) for p in plan.phase1)
+        n_t = sum(len(p["mdst"]) for p in plan.patch)
+        split[name].update({
+            "shard_bytes": plan.shard_bytes, "n_seg": plan.n_seg,
+            "rounds": plan.rounds, "matches": n_m, "tainted_matches": n_t,
+            "tainted_share": n_t / max(n_m, 1),
+            "host_plan_ms": host_ms(lambda: ss.plan_split_stream(stream, n)),
+            "stage_ms": host_ms(lambda: (ss.stage_split(plan, [dev] * n),
+                                         torch.cuda.synchronize())),
+            "phase1_ms": time_ms(lambda: ss.phase1(staged), 3),
+            "round_ms": round_ms})
+        shapes += split_walk_vs_plain(name, staged, p1)
+        del plan, staged, p1, outs, body
+    if split["rle"]["rounds"] != 3:
+        raise AssertionError(f"the RLE run took {split['rle']['rounds']} "
+                             "rounds, not 3")
+    line = {"phase": "parallel_paths", "shards": n, "split": split,
+            "batch": {"streams": len(streams), "e2e_ms": batch_ms,
+                      "mesh_e2e_ms": batch_mesh_ms},
+            "png_batch_mesh": {"images": n_images, "e2e_ms": png_ms},
+            "walk_vs_plain": shapes, "launches": launches}
+    extra = {"walk": {"launches_parallel_paths": launches["walk"],
+                      "split_shapes": shapes},
+             "unfilter": {"launches_parallel_paths": launches["unfilter"]}}
+    return line, extra
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2981,7 +3159,7 @@ def main() -> int:
         "compact": (time_ms(lambda: pb.compact(rec, slots), 10),
                     time_ms(lambda: pb.compact_plain(rec, slots), 3),
                     time_ms(library_compact, 10)),
-        "walk": (time_ms(lambda: pb.walk(out_k, mdst, mmeta, None, rdst,
+        "walk": (time_ms(lambda: pb.walk(out_k, mdst, mmeta, rdst,
                                          rmeta, rec.lit), 5),
                  time_ms(lambda: pb.walk_plain(s["init"].clone(), mdst, mmeta,
                                                rdst, rmeta, rec.lit), 2),
@@ -3097,6 +3275,13 @@ def main() -> int:
     # --- the fifth slice: the archive and tool kernels with no caller ----
     torch.cuda.empty_cache()
     kernels += archive_kernel_phases(dev, base, streams)
+
+    # --- the thirteenth slice: split-stream decode and the batch layer ---
+    torch.cuda.empty_cache()
+    line, extra = parallel_phases(dev, base, streams)
+    emit(line)
+    for k in kernels:
+        k.update(extra.get(k["name"], {}))
 
     emit({"kernels": kernels})
     print(smi, flush=True)

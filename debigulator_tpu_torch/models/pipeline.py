@@ -37,6 +37,7 @@ from debigulator_tpu_torch.ops.inflate import inflate_device
 from debigulator_tpu_torch.ops.plan import CELL_BITS, LIT_ROW_CAP, scan_extent
 from debigulator_tpu_torch.ops.scanner import scan_stream_cells
 from debigulator_tpu_torch.ops.unfilter import unfilter
+from debigulator_tpu_torch.parallel.batch import decode_batch_device
 from debigulator_tpu_torch.parallel.merged import build_merged_plan, decode_merged
 from debigulator_tpu_torch.utils.logging import PhaseLog
 from debigulator_tpu_torch.utils.manifest import JobManifest
@@ -274,20 +275,19 @@ def decode_png_corpus_device(datas: list[bytes], verify_crc: bool = True,
 def decode_png_batch(datas: list[bytes], mesh=None, verify_crc: bool = True,
                      device="cuda") -> list[np.ndarray]:
     """Batch PNG decode: all IDAT streams inflate as one merged device
-    call, the scanlines return to the host, then each image is unfiltered
-    on the device and expanded on the host.  Outputs in input order.
-
-    Single device only: ``mesh`` selects the reference's dp-sharded path,
-    which waits for the parallel layers (ROADMAP.md, A7)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "decode_png_batch(mesh=...) needs the parallel layers, which are "
-            "not ported yet (ROADMAP.md, item A7)")
+    call, or, with a ``mesh`` (``parallel.mesh.make_mesh``), as one batch
+    split over its ``dp`` rows (``parallel.batch.decode_batch_device``);
+    the scanlines return to the host, then each image is unfiltered on
+    ``device`` and expanded on the host.  Outputs in input order."""
     dev = resolve_device(device)
     parsed = [png_codec.parse_chunks(d, verify_crc=verify_crc) for d in datas]
     for ch in parsed:
         parse_zlib_header(ch.idat)
-    raws = decode_merged([ch.idat[2:] for ch in parsed], device=dev)
+    streams = [ch.idat[2:] for ch in parsed]
+    if mesh is None:
+        raws = decode_merged(streams, device=dev)
+    else:
+        raws = decode_batch_device(streams, mesh=mesh)
     images = []
     for ch, raw in zip(parsed, raws):
         info = ch.info

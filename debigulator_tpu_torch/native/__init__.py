@@ -1,6 +1,7 @@
 """Native (C++) host runtime: the block/cell scanner, the record scan and
-group packer of the host-fed decode, the serial inflate (the scanner with
-an output buffer), CRC-32 and Adler-32.
+group packer of the host-fed decode, the taint analysis of the
+split-stream decode, the serial inflate (the scanner with an output
+buffer), CRC-32 and Adler-32.
 
 Built with g++ from native/dbg_native.cpp (a source at the repo root) into
 the port's own build directory; the JAX package's copy of the library is
@@ -91,6 +92,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.dbg_taint.restype = ctypes.c_int64
+    lib.dbg_taint.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
     ]
     lib.dbg_crc32.restype = ctypes.c_uint32
     lib.dbg_crc32.argtypes = [ctypes.c_char_p, ctypes.c_uint64, ctypes.c_uint32]

@@ -1,8 +1,7 @@
 """Python-facing wrappers over the native scanner, record scan, group
-packer, serial inflate, CRC-32 and Adler-32.
+packer, taint analysis, serial inflate, CRC-32 and Adler-32.
 
-The port's copy of debigulator_tpu/native/scanner.py, all but the taint
-analysis of the split-stream decode (``dbg_taint``).
+The port's copy of debigulator_tpu/native/scanner.py.
 """
 
 from __future__ import annotations
@@ -224,6 +223,42 @@ def pack_groups(m_pos: np.ndarray, m_meta: np.ndarray, seg_bytes: int,
         if n_slots >= 0:
             return g_pos[:n_slots], g_meta[:n_slots], seg_lo, seg_hi
         max_slots *= 4
+
+
+def taint_matches(m_pos: np.ndarray, m_meta: np.ndarray, out_size: int,
+                  shard_bytes: int, window: int = C.WINDOW_SIZE,
+                  n_shards: int | None = None):
+    """Exact taint analysis of the split-stream decode (dbg_taint in
+    native/dbg_native.cpp).
+
+    Returns (m_taint, tail_taint): per match, 1 when it writes a byte that
+    derives, through copies, from its shard's incoming window; per shard,
+    1 when such a byte lies in its outgoing ``window`` bytes.  m_pos/
+    m_meta: matches in stream order (dst, len << 16 | dist), split at
+    shard boundaries.
+
+    n_shards sizes tail_taint for the caller's shard count even where
+    rounding shard_bytes up leaves trailing shards with no output (the C
+    loop clamps each shard's range to out_size, so those stay 0)."""
+    lib = get_lib()
+    n = len(m_pos)
+    if n_shards is None:
+        n_shards = max(1, -(-out_size // shard_bytes))
+    m_pos = np.ascontiguousarray(m_pos, np.int32)
+    m_meta = np.ascontiguousarray(m_meta, np.int32)
+    taint_buf = np.zeros(max(out_size, 1), np.uint8)
+    m_taint = np.zeros(max(n, 1), np.uint8)
+    tail_taint = np.zeros(n_shards, np.uint8)
+    lib.dbg_taint(
+        m_pos.ctypes.data_as(ctypes.c_void_p),
+        m_meta.ctypes.data_as(ctypes.c_void_p),
+        n, out_size, shard_bytes, window,
+        taint_buf.ctypes.data_as(ctypes.c_void_p),
+        m_taint.ctypes.data_as(ctypes.c_void_p),
+        tail_taint.ctypes.data_as(ctypes.c_void_p),
+        n_shards,
+    )
+    return m_taint[:n], tail_taint
 
 
 def inflate_native(data: bytes):

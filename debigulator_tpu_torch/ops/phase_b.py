@@ -18,12 +18,18 @@ debigulator_tpu/ops/phase_b_v15.py's flagship path).
 
 ``resolve`` chains them; its output is the reference's body: n_seg *
 seg_bytes int32 values, one byte each.
+
+``plan_records`` / ``run_records`` feed the same walk from record lists
+built on the host (the reference's ``plan_records_v15`` /
+``run_records_v15``, the split-stream decode's per-shard resolver), with
+a neighbour's tail as the window and a previous output as the body.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from debigulator_tpu_torch import constants as C
@@ -258,14 +264,15 @@ def walk_plain(out, mdst, mmeta, rdst, rmeta, lit):
     return out
 
 
-def walk(out, mdst, mmeta, s8, rdst, rmeta, lit, stream_starts=None):
+def walk(out, mdst, mmeta, rdst, rmeta, lit):
     """Literal runs + matches into ``out`` in place; plain version for CPU
     tensors, the CUDA kernels for CUDA tensors.  ``out`` holds byte values
     (0..255): the kernel marks unresolved match bytes with negative
-    pointers in place.  ``s8`` (size8) and ``stream_starts`` are accepted
-    for callers of the frontier-batch walk and not read: the chase needs
-    neither batch sizes nor stream boundaries (a DEFLATE match reads only
-    its own stream)."""
+    pointers in place, so a byte already in ``out`` that no record writes
+    is final, and every match byte is resolved from its source.  The
+    chase needs neither the reference's batch sizes nor stream boundaries
+    (a DEFLATE match reads only its own stream).  With no records at all
+    nothing is launched."""
     for t in (out, mdst, mmeta, rdst, rmeta, lit):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("walk inputs must be contiguous int32")
@@ -273,6 +280,8 @@ def walk(out, mdst, mmeta, s8, rdst, rmeta, lit, stream_starts=None):
         return walk_plain(out, mdst, mmeta, rdst, rmeta, lit)
     if out.numel() >= 1 << 31:
         raise ValueError("walk output must hold fewer than 2^31 elements")
+    if not (mdst.numel() or rdst.numel()):
+        return out
     _kernels.launch("dbg_walk", out, out.numel(), WINDOW, mdst, mmeta,
                     mdst.numel(), rdst, rmeta, rdst.numel(), lit, lit.numel())
     walk.launches += 1
@@ -283,10 +292,10 @@ walk.launches = 0
 
 
 def init_body(n_seg: int, stored_pos, stored_val, tail0=None,
-              device=None) -> torch.Tensor:
+              device=None, seg_bytes: int = SEG_BYTES) -> torch.Tensor:
     """Flat output buffer: window prologue (tail0, zeros for a stream
-    head) then n_seg*SEG_BYTES body values with the stored bytes placed."""
-    out = torch.zeros(WINDOW + n_seg * SEG_BYTES, dtype=torch.int32,
+    head) then n_seg*seg_bytes body values with the stored bytes placed."""
+    out = torch.zeros(WINDOW + n_seg * seg_bytes, dtype=torch.int32,
                       device=device)
     if tail0 is not None:
         out[:WINDOW] = tail0.reshape(-1)
@@ -304,5 +313,95 @@ def resolve(ma, mb, ra, rb, lit, cnt, outlen, bob_cell, n_seg: int,
     rec = prep_records(ma, mb, ra, rb, lit, cnt, outlen, bob_cell, slots)
     mdst, mmeta, rdst, rmeta = compact(rec, slots)
     out = init_body(n_seg, stored_pos, stored_val, tail0, device=ma.device)
-    walk(out, mdst, mmeta, None, rdst, rmeta, rec.lit)
+    walk(out, mdst, mmeta, rdst, rmeta, rec.lit)
+    return out[WINDOW:]
+
+
+# ---------------------------------------------------------------------------
+# Host-built record lists (the split-stream decode's entry)
+# ---------------------------------------------------------------------------
+
+
+def plan_records(m_pos, m_meta, r_pos, r_lit0, r_len, lit, n_seg: int,
+                 seg_bytes: int, stored_pos=None, stored_val=None) -> dict:
+    """Host plan: dst-sorted record lists -> the walk's inputs (the port of
+    ``plan_records_v15``, phase_b_v15.py:1027), as numpy arrays.
+
+    m_pos/m_meta: matches (pos ascending, meta len << 16 | dist); r_pos/
+    r_lit0/r_len: literal runs (length <= 127, pos and literal offsets
+    ascending); lit: the literal bytes (int32 is taken as it is, so one
+    tape can serve many plans).  Runs split at 128-byte literal rows as
+    the reference splits them (phase_b_v15.py:1047-1056).  The lists hold
+    exactly the records: the walk reads ``mdst.numel()`` of them, so
+    there is no padding.  The stored bytes go into the body at
+    ``stored_pos`` (body offsets) by ``run_records``."""
+    lit = np.asarray(lit, np.int32)
+    if -(-len(lit) // 128) > LIT_ROW_LIMIT:
+        raise ValueError(
+            f"lit tape {-(-len(lit) // 128)} rows exceeds the run-meta "
+            "field (2^18); split the stream")
+    r_pos = np.asarray(r_pos, np.int64)
+    r_lit0 = np.asarray(r_lit0, np.int64)
+    r_len = np.asarray(r_len, np.int64)
+    len_a = np.minimum(r_len, 128 - (r_lit0 & 127))
+    len_b = r_len - len_a
+    p2 = np.stack([r_pos, r_pos + len_a], 1).reshape(-1)
+    l2 = np.stack([r_lit0, r_lit0 + len_a], 1).reshape(-1)
+    n2 = np.stack([len_a, len_b], 1).reshape(-1)
+    keep = n2 > 0
+    p2, l2, n2 = p2[keep], l2[keep], n2[keep]
+    rmeta = ((l2 >> 7) << 14) | ((l2 & 127) << 7) | n2
+    empty = np.zeros(0, np.int64)
+    return {
+        "mdst": np.asarray(m_pos, np.int32),
+        "mmeta": np.asarray(m_meta, np.int64).astype(np.int32),
+        "rdst": p2.astype(np.int32),
+        "rmeta": rmeta.astype(np.uint32).view(np.int32),
+        "lit": lit,
+        "stored_pos": np.asarray(empty if stored_pos is None else stored_pos,
+                                 np.int64).astype(np.int32),
+        "stored_val": np.asarray(empty if stored_val is None else stored_val,
+                                 np.uint8),
+        "n_seg": int(n_seg),
+        "seg_bytes": int(seg_bytes),
+    }
+
+
+def stage_records(plan: dict, device, lit: torch.Tensor | None = None) -> dict:
+    """A plan_records plan on ``device``: every array as a tensor, the
+    sizes as they are.  ``lit``: the literal tape already on ``device``
+    (shared by the plans of one stream), else the plan's own is copied."""
+    out = {k: (torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
+               else v) for k, v in plan.items() if k != "lit"}
+    out["lit"] = lit if lit is not None else \
+        torch.from_numpy(plan["lit"]).to(device)
+    return out
+
+
+def records_buffer(plan: dict, tail0=None, body_init=None) -> torch.Tensor:
+    """The flat buffer ``run_records`` walks: the window prologue
+    (``tail0``, zeros when None), then ``body_init`` (a patch round replays
+    its matches over the previous output) or the stored-byte init."""
+    dev = plan["mdst"].device
+    size = plan["n_seg"] * plan["seg_bytes"]
+    if body_init is None:
+        return init_body(plan["n_seg"], plan["stored_pos"],
+                         plan["stored_val"], tail0, device=dev,
+                         seg_bytes=plan["seg_bytes"])
+    if body_init.numel() != size:
+        raise ValueError(f"body_init holds {body_init.numel()} values, "
+                         f"the plan's body {size}")
+    out = torch.zeros(WINDOW + size, dtype=torch.int32, device=dev)
+    if tail0 is not None:
+        out[:WINDOW] = tail0.reshape(-1)
+    out[WINDOW:] = body_init.reshape(-1)
+    return out
+
+
+def run_records(plan: dict, tail0=None, body_init=None) -> torch.Tensor:
+    """Run the walk on a staged plan_records plan (the port of
+    ``run_records_v15``, phase_b_v15.py:1087) over ``records_buffer``.
+    Returns the body, (n_seg * seg_bytes,) int32."""
+    out = walk(records_buffer(plan, tail0, body_init), plan["mdst"],
+               plan["mmeta"], plan["rdst"], plan["rmeta"], plan["lit"])
     return out[WINDOW:]

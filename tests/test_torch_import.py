@@ -39,7 +39,10 @@ MODULES = [
     "debigulator_tpu_torch.models.pipeline",
     "debigulator_tpu_torch.models.png_codec",
     "debigulator_tpu_torch.models.zlib_codec",
+    "debigulator_tpu_torch.parallel.batch",
     "debigulator_tpu_torch.parallel.merged",
+    "debigulator_tpu_torch.parallel.mesh",
+    "debigulator_tpu_torch.parallel.split_stream",
     "debigulator_tpu_torch.tools.first_call",
     "debigulator_tpu_torch.tools.microbench_pb",
     "debigulator_tpu_torch.tools.profile_merged",
@@ -65,6 +68,15 @@ img = np.arange(9 * 7 * 4, dtype=np.uint8).reshape(9, 7, 4) // 8
 assert (decode_png_device(encode_png(img, device="cpu"), device="cpu") == img).all()
 from debigulator_tpu_torch.tools.profile_merged import profile
 assert profile([raw], device="cpu", reps=1)["out_bytes"] == len(data)
+from debigulator_tpu_torch.parallel.batch import decode_batch_device
+from debigulator_tpu_torch.parallel.mesh import make_mesh
+from debigulator_tpu_torch.parallel.split_stream import decode_split_stream
+assert decode_batch_device([raw], device="cpu") == [data]
+big = data * 10
+c = zlib.compressobj(6, zlib.DEFLATED, -15)
+assert decode_split_stream(c.compress(big) + c.flush(),
+                           mesh=make_mesh(sp=2, devices=["cpu"] * 2),
+                           seg_bytes=32768) == big
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
              or k == "debigulator_tpu" or k.startswith("debigulator_tpu."))
@@ -92,10 +104,12 @@ def _entry_calls():
     from debigulator_tpu_torch.ops import deflate_encode_device as dev
     from debigulator_tpu_torch.ops import inflate as inf
     from debigulator_tpu_torch.ops.archive import host_fed
+    from debigulator_tpu_torch.parallel import batch, split_stream
     from debigulator_tpu_torch.parallel.merged import (
         build_merged_plan,
         decode_merged,
     )
+    from debigulator_tpu_torch.parallel.mesh import make_mesh
     from debigulator_tpu_torch.tools import microbench_pb, profile_merged
 
     data = b"default device " * 100
@@ -128,6 +142,11 @@ def _entry_calls():
         "literal_runs": lambda: host_fed.literal_runs(
             build_merged_plan([raw], records=True).recs),
         "microbench_pb": microbench_pb.main,
+        "make_mesh": make_mesh,
+        "decode_batch_device": lambda: batch.decode_batch_device([raw]),
+        "decode_split_emulated": lambda: split_stream.decode_split_emulated(
+            raw, 2),
+        "decode_split_stream": lambda: split_stream.decode_split_stream(raw),
     }
 
 
@@ -138,7 +157,8 @@ def _entry_calls():
     "deflate_fixed_device", "lz77_parse_device", "lz77_parse_device_short",
     "lz77_select_device", "build_v9_arrays", "profile_merged",
     "host_fed_inputs", "build_group_arrays_v10", "literal_runs",
-    "microbench_pb"])
+    "microbench_pb", "make_mesh", "decode_batch_device",
+    "decode_split_emulated", "decode_split_stream"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
@@ -495,7 +515,8 @@ def test_chase_wrappers_launch_the_chase_and_read_nothing_back(monkeypatch,
     assert nxt.numel() == slots > 0
 
 
-@pytest.mark.parametrize("entry", ["dbg_scan", "dbg_scan2", "dbg_pack_groups"])
+@pytest.mark.parametrize("entry", ["dbg_scan", "dbg_scan2", "dbg_pack_groups",
+                                   "dbg_taint"])
 def test_native_ctypes_declarations_match_the_source(entry):
     """The port's ctypes declarations of the native scanner entries against
     their prototypes in native/dbg_native.cpp."""
@@ -508,10 +529,11 @@ def test_native_ctypes_declarations_match_the_source(entry):
     src = native._SRC.read_text()
     m = re.search(r"\nint64_t " + entry + r"\(([^)]*)\)", src)
     assert m, entry
-    params = [" ".join(p.split()) for p in m.group(1).split(",")]
+    params = [" ".join(p.split())
+              for p in re.sub(r"/\*.*?\*/", "", m.group(1)).split(",")]
     fns = {n: types.SimpleNamespace()
-           for n in ("dbg_scan", "dbg_scan2", "dbg_pack_groups", "dbg_crc32",
-                     "dbg_adler32")}
+           for n in ("dbg_scan", "dbg_scan2", "dbg_pack_groups", "dbg_taint",
+                     "dbg_crc32", "dbg_adler32")}
     native._declare(types.SimpleNamespace(**fns))
     fn = fns[entry]
     assert fn.restype is ctypes.c_int64

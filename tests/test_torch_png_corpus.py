@@ -11,6 +11,7 @@ import pytest
 from debigulator_tpu.models import pipeline as jax_pl
 from debigulator_tpu_torch.models import bmp_codec, png_codec
 from debigulator_tpu_torch.models import pipeline as pl
+from debigulator_tpu_torch.parallel.mesh import make_mesh
 from torch_png_cases import corpus, corrupt, make_case
 from torch_stream_cases import ensure_reference_native
 
@@ -74,8 +75,10 @@ def test_batch_matches_jax_and_source():
     for g, w, src in zip(got, want, rgbas, strict=True):
         assert np.array_equal(g, src)
         assert np.array_equal(g, np.asarray(w))
-    with pytest.raises(NotImplementedError, match="A7"):
-        pl.decode_png_batch(pngs, mesh=object(), device="cpu")
+    mesh = make_mesh(dp=2, devices=["cpu"] * 2)  # 7 images padded to 8
+    for g, src in zip(pl.decode_png_batch(pngs, mesh=mesh, device="cpu"),
+                      rgbas, strict=True):
+        assert np.array_equal(g, src)
 
 
 def test_decode_corpus_isolates_failures_and_resumes(tmp_path):
