@@ -354,7 +354,7 @@ def plan_records(m_pos, m_meta, r_pos, r_lit0, r_len, lit, n_seg: int,
     empty = np.zeros(0, np.int64)
     return {
         "mdst": np.asarray(m_pos, np.int32),
-        "mmeta": np.asarray(m_meta, np.int64).astype(np.int32),
+        "mmeta": np.asarray(m_meta, np.int32),
         "rdst": p2.astype(np.int32),
         "rmeta": rmeta.astype(np.uint32).view(np.int32),
         "lit": lit,
@@ -367,14 +367,13 @@ def plan_records(m_pos, m_meta, r_pos, r_lit0, r_len, lit, n_seg: int,
     }
 
 
-def stage_records(plan: dict, device, lit: torch.Tensor | None = None) -> dict:
+def stage_records(plan: dict, device, lit: torch.Tensor) -> dict:
     """A plan_records plan on ``device``: every array as a tensor, the
-    sizes as they are.  ``lit``: the literal tape already on ``device``
-    (shared by the plans of one stream), else the plan's own is copied."""
+    sizes as they are, and ``lit``, the plan's literal tape already on
+    ``device`` (one copy serves every plan of a stream)."""
     out = {k: (torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
                else v) for k, v in plan.items() if k != "lit"}
-    out["lit"] = lit if lit is not None else \
-        torch.from_numpy(plan["lit"]).to(device)
+    out["lit"] = lit
     return out
 
 
