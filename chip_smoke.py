@@ -2,6 +2,7 @@
 """Drive the PyTorch + CUDA port (debigulator_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parallel-only
 
 Builds the host library and the eighteen CUDA kernels from this checkout
 and holds every kernel bit-exact against its plain PyTorch version on the
@@ -116,9 +117,9 @@ Each phase prints one JSON line:
 * parallel_paths: the split-stream decode of one stream over four shards
   (the 29 rotations as one 16,294,288-byte stream at level 6, and a 4 MiB
   b"ab" run whose taint reaches every shard's tail: three rounds), each
-  through decode_split_emulated on the card and decode_split_stream on a
-  4-entry sp mesh of it; decode_batch_device on the 29 streams (one
-  device, and a one-device mesh) and decode_png_batch(mesh=make_mesh())
+  once through decode_split_stream on a 4-entry sp mesh of the card (what
+  decode_split_emulated runs); decode_batch_device on the 29 streams (one
+  device, and a mesh of the card) and decode_png_batch(mesh=make_mesh())
   on the PNG corpus; every output exact.  Per stream: rounds, tainted
   matches and their share, host plan and staging ms, phase 1 and each
   round by CUDA events, e2e ms and walk launches; the walk against its
@@ -127,6 +128,11 @@ Each phase prints one JSON line:
   rows on the group chase also their replayed ms and scratch bytes; the
   walk and the unfilter also their launches on parallel_paths, the walk
   its split shapes).
+
+With --parallel-only the script builds, then runs parallel_paths alone
+with its meshes over every card the machine has (the sp mesh takes the
+cards in turn, the dp meshes one row a card), and prints no kernels line:
+the check of the mesh layer across cards.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them, and the last line is {"ok": true, "device": {...}}.  Any
@@ -2827,14 +2833,18 @@ def rotations(base: bytes, k: int) -> bytes:
                     for r in ((i * 40961) % len(base) for i in range(k)))
 
 
-def split_walk_bytes(plan: dict, out_len: int, patch: bool) -> int:
-    """What one walk of a split shard must move, walk_work's way: its run
-    records (2 words), literals and match records (2 words), and the
-    buffer written once; a patch round also reads the buffer it replays
-    over once.  Bytes at 4 per int32 element."""
+def split_walk_bytes(plan: dict, body_len: int, patch: bool) -> int:
+    """What one walk of a split shard must move, walk_work's way, at 4
+    bytes per int32 element: its run records (2 words) and literals, its
+    match records (2 words), and the bytes it writes, once each.  Phase 1
+    writes the shard's body (not the window prologue, which no record
+    writes); a patch round writes only its tainted matches' bytes (their
+    lengths, mmeta >> 16).  Match sources are not charged."""
     lits = int((plan["rmeta"] & 0x7F).sum())
+    written = (int((plan["mmeta"] >> 16).astype(np.int64).sum()) if patch
+               else body_len)
     return 4 * (2 * len(plan["rdst"]) + lits + 2 * len(plan["mdst"])
-                + out_len * (2 if patch else 1))
+                + written)
 
 
 def split_walk_vs_plain(name, staged, p1_outs) -> list:
@@ -2856,8 +2866,10 @@ def split_walk_vs_plain(name, staged, p1_outs) -> list:
         err = same(f"walk on {name} shard 1 {kind}", (got,),
                    (pb.walk_plain(buf.clone(), *lists),))
         out = got.clone()
-        host = {k: plan[k].cpu().numpy() for k in ("mdst", "rdst", "rmeta")}
-        n_bytes = split_walk_bytes(host, buf.numel(), kind == "patch")
+        host = {k: plan[k].cpu().numpy()
+                for k in ("mdst", "mmeta", "rdst", "rmeta")}
+        n_bytes = split_walk_bytes(host, buf.numel() - pb.WINDOW,
+                                   kind == "patch")
         rows.append({
             "shape": f"{name}_shard1_{kind}", "matches": len(host["mdst"]),
             "runs": len(host["rdst"]), "out_len": buf.numel(),
@@ -2871,12 +2883,13 @@ def split_walk_vs_plain(name, staged, p1_outs) -> list:
     return rows
 
 
-def parallel_phases(dev, base: bytes, streams: list[bytes]):
+def parallel_phases(dev, base: bytes, streams: list[bytes], cards=None):
     """The thirteenth slice: the split-stream decode of one stream over
     four shards (the 29 rotations as one 16,294,288-byte stream, and a 4
-    MiB b"ab" run whose taint reaches every tail), emulated on one device
-    and through a 4-entry sp mesh of it; the batch layer on the 29 streams
-    (one device, and a mesh of it) and on the PNG corpus through
+    MiB b"ab" run whose taint reaches every tail) through a 4-entry sp
+    mesh of ``cards`` (``[dev]`` by default; the shards take the cards in
+    turn); the batch layer on the 29 streams (on ``dev``, and over a mesh
+    of ``cards``) and on the PNG corpus through
     decode_png_batch(mesh=make_mesh()).  Every output exact.  Then the
     split path's parts: host plan, phase 1 and each round by CUDA events,
     and row 3 against its plain version on the split shapes.  Returns the
@@ -2896,12 +2909,15 @@ def parallel_phases(dev, base: bytes, streams: list[bytes]):
         c = zlib.compressobj(6, zlib.DEFLATED, -15)
         cases[name] = (c.compress(data) + c.flush(), data)
     corpus = make_corpus(0)
-    sp_mesh = make_mesh(dp=1, sp=n, devices=[dev] * n)
+    cards = cards or [dev]
+    sp_mesh = make_mesh(dp=1, sp=n,
+                        devices=[cards[i % len(cards)] for i in range(n)])
 
     def timed(fn):
         t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
         return out, (time.perf_counter() - t0) * 1e3
 
     # --- the path, driven once between a reset and a read of the counts --
@@ -2909,26 +2925,18 @@ def parallel_phases(dev, base: bytes, streams: list[bytes]):
     split = {}
     for name, (stream, data) in cases.items():
         w0 = pb.walk.launches
-        got, e2e = timed(lambda: ss.decode_split_emulated(stream, n,
-                                                          device=dev))
+        got, e2e = timed(lambda: ss.decode_split_stream(stream, mesh=sp_mesh))
         if got != data:
             raise AssertionError(f"split decode of {name} is not bit-exact")
-        w1 = pb.walk.launches
-        got, mesh_e2e = timed(lambda: ss.decode_split_stream(stream,
-                                                             mesh=sp_mesh))
-        if got != data:
-            raise AssertionError(f"mesh split decode of {name} is not exact")
         split[name] = {"out_bytes": len(data), "compressed_bytes": len(stream),
-                       "e2e_ms": e2e, "mesh_e2e_ms": mesh_e2e,
-                       "walk_launches": w1 - w0,
-                       "mesh_walk_launches": pb.walk.launches - w1}
+                       "e2e_ms": e2e, "walk_launches": pb.walk.launches - w0}
     want = [zlib.decompress(s, -15) for s in streams]
     outs, batch_ms = timed(lambda: batch.decode_batch_device(streams,
                                                              device=dev))
     if outs != want:
         raise AssertionError("batch decode is not bit-exact")
     outs, batch_mesh_ms = timed(lambda: batch.decode_batch_device(
-        streams, mesh=make_mesh(devices=[dev])))
+        streams, mesh=make_mesh(devices=cards)))
     if outs != want:
         raise AssertionError("batch decode over a mesh is not bit-exact")
     imgs, png_ms = timed(lambda: pl.decode_png_batch(
@@ -2975,7 +2983,8 @@ def parallel_phases(dev, base: bytes, streams: list[bytes]):
     if split["rle"]["rounds"] != 3:
         raise AssertionError(f"the RLE run took {split['rle']['rounds']} "
                              "rounds, not 3")
-    line = {"phase": "parallel_paths", "shards": n, "split": split,
+    line = {"phase": "parallel_paths", "shards": n,
+            "cards": [str(d) for d in cards], "split": split,
             "batch": {"streams": len(streams), "e2e_ms": batch_ms,
                       "mesh_e2e_ms": batch_mesh_ms},
             "png_batch_mesh": {"images": n_images, "e2e_ms": png_ms},
@@ -2986,7 +2995,20 @@ def parallel_phases(dev, base: bytes, streams: list[bytes]):
     return line, extra
 
 
+def finish(smi: str) -> int:
+    """The card's nvidia-smi line, then the last line."""
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
+    parallel_only = sys.argv[1:] == ["--parallel-only"]
+    if sys.argv[1:] and not parallel_only:
+        print("usage: chip_smoke.py [--parallel-only]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on a machine with an NVIDIA card", file=sys.stderr)
@@ -3005,12 +3027,13 @@ def main() -> int:
     )
 
     dev = torch.device("cuda")
-    smi = subprocess.run(
+    smi_all = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    emit({"phase": "card", "nvidia_smi": smi,
+    ).stdout.strip().splitlines()
+    smi = smi_all[0]
+    emit({"phase": "card", "nvidia_smi": smi, "cards": smi_all,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     # --- build ---------------------------------------------------------
@@ -3019,10 +3042,15 @@ def main() -> int:
     native_s = time.perf_counter() - t0
     kernels_s = _kernels.build()
     emit({"phase": "build", "native_s": native_s, "kernels_s": kernels_s})
-
-    # --- kernels vs plain at ~1.1 MB of output -------------------------
     base = obj_text()
     streams = make_streams(base, N_STREAMS)
+    if parallel_only:
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+        emit(parallel_phases(dev, base, streams, cards)[0])
+        return finish(smi)
+
+    # --- kernels vs plain at ~1.1 MB of output -------------------------
     small = build_merged_plan(streams[:2])
     st_small = inf.stage_plan(small.plan, dev)
     s = stages(st_small, small.plan.slots)
@@ -3284,11 +3312,7 @@ def main() -> int:
         k.update(extra.get(k["name"], {}))
 
     emit({"kernels": kernels})
-    print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    return finish(smi)
 
 
 if __name__ == "__main__":

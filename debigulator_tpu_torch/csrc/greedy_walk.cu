@@ -313,7 +313,9 @@ extern "C" int dbg_greedy_walk(const int* best_len, const int* best_dist,
   }
   const int64_t n_chunks = (n + kChunk - 1) / kChunk;
   if (n_chunks > 0) {
-    static const cudaError_t set = cudaFuncSetAttribute(
+    // A function attribute belongs to the current card: set it on each
+    // call, so a launch on any card of the process gets it.
+    const cudaError_t set = cudaFuncSetAttribute(
         greedy_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(sizeof(Smem)));
     if (set != cudaSuccess) return static_cast<int>(set);

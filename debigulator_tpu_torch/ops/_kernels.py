@@ -4,7 +4,8 @@ Each source under ``csrc/`` is compiled by its own ``nvcc`` process (all
 started together) for ``sm_90a`` into a shared library with a plain C
 interface, in the package's git-ignored build directory, at first use.
 The libraries are loaded with ctypes.  Every C entry launches on the
-stream it is given (PyTorch's current stream), allocates nothing, does not
+stream it is given (PyTorch's current stream of the card its tensors lie
+on, with that card current), allocates nothing, does not
 synchronise, and returns ``cudaGetLastError()``; ``launch`` raises when it
 is not 0.  Nothing here runs at import: the CPU tests import every module.
 """
@@ -127,19 +128,28 @@ def build() -> float:
 
 
 def launch(entry: str, *args) -> None:
-    """Call a C entry with tensors passed as device pointers and the
-    current CUDA stream appended; raise on a launch error."""
-    conv = []
+    """Call a C entry with tensors passed as device pointers; raise on a
+    launch error.  The tensors must lie on one card: the entry runs with
+    that card current, on its current stream (the stream PyTorch's own
+    work on those tensors is queued on), whichever card the caller has
+    current."""
+    conv, cards = [], set()
     for a in args:
         if isinstance(a, torch.Tensor):
             if not a.is_cuda or not a.is_contiguous():
                 raise ValueError(f"{entry}: tensors must be contiguous CUDA tensors")
+            cards.add(a.device)
             conv.append(a.data_ptr())
         else:
             conv.append(int(a))
+    if len(cards) != 1:
+        raise ValueError(f"{entry}: tensors must lie on one CUDA device, "
+                         f"not {sorted(map(str, cards))}")
+    (card,) = cards
     if not _FNS:
         build()
-    err = _FNS[entry](*conv, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(card):
+        err = _FNS[entry](*conv, torch.cuda.current_stream(card).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry}: CUDA launch failed (cudaError {err})")
 

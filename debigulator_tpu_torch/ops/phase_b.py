@@ -329,13 +329,13 @@ def plan_records(m_pos, m_meta, r_pos, r_lit0, r_len, lit, n_seg: int,
 
     m_pos/m_meta: matches (pos ascending, meta len << 16 | dist); r_pos/
     r_lit0/r_len: literal runs (length <= 127, pos and literal offsets
-    ascending); lit: the literal bytes (int32 is taken as it is, so one
-    tape can serve many plans).  Runs split at 128-byte literal rows as
+    ascending); lit: the literal tape the runs index (only its length is
+    read: the caller keeps the tape and stages one copy for every plan,
+    ``stage_records``).  Runs split at 128-byte literal rows as
     the reference splits them (phase_b_v15.py:1047-1056).  The lists hold
     exactly the records: the walk reads ``mdst.numel()`` of them, so
     there is no padding.  The stored bytes go into the body at
     ``stored_pos`` (body offsets) by ``run_records``."""
-    lit = np.asarray(lit, np.int32)
     if -(-len(lit) // 128) > LIT_ROW_LIMIT:
         raise ValueError(
             f"lit tape {-(-len(lit) // 128)} rows exceeds the run-meta "
@@ -357,7 +357,6 @@ def plan_records(m_pos, m_meta, r_pos, r_lit0, r_len, lit, n_seg: int,
         "mmeta": np.asarray(m_meta, np.int32),
         "rdst": p2.astype(np.int32),
         "rmeta": rmeta.astype(np.uint32).view(np.int32),
-        "lit": lit,
         "stored_pos": np.asarray(empty if stored_pos is None else stored_pos,
                                  np.int64).astype(np.int32),
         "stored_val": np.asarray(empty if stored_val is None else stored_val,
@@ -371,29 +370,23 @@ def stage_records(plan: dict, device, lit: torch.Tensor) -> dict:
     """A plan_records plan on ``device``: every array as a tensor, the
     sizes as they are, and ``lit``, the plan's literal tape already on
     ``device`` (one copy serves every plan of a stream)."""
-    out = {k: (torch.from_numpy(v).to(device) if isinstance(v, np.ndarray)
-               else v) for k, v in plan.items() if k != "lit"}
-    out["lit"] = lit
-    return out
+    return {**{k: (torch.from_numpy(v).to(device)
+                   if isinstance(v, np.ndarray) else v)
+               for k, v in plan.items()}, "lit": lit}
 
 
 def records_buffer(plan: dict, tail0=None, body_init=None) -> torch.Tensor:
     """The flat buffer ``run_records`` walks: the window prologue
     (``tail0``, zeros when None), then ``body_init`` (a patch round replays
     its matches over the previous output) or the stored-byte init."""
-    dev = plan["mdst"].device
-    size = plan["n_seg"] * plan["seg_bytes"]
-    if body_init is None:
-        return init_body(plan["n_seg"], plan["stored_pos"],
-                         plan["stored_val"], tail0, device=dev,
-                         seg_bytes=plan["seg_bytes"])
-    if body_init.numel() != size:
-        raise ValueError(f"body_init holds {body_init.numel()} values, "
-                         f"the plan's body {size}")
-    out = torch.zeros(WINDOW + size, dtype=torch.int32, device=dev)
-    if tail0 is not None:
-        out[:WINDOW] = tail0.reshape(-1)
-    out[WINDOW:] = body_init.reshape(-1)
+    out = init_body(plan["n_seg"], plan["stored_pos"], plan["stored_val"],
+                    tail0, device=plan["mdst"].device,
+                    seg_bytes=plan["seg_bytes"])
+    if body_init is not None:
+        if body_init.numel() != out.numel() - WINDOW:
+            raise ValueError(f"body_init holds {body_init.numel()} values, "
+                             f"the plan's body {out.numel() - WINDOW}")
+        out[WINDOW:] = body_init.reshape(-1)
     return out
 
 

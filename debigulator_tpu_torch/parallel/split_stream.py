@@ -176,18 +176,12 @@ def _bytes(outs, out_size: int) -> bytes:
 def decode_split_emulated(stream: bytes, n_shards: int,
                           seg_bytes: int | None = None,
                           device="cuda") -> bytes:
-    """The split-stream schedule with every shard on one device: the same
-    plan, phases, tail hand-offs and patch rounds as ``decode_split_stream``,
-    the tails moved by slicing."""
+    """The split-stream schedule with every shard on one device:
+    ``decode_split_stream`` over a mesh that repeats ``device``."""
     dev = resolve_device(device)
-    plan = plan_split_stream(stream, n_shards, seg_bytes=seg_bytes)
-    staged = stage_split(plan, [dev] * n_shards)
-    outs = phase1(staged)
-    zero = torch.zeros(WINDOW, dtype=torch.int32, device=dev)
-    for _ in range(plan.rounds):
-        tails = [zero] + [o[-WINDOW:] for o in outs[:-1]]
-        outs = patch_round(staged, outs, tails)
-    return _bytes(outs, plan.out_size)
+    return decode_split_stream(
+        stream, mesh=make_mesh(dp=1, sp=n_shards, devices=[dev] * n_shards),
+        seg_bytes=seg_bytes)
 
 
 def decode_split_stream(stream: bytes, mesh: Mesh | None = None,

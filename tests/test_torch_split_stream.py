@@ -223,3 +223,66 @@ def test_card_branch_launches_one_walk_per_nonempty_list(monkeypatch):
              if len(p["mdst"])] * plan.rounds
     assert made == want and tpb.walk.launches - before == len(want)
     assert len(want) < n * (1 + plan.rounds)  # empty lists launched nothing
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on card ``card``: enough for the
+    launcher, which reads only its device, layout and address."""
+
+    card = torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+    @property
+    def device(self):
+        return type(self).card
+
+
+def _on_card(i: int) -> torch.Tensor:
+    cls = type(f"_OnCard{i}", (_OnCard,), {"card": torch.device("cuda", i)})
+    return torch.Tensor._make_subclass(cls, torch.zeros(4, dtype=torch.int32))
+
+
+def test_launch_runs_on_the_card_of_its_tensors(monkeypatch):
+    """A shard of a mesh over several cards launches its walk with its own
+    card current and on that card's current stream, whichever card the
+    caller has current; tensors on two cards are refused.  The card, its
+    streams and the C entry are stand-ins that record what they are
+    handed."""
+    current = [torch.device("cuda", 0)]
+    made = []
+
+    class Guard:
+        def __init__(self, card):
+            self.card = torch.device(card)
+
+        def __enter__(self):
+            self.prev, current[0] = current[0], self.card
+
+        def __exit__(self, *exc):
+            current[0] = self.prev
+
+    def stream_of(card=None):
+        card = torch.device(card) if card is not None else current[0]
+        return type("Stream", (), {"cuda_stream": 1000 + card.index})()
+
+    def entry(*args):
+        made.append((args[-1], current[0]))
+        return 0
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", stream_of)
+    monkeypatch.setattr(_kernels, "_FNS", {"dbg_walk": entry})
+    for i in (1, 2, 0, 3):
+        out, m, r, lit = (_on_card(i) for _ in range(4))
+        _kernels.launch("dbg_walk", out, 4, tpb.WINDOW, m, m, 0, r, r, 0,
+                        lit, 4)
+        assert made[-1] == (1000 + i, torch.device("cuda", i))
+        assert current[0] == torch.device("cuda", 0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        _kernels.launch("dbg_walk", _on_card(0), 4, tpb.WINDOW, _on_card(1),
+                        _on_card(1), 0, _on_card(1), _on_card(1), 0,
+                        _on_card(1), 4)
+    assert len(made) == 4
