@@ -1,39 +1,77 @@
 // The piece-loop microbenchmark for Hopper: the v12 narrow-piece group
-// loop under variants that drop parts of its work, to see what a piece
-// costs.
+// walk, and the group loop under variants that drop parts of its work, to
+// see what a piece costs.
 //
 // Replaces the TPU kernel _kernel of tools/microbench_pb.py (:31).  Piece
 // t is two words: w0 = dst_row << 16 | rp << 8 | (rp + len) and w1 =
-// q_row << 16 | r << 8 | (128 - r), q = q_row * 128 + r the first byte of
-// a 128-byte source window whose byte L goes to dst_row * 128 + L for L in
+// q_row << 16 | r << 8 | (128 - r), q = q_row * 128 + r the first word of
+// a 128-word source window whose word L goes to dst_row * 128 + L for L in
 // [rp, rp + len).  The TPU kernel DMAs stage_rows rows of both word arrays
 // into SMEM per stage, then walks the stage's groups of 8 in order, each
 // group issuing its 8 loads (2 rows, a lane roll and a row select) before
-// its 8 masked one-row stores.
+// its 8 masked one-row stores.  A source word outside the buffer reads as
+// 0; a store outside it is dropped.
 //
-// Here one CTA runs the pieces in stages: its threads stage stage_rows *
-// 128 pieces into shared memory, then one warp walks the stage's groups
-// in order with the same semantics (all loads of a group, __syncwarp(),
-// then the stores in slot order).  A staged piece is w0 and the 16-bit
-// distance dst_row * 128 - q (6 bytes; the packing makes w1 a function of
-// the two), so 256 staged rows fit the 227 KB a block may hold (8 bytes a
-// piece would need 256 KB).  A source byte outside the buffer reads as 0.
-// Variants:
-//   full        loads, then masked stores (the group loop itself);
-//   load_only   the 8 windows summed lane by lane into row 8;
-//   store_only  zeros stored under each piece's mask;
-//   scalar_only the words unpacked and summed, the sum stored across row 8;
-//   scalar_smem the same sum kept in shared memory, nothing stored;
-//   noop        the loop with an empty body;
-//   nodma       full, but the stage is never filled (undefined output).
-// An unroll factor (unrollN, noop8) walks that many groups per iteration.
+// Two designs:
 //
-// What bounds it on the H100: latency.  One warp walks every group, and a
-// group's loads wait for the stores before them (about one L2 round trip
-// per group).
+//  * the event chase (`dbg_microbench_chase`; full and unroll2/4/8, which
+//    compute one function).  Every written word is an event: piece t
+//    writes p = dst_row * 128 + L with the value its source word s = q + L
+//    held before t's group, which is the last event on s from an earlier
+//    group, else the buffer's word.  The tool's list rewrites each word
+//    about 54 times, and 98.9% of its events read a word an earlier group
+//    wrote, so every event gets a 64-bit state of its own:
+//      - the wrapper scans the pieces' event counts (a tensor op), reads
+//        the total back once and sizes the scratch from it; events are
+//        numbered in slot order, so an event's number orders it as its
+//        slot does (a piece writes a word once);
+//      - histogram, scan (one block) and scatter build each word's
+//        writers as a segment of `seg`; atomic scatters land in no order,
+//        so `sort_kernel` sorts each segment by event number (a warp a
+//        word: a bitonic network in registers up to 32 entries, in shared
+//        memory up to kSegSmem, in device memory beyond);
+//      - `pointer_kernel`: each event binary-searches its source's segment
+//        for the last writer below its group's first event: a pointer to
+//        that event's state, else a value (out[s], read before any store,
+//        or 0 outside the buffer);
+//      - `event_chase_kernel`: chase::chase_elements over the events, the
+//        owner alone storing an event's state (a shorter pointer between
+//        hops, then its value).  Every pointer names an event of an
+//        earlier group, so every chain ends whatever the order of blocks;
+//      - `store_kernel`: each word takes its last writer's value.
+//    The histogram, scatter and pointer passes spread 32 pieces' events
+//    over a warp's lanes (`for_events`), so neighbouring lanes handle
+//    neighbouring words.
+//
+//  * the staged loop (`dbg_microbench_pb`; the probes).  One CTA runs the
+//    pieces in stages: its threads stage stage_rows * 128 pieces into
+//    shared memory, then one warp walks the stage's groups in order (all
+//    loads of a group, __syncwarp(), then the stores in slot order).  A
+//    staged piece is w0 and the 16-bit distance dst_row * 128 - q (6
+//    bytes; the packing makes w1 a function of the two), so 256 staged
+//    rows fit the 227 KB a block may hold.  Variants:
+//      load_only   the 8 windows summed lane by lane into row 8;
+//      store_only  zeros stored under each piece's mask;
+//      scalar_only the words unpacked and summed, the sum stored across
+//                  row 8;
+//      scalar_smem the same sum kept in shared memory, nothing stored;
+//      noop        the loop with an empty body (noop8: 8 groups an
+//                  iteration);
+//      nodma       the group walk, but the stage is never filled
+//                  (undefined output).
+//
+// What bounds it on the H100.  The chase: bytes and latency across all
+// 132 SMs; per event an atomic in each of the histogram and the scatter, a
+// search of about log2(writers) loads, a 64-bit state written and chased
+// (a hop is one L2 load; publication cuts a chain of depth D to about
+// log2 D rounds), and 12 bytes of scratch.  The loop: latency; one warp
+// walks every group, and a group's loads wait for the stores before them.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "chase.cuh"
 
 namespace {
 
@@ -50,6 +88,253 @@ enum Variant {
   kNoop = 5,
   kNodma = 6,
 };
+
+// ---------------------------------------------------------------------------
+// The event chase
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFullMask = chase::kFull;
+constexpr int kWarps = kThreads / 32;
+constexpr int kScanThreads = 1024;
+constexpr int kSegSmem = 1024;  // a segment a warp sorts in shared memory
+
+// The events of the pieces, 32 pieces a warp and their events 32 at a
+// time: f(live, e, p, s, glo) for event e (a number in slot order) of
+// word p, reading word s, glo the first event of its piece's group.
+// ends: the inclusive prefix sums of the pieces' event counts (their
+// words inside the buffer, from max(dst, 0)).  Every lane calls f in every
+// round; live is false where the lane has no event.
+template <class F>
+__device__ __forceinline__ void for_events(const int* __restrict__ w0,
+                                           const int* __restrict__ w1,
+                                           const int* __restrict__ ends,
+                                           int n_pieces, const F& f) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kWarps +
+                   (threadIdx.x >> 5);
+       g * 32 < n_pieces; g += warps) {
+    const int64_t t = g * 32 + lane;
+    const int end = __ldg(ends + (t < n_pieces ? t : n_pieces - 1));
+    int64_t p0 = 0, shift = 0;  // first word written; source - destination
+    if (t < n_pieces) {
+      const int a = __ldg(w0 + t), b = __ldg(w1 + t);
+      const int64_t base = static_cast<int64_t>(a >> 16) * 128;
+      const int64_t d0 = base + ((a >> 8) & 127);
+      p0 = d0 > 0 ? d0 : 0;
+      shift = static_cast<int64_t>(b >> 16) * 128 + ((b >> 8) & 127) - base;
+    }
+    int excl = __shfl_up_sync(kFullMask, end, 1);
+    if (lane == 0) excl = g == 0 ? 0 : __ldg(ends + g * 32 - 1);
+    const int first = __shfl_sync(kFullMask, excl, 0);
+    const int last = __shfl_sync(kFullMask, end, 31);
+    for (int b0 = first; b0 < last; b0 += 32) {
+      const int e = b0 + lane;
+      int r = 0;  // the last piece whose events start at or before e
+      for (int step = 16; step > 0; step >>= 1) {
+        if (__shfl_sync(kFullMask, excl, r + step) <= e) r += step;
+      }
+      const int glo = __shfl_sync(kFullMask, excl, r & ~(kGroup - 1));
+      const int64_t p = __shfl_sync(kFullMask, p0, r) +
+                        (e - __shfl_sync(kFullMask, excl, r));
+      const int64_t s = p + __shfl_sync(kFullMask, shift, r);
+      f(e < last, e, p, s, glo);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+histogram_kernel(const int* __restrict__ w0, const int* __restrict__ w1,
+                 const int* __restrict__ ends, int n_pieces, int* cnt) {
+  for_events(w0, w1, ends, n_pieces,
+             [&](bool live, int, int64_t p, int64_t, int) {
+               if (live) atomicAdd(cnt + p, 1);
+             });
+}
+
+// start[w] = the writers of words below w; start[n] = every writer.  One
+// block, each thread a run of consecutive words.
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(const int* __restrict__ cnt, int64_t n, int* __restrict__ start) {
+  __shared__ int warp_sum[kScanThreads / 32];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int64_t chunk = (n + kScanThreads - 1) / kScanThreads;
+  const int64_t lo = threadIdx.x * chunk < n ? threadIdx.x * chunk : n;
+  const int64_t hi = lo + chunk < n ? lo + chunk : n;
+  int sum = 0;
+  for (int64_t i = lo; i < hi; ++i) sum += cnt[i];
+  int incl = sum;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(kFullMask, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) warp_sum[wid] = incl;
+  __syncthreads();
+  if (wid == 0) {
+    int w = warp_sum[lane];
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFullMask, w, off);
+      if (lane >= off) w += v;
+    }
+    warp_sum[lane] = w;
+  }
+  __syncthreads();
+  int run = incl - sum + (wid > 0 ? warp_sum[wid - 1] : 0);
+  for (int64_t i = lo; i < hi; ++i) {
+    start[i] = run;
+    run += cnt[i];
+  }
+  if (threadIdx.x == kScanThreads - 1) start[n] = run;
+}
+
+// Each event joins its word's segment; cnt counts down to 0.
+__global__ void __launch_bounds__(kThreads)
+scatter_kernel(const int* __restrict__ w0, const int* __restrict__ w1,
+               const int* __restrict__ ends, int n_pieces, int* cnt,
+               const int* __restrict__ start, int* __restrict__ seg) {
+  for_events(w0, w1, ends, n_pieces,
+             [&](bool live, int e, int64_t p, int64_t, int) {
+               if (live) seg[start[p] + atomicSub(cnt + p, 1) - 1] = e;
+             });
+}
+
+// Sort v[0, n) ascending by one warp: a bitonic network in the form
+// whose every comparator puts the smaller value at the lower index (each
+// merge starts by comparing i with its mirror in the block), over n
+// padded to a power of two.  The padding is +infinity, never moved, so a
+// comparator that reaches past n is skipped.
+template <class P>
+__device__ __forceinline__ void sort_warp(P v, int n, int lane) {
+  int n2 = 1;
+  while (n2 < n) n2 <<= 1;
+  for (int k = 2; k <= n2; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int m = lane; m < n2 / 2; m += 32) {
+        const int a = ((m & ~(j - 1)) << 1) | (m & (j - 1));
+        const int b = j == k >> 1 ? a ^ (k - 1) : a | j;
+        if (b < n) {
+          const int x = v[a], y = v[b];
+          if (x > y) {
+            v[a] = y;
+            v[b] = x;
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Each word's writers in slot order: a warp a word.
+__global__ void __launch_bounds__(kThreads)
+sort_kernel(const int* __restrict__ start, int64_t n_out, int* seg) {
+  __shared__ int buf[kWarps][kSegSmem];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t w = static_cast<int64_t>(blockIdx.x) * kWarps + wid;
+       w < n_out; w += warps) {
+    const int lo = __ldg(start + w), n = __ldg(start + w + 1) - lo;
+    int* v = seg + lo;
+    if (n < 2) continue;
+    if (n <= 32) {
+      int x = lane < n ? v[lane] : INT_MAX;
+      for (int k = 2; k <= 32; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          const int y = __shfl_xor_sync(kFullMask, x, j);
+          x = ((lane & j) == 0) == ((lane & k) == 0) ? min(x, y) : max(x, y);
+        }
+      }
+      if (lane < n) v[lane] = x;
+    } else if (n <= kSegSmem) {
+      for (int i = lane; i < n; i += 32) buf[wid][i] = v[i];
+      __syncwarp();
+      sort_warp(buf[wid], n, lane);
+      for (int i = lane; i < n; i += 32) v[i] = buf[wid][i];
+    } else {
+      sort_warp(v, n, lane);  // hand-made lists only
+    }
+    __syncwarp();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+pointer_kernel(const int* __restrict__ out, int64_t n_out,
+               const int* __restrict__ w0, const int* __restrict__ w1,
+               const int* __restrict__ ends, int n_pieces,
+               const int* __restrict__ start, const int* __restrict__ seg,
+               unsigned long long* __restrict__ state) {
+  for_events(w0, w1, ends, n_pieces,
+             [&](bool live, int e, int64_t, int64_t s, int glo) {
+               if (!live) return;
+               if (s < 0 || s >= n_out) {
+                 state[e] = chase::value_entry(0);
+                 return;
+               }
+               const int first = __ldg(start + s);
+               int lo = first, hi = __ldg(start + s + 1);
+               while (lo < hi) {  // the first writer at or past glo
+                 const int mid = (lo + hi) >> 1;
+                 if (__ldg(seg + mid) < glo) lo = mid + 1;
+                 else hi = mid;
+               }
+               state[e] = lo > first
+                              ? chase::pointer_entry(__ldg(seg + lo - 1))
+                              : chase::value_entry(__ldg(out + s));
+             });
+}
+
+// An event's state: chase's 64-bit entry, a pointer (another event's
+// number) while it is chased, then its value behind kDone.
+struct EventChain {
+  unsigned long long* state;
+  using Hop = unsigned long long;
+  __device__ __forceinline__ bool start(int64_t j, int& v) const {
+    const unsigned long long h = state[j];
+    v = static_cast<int>(static_cast<unsigned>(h));
+    return static_cast<unsigned>(h) != chase::kDone;
+  }
+  __device__ __forceinline__ Hop load(int v) const {
+    return __ldcg(state + v);
+  }
+  // The value, or a shorter pointer on the same chain: publish it.
+  __device__ __forceinline__ bool step(int64_t j, int& v, Hop h) const {
+    __stcg(state + j, h);
+    v = static_cast<int>(static_cast<unsigned>(h));
+    return static_cast<unsigned>(h) != chase::kDone;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+event_chase_kernel(unsigned long long* state, int n_events) {
+  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * kThreads *
+                         chase::kChase + threadIdx.x;
+  chase::chase_elements(EventChain{state}, j0, n_events);
+}
+
+__global__ void __launch_bounds__(kThreads)
+store_kernel(int* __restrict__ out, int64_t n_out,
+             const int* __restrict__ start, const int* __restrict__ seg,
+             const unsigned long long* __restrict__ state) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t w = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+       w < n_out; w += stride) {
+    const int hi = __ldg(start + w + 1);
+    if (hi > __ldg(start + w)) {
+      out[w] = static_cast<int>(__ldg(state + __ldg(seg + hi - 1)) >> 32);
+    }
+  }
+}
+
+unsigned grid_of(int64_t items, int64_t per_block) {
+  const int64_t blocks = (items + per_block - 1) / per_block;
+  return static_cast<unsigned>(blocks < chase::kPointerBlocks
+                                   ? blocks
+                                   : chase::kPointerBlocks);
+}
+
+// ---------------------------------------------------------------------------
+// The staged loop
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned w1_of(int w0, int dist) {
   const int q = (w0 >> 16) * 128 - dist;
@@ -117,7 +402,7 @@ __device__ __forceinline__ void group(int* out, int64_t n_out,
       if (L >= rp && L < hi && base + L >= 0 && base + L < n_out)
         out[base + L] = V == kStoreOnly ? 0 : v[g][k];
     }
-    __syncwarp();  // a later piece's store to the same byte wins
+    __syncwarp();  // a later piece's store to the same word wins
   }
 }
 
@@ -168,8 +453,42 @@ int launch(int* out, int64_t n_out, const int* w0, const int* w1,
 
 }  // namespace
 
-// variant: the Variant codes above; unroll: 1, 2, 4 or 8 (full and noop),
-// 1 otherwise.  Returns cudaErrorInvalidValue for any other pair.
+// The group walk of n_pieces pieces into out (n_out words) by the event
+// chase.  ends: the inclusive prefix sums of the pieces' event counts
+// (n_events in all, below 2^30).  Scratch: cnt n_out and start n_out + 1
+// words, seg n_events words, state n_events 64-bit words.
+extern "C" int dbg_microbench_chase(int* out, int64_t n_out, const int* w0,
+                                    const int* w1, const int* ends,
+                                    int n_pieces, int n_events, int* cnt,
+                                    int* start, int* seg,
+                                    unsigned long long* state,
+                                    cudaStream_t stream) {
+  if (n_pieces <= 0 || n_events <= 0) {
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaError_t err = cudaMemsetAsync(cnt, 0, n_out * sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned by_piece = grid_of(n_pieces, 32 * kWarps);
+  const unsigned by_word = grid_of(n_out, kWarps);
+  histogram_kernel<<<by_piece, kThreads, 0, stream>>>(w0, w1, ends, n_pieces,
+                                                      cnt);
+  scan_kernel<<<1, kScanThreads, 0, stream>>>(cnt, n_out, start);
+  scatter_kernel<<<by_piece, kThreads, 0, stream>>>(w0, w1, ends, n_pieces,
+                                                    cnt, start, seg);
+  sort_kernel<<<by_word, kThreads, 0, stream>>>(start, n_out, seg);
+  pointer_kernel<<<by_piece, kThreads, 0, stream>>>(
+      out, n_out, w0, w1, ends, n_pieces, start, seg, state);
+  const int64_t per = static_cast<int64_t>(kThreads) * chase::kChase;
+  event_chase_kernel<<<static_cast<unsigned>((n_events + per - 1) / per),
+                       kThreads, 0, stream>>>(state, n_events);
+  store_kernel<<<grid_of(n_out, kThreads), kThreads, 0, stream>>>(
+      out, n_out, start, seg, state);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The staged loop.  variant: the Variant codes above but kFull (the
+// chase's); unroll: 1, or 8 for noop.  Returns cudaErrorInvalidValue for
+// any other pair.
 extern "C" int dbg_microbench_pb(int* out, int64_t n_out, const int* w0,
                                  const int* w1, int n_stages, int stage_rows,
                                  int variant, int unroll,
@@ -178,10 +497,6 @@ extern "C" int dbg_microbench_pb(int* out, int64_t n_out, const int* w0,
 #define MB_CASE(v, u)                                                     \
   if (variant == v && unroll == u)                                        \
     return launch<v, u>(out, n_out, w0, w1, n_stages, stage_rows, stream);
-  MB_CASE(kFull, 1)
-  MB_CASE(kFull, 2)
-  MB_CASE(kFull, 4)
-  MB_CASE(kFull, 8)
   MB_CASE(kLoadOnly, 1)
   MB_CASE(kStoreOnly, 1)
   MB_CASE(kScalarOnly, 1)

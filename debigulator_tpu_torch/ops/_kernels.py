@@ -32,7 +32,7 @@ SOURCES = {"phase_a": "phase_a.cu", "compact": "compact.cu", "walk": "walk.cu",
            "walk_v14": "walk_v14.cu", "groups_v9": "groups_v9.cu",
            "microbench_pb": "microbench_pb.cu"}
 #: Headers a source includes: hashed with it, so an edit rebuilds it.
-HEADERS = {"walk": ["chase.cuh"],
+HEADERS = {"walk": ["chase.cuh"], "microbench_pb": ["chase.cuh"],
            "lz77_match": ["chase.cuh", "group_chase.cuh"],
            **{name: ["lz77_copy.cuh", "chase.cuh"]
               for name in ("lz77_tape", "lz77_ops")},
@@ -82,6 +82,8 @@ _ENTRIES = {
                                           _P, _P, _P, _P, _P]),
     "dbg_microbench_pb": ("microbench_pb", [_P, _I64, _P, _P, _I32, _I32,
                                             _I32, _I32]),
+    "dbg_microbench_chase": ("microbench_pb", [_P, _I64, _P, _P, _P, _I32,
+                                               _I32, _P, _P, _P, _P]),
 }
 #: C entries that take nothing and return a constant of the kernel's
 #: layout -> library.

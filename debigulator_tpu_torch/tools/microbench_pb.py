@@ -4,14 +4,16 @@ tools/microbench_pb.py).
 
     python3 -m debigulator_tpu_torch.tools.microbench_pb
 
-Times the v12 narrow-piece group loop (csrc/microbench_pb.cu) and variants
-of it that drop parts of its work, over synthetic pieces made from numpy
-seed 0 as the reference tool makes them: full (loads, then masked stores),
-load_only, store_only, scalar_only (words unpacked and summed, no memory
-traffic), scalar_smem, noop, noop8, nodma (the stage never filled) and
-unroll2/4/8, at 16, 64 and 256 staged piece rows, over N_PIECES pieces.
-Prints one line per run: ms per call and ns per piece, from CUDA events
-over REPS calls after a checked warm-up.  Runs on the card only.
+Times the v12 narrow-piece group walk (csrc/microbench_pb.cu) and variants
+of the group loop that drop parts of its work, over synthetic pieces made
+from numpy seed 0 as the reference tool makes them: full and unroll2/4/8
+(the group walk itself, one function, which the card runs as the event
+chase), and the probes on the staged one-warp loop: load_only, store_only,
+scalar_only (words unpacked and summed, no memory traffic), scalar_smem,
+noop, noop8, nodma (the stage never filled), at 16, 64 and 256 staged
+piece rows, over N_PIECES pieces.  Prints one line per run, labelled with
+the design it ran: ms per call and ns per piece, from CUDA events over
+REPS calls after the wrapper's check and one call.  Runs on the card only.
 """
 
 from __future__ import annotations
@@ -47,6 +49,11 @@ RUNS = (("noop", 16), ("noop", 64), ("noop", 256), ("nodma", 16),
         ("load_only", 16), ("store_only", 16), ("scalar_only", 16))
 #: Staged rows a CTA can hold: 6 bytes a piece in at most 227 KB.
 MAX_STAGE_ROWS = 256
+#: The variants that run the group walk itself: on the card the event
+#: chase (dbg_microbench_chase), the others the staged loop.
+CHASE = ("full", "unroll2", "unroll4", "unroll8")
+#: Events (written words) one chase call takes: numbered in int32.
+MAX_EVENTS = 2**30
 
 
 def make_pieces(n_pieces: int = N_PIECES, rows: int = ROWS, seed: int = 0):
@@ -68,6 +75,43 @@ def make_pieces(n_pieces: int = N_PIECES, rows: int = ROWS, seed: int = 0):
     w1 = ((q >> 7) << 16) | (r << 8) | (128 - r)
     return (w0.reshape(-1, 128).astype(np.int32),
             w1.reshape(-1, 128).astype(np.int32))
+
+
+def clash_pieces(seed: int = 0, rows: int = 18, n_pieces: int = 4096):
+    """A hand-made clashing list in make_pieces' packing: (w0, w1, init),
+    int32 numpy arrays.  Rounds of pieces (4-23 words, cut at the row) tile
+    rows 8 to rows - 3, so that each round writes every word there once;
+    the pieces of all rounds are shuffled and the first n_pieces kept, so
+    that every word there is written about 50 times and a group's pieces
+    share words.  A fifth of the pieces read 1-15 words back (their own
+    group's words among them), the rest up to 1100 (some before the
+    buffer).  init holds random words, zeros in rows 0-1 and the last two,
+    which the reference kernel reads for a source before the buffer (its
+    row index clamped, or counted from the end)."""
+    rng = np.random.default_rng(seed)
+    dst, lens = [], []
+    while len(dst) < 2 * n_pieces:
+        for w in range(8 * 128, (rows - 2) * 128, 128):
+            at = 0
+            while at < 128:
+                n = min(int(rng.integers(4, 24)), 128 - at)
+                dst.append(w + at)
+                lens.append(n)
+                at += n
+    order = rng.permutation(len(dst))[:n_pieces]
+    dst, ln = np.array(dst)[order], np.array(lens)[order]
+    near = rng.random(n_pieces) < 0.2
+    dist = np.where(near, rng.integers(1, 16, n_pieces),
+                    rng.integers(16, 1100, n_pieces))
+    rp = dst & 127
+    q = dst - dist - rp
+    r = q & 127
+    w0 = ((dst >> 7) << 16) | (rp << 8) | (rp + ln)
+    w1 = ((q >> 7) << 16) | (r << 8) | (128 - r)
+    init = rng.integers(0, 256, (rows, 128))
+    init[:2] = init[-2:] = 0
+    return (w0.reshape(-1, 128).astype(np.int32),
+            w1.reshape(-1, 128).astype(np.int32), init.astype(np.int32))
 
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -151,7 +195,61 @@ def _check(variant, w0, w1, init, stage_rows: int) -> None:
         raise ValueError(f"the buffer needs more than {ACC_ROW} rows")
 
 
-def _launch(variant, w0, w1, out, stage_rows: int) -> None:
+def piece_events(w0, n_out: int, stage_rows: int = STAGE_ROWS):
+    """Words each walked piece writes inside the buffer: its row's [rp,
+    min(hi, 128)) cut to [0, n_out), as the event chase numbers them."""
+    a = w0.reshape(-1)[:_walked(w0, stage_rows)].long()
+    base = (a >> 16) * 128
+    lo = (base + ((a >> 8) & 127)).clamp(min=0)
+    hi = (base + (a & 255).clamp(max=128)).clamp(max=n_out)
+    return (hi - lo).clamp(min=0)
+
+
+def chase_scratch_bytes(n_out: int, n_pieces: int, n_events: int) -> int:
+    """The event chase's scratch: the pieces' event ends, a count and a
+    segment start per word, and per event a segment entry and a 64-bit
+    state."""
+    return 4 * n_pieces + 4 * (2 * n_out + 1) + 12 * n_events
+
+
+def _plan(variant, w0, w1, n_out: int, stage_rows: int):
+    """The card branch's one read-back: the packing check and, for the
+    event chase, its event count.  Returns (ends, n_events) for the chase,
+    ends the inclusive prefix sums of piece_events (int32), else None."""
+    a, b = w0.long(), w1.long()
+    dist = (a >> 16) * 128 - ((b >> 16) * 128 + ((b >> 8) & 127))
+    ok = (((b & 255) == 128 - ((b >> 8) & 127))
+          & (dist >= 0) & (dist < 1 << 16)).all().view(1).long()
+    ends = None
+    if variant in CHASE:
+        ends = torch.cumsum(piece_events(w0, n_out, stage_rows), 0)
+        ok = torch.cat([ok, ends[-1:] if ends.numel() else ok.new_zeros(1)])
+    ok, *count = ok.tolist()
+    if not ok:
+        raise ValueError("pieces outside the v12 packing the card stages")
+    if ends is None:
+        return None
+    if count[0] >= MAX_EVENTS:
+        raise ValueError(f"the event chase takes fewer than {MAX_EVENTS} "
+                         "written words a call")
+    return ends.int(), count[0]
+
+
+def _launch(variant, w0, w1, out, stage_rows: int, plan=None) -> None:
+    """The card's launch of ``variant``, given _plan's result: nothing is
+    read back, so a call replays from a CUDA graph."""
+    if variant in CHASE:
+        ends, n_events = plan
+        if n_events:
+            n_out = out.numel()
+            i32 = dict(dtype=torch.int32, device=out.device)
+            _kernels.launch(
+                "dbg_microbench_chase", out, n_out, w0, w1, ends,
+                ends.numel(), n_events, torch.empty(n_out, **i32),
+                torch.empty(n_out + 1, **i32), torch.empty(n_events, **i32),
+                torch.empty(n_events, dtype=torch.int64, device=out.device))
+            microbench.launches += 1
+        return
     n_stages = _walked(w0, stage_rows) // (stage_rows * 128)
     if n_stages:
         code, unroll = VARIANTS[variant]
@@ -165,21 +263,21 @@ def microbench(variant: str, w0, w1, init, stage_rows: int = STAGE_ROWS):
     w1) ((rows, 128) int32, make_pieces' packing) on a copy of ``init``
     ((rows, 128) int32); returns the buffer.
 
-    CUDA kernel (csrc/microbench_pb.cu): one CTA stages ``stage_rows`` rows
+    CUDA kernels (csrc/microbench_pb.cu).  full and unrollN: the event
+    chase, a 64-bit state per written word (histogram, scan, scatter,
+    sort, pointer, chase and store passes in one entry), its scratch sized
+    from the event count.  The probes: one CTA stages ``stage_rows`` rows
     of pieces into shared memory per round as w0 and the 16-bit distance,
-    one warp walks their groups.  The card's staging needs w1's low byte to
-    be 128 - r and a distance below 65,536: checked here (one read-back).
+    one warp walks their groups.  The card takes w1's low byte as 128 - r
+    and a distance below 65,536: checked here, in the one read-back that
+    also brings the event count.
     """
     _check(variant, w0, w1, init, stage_rows)
     if lzgen._plain_here(init):
         return microbench_plain(variant, w0, w1, init, stage_rows)
-    a, b = w0.long(), w1.long()
-    dist = (a >> 16) * 128 - ((b >> 16) * 128 + ((b >> 8) & 127))
-    if not bool((((b & 255) == 128 - ((b >> 8) & 127))
-                 & (dist >= 0) & (dist < 1 << 16)).all()):
-        raise ValueError("pieces outside the v12 packing the card stages")
+    plan = _plan(variant, w0, w1, init.numel(), stage_rows)
     out = init.clone()
-    _launch(variant, w0, w1, out, stage_rows)
+    _launch(variant, w0, w1, out, stage_rows, plan)
     return out
 
 
@@ -188,15 +286,19 @@ microbench.launches = 0
 
 def run_variant(variant: str, w0, w1, init,
                 stage_rows: int = STAGE_ROWS) -> float:
-    """ms per call of ``variant`` on the card: one checked call, then CUDA
-    events around REPS calls on one buffer."""
-    out = microbench(variant, w0, w1, init, stage_rows)
+    """ms per call of ``variant`` on the card: the wrapper's check (and
+    event count) and one call, then CUDA events around REPS calls on one
+    buffer."""
+    _check(variant, w0, w1, init, stage_rows)
+    plan = _plan(variant, w0, w1, init.numel(), stage_rows)
+    out = init.clone()
+    _launch(variant, w0, w1, out, stage_rows, plan)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     for _ in range(REPS):
-        _launch(variant, w0, w1, out, stage_rows)
+        _launch(variant, w0, w1, out, stage_rows, plan)
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / REPS
@@ -210,8 +312,9 @@ def main() -> int:
     for variant, sr in RUNS:
         ms = run_variant(variant, w0, w1, init, sr)
         ns = ms * 1e6 / max(_walked(w0, sr), 1)
-        print(f"{variant:12s} sr={sr:3d}: {ms:9.3f} ms {ns:8.2f} ns/piece",
-              flush=True)
+        design = "chase" if variant in CHASE else "loop"
+        print(f"{variant:12s} sr={sr:3d} {design:5s}: {ms:9.3f} ms "
+              f"{ns:8.2f} ns/piece", flush=True)
     return 0
 
 

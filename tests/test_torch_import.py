@@ -246,7 +246,8 @@ def _c_params(entry: str) -> list[str]:
                                    "dbg_groups_v11_chase", "dbg_compact_v14",
                                    "dbg_walk_v14_runs", "dbg_walk_v14_chase",
                                    "dbg_groups_v10_lits",
-                                   "dbg_groups_v9_chase", "dbg_microbench_pb"])
+                                   "dbg_groups_v9_chase", "dbg_microbench_pb",
+                                   "dbg_microbench_chase"])
 def test_ctypes_declarations_match_c_entries(entry):
     """ctypes cannot check a call against the C prototype: a missing or
     mistyped argument shifts every later one (and the stream).  Hold the

@@ -147,20 +147,176 @@ def test_nodma_has_no_plain_version():
 def test_card_branch_counts_its_launch(monkeypatch, variant):
     """The card's branch, taken here on CPU tensors with the launch
     recorded instead of made: the packing is checked, one launch per call
-    with a whole stage, none without."""
+    with a whole stage (for full, one of the event chase with at least one
+    written word), none without."""
     from debigulator_tpu_torch.ops import _kernels
 
     made = []
     monkeypatch.setattr(lg, "_plain_here", lambda t: False)
-    monkeypatch.setattr(_kernels, "launch", lambda entry, *a: made.append(a))
+    monkeypatch.setattr(_kernels, "launch",
+                        lambda entry, *a: made.append((entry, a)))
     w0, w1, init = (torch.from_numpy(a) for a in _pieces(n=4096))
     before = mb.microbench.launches
     mb.microbench(variant, w0, w1, init, 16)
     mb.microbench(variant, w0[:8], w1[:8], init, 16)  # no whole stage
     assert mb.microbench.launches == before + 1 and len(made) == 1
-    code, unroll = mb.VARIANTS[variant]
-    assert made[0][4:] == (2, 16, code, unroll)
+    entry, args = made[0]
+    if variant == "full":
+        n_events = int(mb.piece_events(w0, init.numel()).sum())
+        assert entry == "dbg_microbench_chase"
+        assert args[1] == init.numel() and args[5:7] == (4096, n_events)
+        assert int(args[4][-1]) == n_events
+    else:
+        code, unroll = mb.VARIANTS[variant]
+        assert entry == "dbg_microbench_pb"
+        assert args[4:] == (2, 16, code, unroll)
     bad = w1.clone()
     bad.view(-1)[5] ^= 1  # low byte no longer 128 - r
     with pytest.raises(ValueError, match="packing"):
         mb.microbench(variant, w0, bad, init, 16)
+
+
+# ---------------------------------------------------------------------------
+# The event chase of full and unrollN on a clashing list
+# ---------------------------------------------------------------------------
+
+
+def _event_model(out, n_out, w0, w1, ends, n_pieces, n_events, cnt, start,
+                 seg, state, seed=0):
+    """A model of the C entry dbg_microbench_chase, pass for pass, on CPU
+    tensors: the events of the pieces (csrc's for_events), histogram,
+    scan, a scatter in a shuffled order (atomics land in no order), the
+    per-word sort, the pointer search, the chase by pointer jumping with
+    owner-only stores, the store.  Checks the scratch it is given."""
+    assert cnt.dtype == start.dtype == seg.dtype == torch.int32
+    assert state.dtype == torch.int64
+    assert (cnt.numel(), start.numel()) == (n_out, n_out + 1)
+    assert seg.numel() == state.numel() == n_events
+    a = w0.reshape(-1)[:n_pieces].numpy().astype(np.int64)
+    b = w1.reshape(-1)[:n_pieces].numpy().astype(np.int64)
+    end = ends.numpy().astype(np.int64)
+    assert end.shape == (n_pieces,) and end[-1] == n_events
+    excl = np.concatenate([[0], end[:-1]])
+    base = (a >> 16) * 128
+    p0 = np.maximum(base + ((a >> 8) & 127), 0)
+    shift = (b >> 16) * 128 + ((b >> 8) & 127) - base
+    t = np.repeat(np.arange(n_pieces), end - excl)
+    e = np.arange(n_events)
+    p = p0[t] + e - excl[t]
+    s = p + shift[t]
+    glo = excl[t & ~(mb.GROUP - 1)]
+    assert ((p >= 0) & (p < n_out)).all()
+    counts = np.bincount(p, minlength=n_out)
+    first = np.concatenate([[0], np.cumsum(counts)])
+    order = np.random.default_rng(seed).permutation(n_events)
+    fill = first[:-1].copy()
+    segs = np.empty(n_events, np.int64)
+    for x in order:  # the scatter
+        segs[fill[p[x]]] = x
+        fill[p[x]] += 1
+    for w in np.flatnonzero(counts > 1):  # the sort
+        segs[first[w]:first[w + 1]].sort()
+    flat = out.view(-1).numpy()
+    inside = (s >= 0) & (s < n_out)
+    ptr = np.full(n_events, -1)
+    val = np.zeros(n_events, np.int64)
+    for x in np.flatnonzero(inside):  # the pointer search
+        lo, hi = first[s[x]], first[s[x] + 1]
+        k = lo + np.searchsorted(segs[lo:hi], glo[x])
+        if k > lo:
+            ptr[x] = segs[k - 1]
+        else:
+            val[x] = flat[s[x]]
+    assert (ptr < glo).all()  # every pointer names an earlier group
+    while (ptr >= 0).any():  # the chase
+        live = ptr >= 0
+        tgt = ptr[live]
+        done = ptr[tgt] < 0
+        val[np.flatnonzero(live)[done]] = val[tgt[done]]
+        nxt = np.where(done, -1, ptr[tgt])
+        ptr[live] = nxt
+    written = np.flatnonzero(counts)
+    flat[written] = val[segs[first[written + 1] - 1]]  # the store
+    cnt.copy_(torch.zeros(n_out, dtype=torch.int32))
+    start.copy_(torch.from_numpy(first.astype(np.int32)))
+    seg.copy_(torch.from_numpy(segs.astype(np.int32)))
+
+
+def test_clash_list_is_what_it_claims():
+    """clash_pieces: two pieces of one group write one word, pieces read
+    words their own group writes, every word of rows 8-15 is written 20
+    times or more and no other word, and the sources before the buffer
+    meet zeros only."""
+    w0, w1, init = mb.clash_pieces()
+    a = w0.reshape(-1).astype(np.int64)
+    b = w1.reshape(-1).astype(np.int64)
+    base, rp, hi = (a >> 16) * 128, (a >> 8) & 127, a & 255
+    q = (b >> 16) * 128 + ((b >> 8) & 127)
+    t = np.repeat(np.arange(a.size), hi - rp)
+    i = np.arange(t.size) - np.repeat(np.cumsum(hi - rp) - (hi - rp), hi - rp)
+    p, s, g = base[t] + rp[t] + i, q[t] + rp[t] + i, t // mb.GROUP
+    counts = np.bincount(p, minlength=init.size)
+    assert counts[:8 * 128].sum() == counts[16 * 128:].sum() == 0
+    assert counts[8 * 128:16 * 128].min() >= 20
+    pairs = set(zip(g.tolist(), p.tolist()))
+    assert len(pairs) < p.size  # a group writes a word twice
+    assert len(pairs & set(zip(g.tolist(), s.tolist()))) > 50
+    assert (s < 0).sum() > 0 and not init[:2].any() and not init[-2:].any()
+
+
+@pytest.mark.parametrize("variant", ["full", "unroll2", "unroll4", "unroll8"])
+def test_clash_list_matches_the_reference_kernel(ref_tool, monkeypatch,
+                                                 variant):
+    w0, w1, init = mb.clash_pieces()
+    want = _ref_run(ref_tool, monkeypatch, variant, w0, w1, init, 16)
+    got = mb.microbench(variant, torch.from_numpy(w0), torch.from_numpy(w1),
+                        torch.from_numpy(init))
+    assert np.array_equal(got.numpy(), want)
+    assert (got.numpy() != init).sum() > 900
+
+
+@pytest.mark.parametrize("case", ["clash", "pieces"])
+def test_event_chase_card_branch(ref_tool, monkeypatch, case):
+    """full's card branch with the C entry replaced by _event_model: one
+    read-back (the packing and the event count), then one entry, the event
+    chase, with its scratch sized from that count and nothing read back
+    after it; one count per call; the reference kernel's buffer."""
+    from debigulator_tpu_torch.ops import _kernels
+
+    w0, w1, init = mb.clash_pieces() if case == "clash" else _pieces()
+    want = _ref_run(ref_tool, monkeypatch, "full", w0, w1, init, 16)
+    made, modelling = [], []
+
+    def refuse_after_launch(real):
+        def guarded(*a, **k):
+            if made and not modelling:
+                raise AssertionError("read back to the host after the launch")
+            return real(*a, **k)
+
+        return guarded
+
+    def launch(entry, *args):
+        made.append((entry, args))
+        modelling.append(True)
+        _event_model(*args)
+        modelling.clear()
+
+    monkeypatch.setattr(lg, "_plain_here", lambda t: False)
+    monkeypatch.setattr(_kernels, "launch", launch)
+    for name in ("item", "tolist", "__bool__", "__int__", "cpu", "numpy"):
+        monkeypatch.setattr(torch.Tensor, name,
+                            refuse_after_launch(getattr(torch.Tensor, name)))
+    tw0, tw1, tinit = (torch.from_numpy(x) for x in (w0, w1, init))
+    before = mb.microbench.launches
+    got = mb.microbench("full", tw0, tw1, tinit)
+    monkeypatch.undo()
+    assert mb.microbench.launches == before + 1
+    assert [e for e, _ in made] == ["dbg_microbench_chase"]
+    args = made[0][1]
+    assert len(args) == len(_kernels._ENTRIES["dbg_microbench_chase"][1])
+    n_events = int(mb.piece_events(tw0, tinit.numel()).sum())
+    assert args[6] == n_events > 20 * 1024
+    scratch = sum(x.numel() * x.element_size() for x in (args[4], *args[7:]))
+    assert scratch == mb.chase_scratch_bytes(tinit.numel(), tw0.numel(),
+                                             n_events)
+    assert np.array_equal(got.numpy(), want)
