@@ -1782,7 +1782,8 @@ def fallback_phases(dev, base, streams):
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             **({"via": GROUP_CHASE_VIA} if name == "lz77_match" else {}),
             "launches": launches[name], "max_abs_err": 0, "ms": rec["ms"],
-            **{k: rec[k] for k in ("replay_ms", "scratch_bytes") if k in rec},
+            **{k: rec[k] for k in ("replay_ms", "scratch_bytes", "events")
+               if k in rec},
             "plain_ms": rec["plain_ms"], "bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": None})
@@ -2160,7 +2161,8 @@ def archive_phases(dev, base, streams):
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             **({"via": via_chase[name]} if name in via_chase else {}),
             "launches": launches[name], "max_abs_err": 0, "ms": rec["ms"],
-            **{k: rec[k] for k in ("replay_ms", "scratch_bytes") if k in rec},
+            **{k: rec[k] for k in ("replay_ms", "scratch_bytes", "events")
+               if k in rec},
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": rec.get("library_ms")})
@@ -2490,6 +2492,21 @@ def group_shape_record(dev, version: str, shape: str, fn, plain) -> dict:
                                                  args[2].numel())}
 
 
+def event_stats(mb, w0, n_out: int) -> dict:
+    """What the piece list asks of the event chase: its events (written
+    words), the words written and their writers, mean and most."""
+    from debigulator_tpu_torch.ops.phase_b import _expand
+
+    a = w0.reshape(-1)[:mb._walked(w0, mb.STAGE_ROWS)].long()
+    first = ((a >> 16) * 128 + ((a >> 8) & 127)).clamp(min=0)
+    rec, off = _expand(mb.piece_events(w0, n_out))
+    writers = torch.bincount(first[rec] + off, minlength=n_out)
+    written = int((writers > 0).sum())
+    return {"events": int(writers.sum()), "words_written": written,
+            "writers_mean": int(writers.sum()) / max(written, 1),
+            "writers_max": int(writers.max())}
+
+
 def archive_kernel_phases(dev, base, streams):
     """The fifth slice: the v1/v2 match-list resolvers, the v9/v10 group
     resolvers (also on the walk's shapes of `base` and on group_case's
@@ -2715,17 +2732,19 @@ def archive_kernel_phases(dev, base, streams):
     # --- row 11: the piece loop, every variant against the plain one -----
     # Checked on a buffer of random bytes, so that a wrong source, order or
     # mask shows (on zeros every copy leaves zeros); the tool's zero buffer
-    # is for timing only.
+    # is for timing only.  full and unrollN run the event chase, the
+    # probes the staged loop; the chase also on the hand-made clashing
+    # list and at the tool's 2^21 pieces.
     rand = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (mb.ROWS, 128)).astype(np.int32)).to(dev)
     idle = ("noop", "noop8", "scalar_smem")  # they store nothing
 
-    def mb_check(v, w0, w1):
-        want = mb.microbench_plain(v, w0, w1, rand)
-        if v not in idle and bool(torch.equal(want, rand)):
+    def mb_check(v, w0, w1, buf=rand):
+        want = mb.microbench_plain(v, w0, w1, buf)
+        if v not in idle and bool(torch.equal(want, buf)):
             raise AssertionError(f"microbench {v}: the plain version "
                                  "leaves the check's buffer as it was")
-        return same(f"microbench {v}", (mb.microbench(v, w0, w1, rand),),
+        return same(f"microbench {v}", (mb.microbench(v, w0, w1, buf),),
                     (want,))
 
     n_red = 1 << 16
@@ -2733,17 +2752,37 @@ def archive_kernel_phases(dev, base, streams):
     errs = {v: mb_check(v, w0, w1) for v in mb.VARIANTS if v != "nodma"}
     vs["microbench_pb"].append({"shape": "reduced", "pieces": n_red,
                                 "max_abs_err": errs})
+    w0, w1, init = (torch.from_numpy(x).to(dev) for x in mb.clash_pieces())
+    vs["microbench_pb"].append({
+        "shape": "clash", "pieces": w0.numel(),
+        **event_stats(mb, w0, init.numel()),
+        "max_abs_err": {v: mb_check(v, w0, w1, init) for v in mb.CHASE}})
     w0, w1 = (torch.from_numpy(w).to(dev) for w in mb.make_pieces())
     rec = {"shape": "path", "pieces": mb.N_PIECES,
-           "max_abs_err": mb_check("full", w0, w1)}
+           "max_abs_err": {v: mb_check(v, w0, w1) for v in mb.CHASE}}
     init = torch.zeros((mb.ROWS, 128), dtype=torch.int32, device=dev)
     rec["ms"] = mb.run_variant("full", w0, w1, init)
+    plan = mb._plan("full", w0, w1, init.numel(), mb.STAGE_ROWS)
+    out = init.clone()
+
+    def chase():
+        mb._launch("full", w0, w1, out, mb.STAGE_ROWS, plan)
+
+    rec["replay_ms"] = replay_ms(chase)
+    rec["parts"] = device_parts(chase)
+    rec.update(event_stats(mb, w0, init.numel()))
+    if rec["events"] != plan[1]:
+        raise AssertionError("microbench: the wrapper's event count "
+                             f"{plan[1]} is not the list's {rec['events']}")
+    rec["scratch_bytes"] = mb.chase_scratch_bytes(init.numel(),
+                                                  plan[0].numel(), plan[1])
     rec["plain_ms"] = time_ms(lambda: mb.microbench_plain("full", w0, w1,
                                                           init), 1)
     # Two words a piece read once, the buffer read and written once.
     rec["bytes"] = 4 * (2 * mb.N_PIECES + 2 * init.numel())
     timed["microbench_pb"] = rec
     vs["microbench_pb"].append(rec)
+    del plan, out
     del w0, w1, rand
     for name, shp in vs.items():
         emit({"phase": f"{name}_vs_plain", "max_abs_err": 0, "shapes": shp})
@@ -2819,7 +2858,8 @@ def archive_kernel_phases(dev, base, streams):
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             **({"via": GROUP_CHASE_VIA} if name != "microbench_pb" else {}),
             "launches": launches[name], "max_abs_err": 0, "ms": rec["ms"],
-            **{k: rec[k] for k in ("replay_ms", "scratch_bytes") if k in rec},
+            **{k: rec[k] for k in ("replay_ms", "scratch_bytes", "events")
+               if k in rec},
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bytes"] / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes", "library_ms": None})

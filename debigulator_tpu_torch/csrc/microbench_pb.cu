@@ -19,16 +19,21 @@
 //    writes p = dst_row * 128 + L with the value its source word s = q + L
 //    held before t's group, which is the last event on s from an earlier
 //    group, else the buffer's word.  The tool's list rewrites each word
-//    about 54 times, and 98.9% of its events read a word an earlier group
+//    about 54 times, and nearly every event reads a word an earlier group
 //    wrote, so every event gets a 64-bit state of its own:
 //      - the wrapper scans the pieces' event counts (a tensor op), reads
 //        the total back once and sizes the scratch from it; events are
 //        numbered in slot order, so an event's number orders it as its
 //        slot does (a piece writes a word once);
-//      - histogram, scan (one block) and scatter build each word's
-//        writers as a segment of `seg`; atomic scatters land in no order,
-//        so `sort_kernel` sorts each segment by event number (a warp a
-//        word: a bitonic network in registers up to 32 entries, in shared
+//      - `piece_rows_kernel` orders the pieces by the row of their first
+//        word (a counting sort; the scan is `scan_kernel`'s).  The passes
+//        over the events take pieces in that order, so the warps that run
+//        together touch neighbouring words, and the segments they search
+//        and fill stay in the L2;
+//      - histogram, scan and scatter build each word's writers as a
+//        segment of `seg`; atomic scatters land in no order, so
+//        `sort_kernel` sorts each segment by event number (a warp a word:
+//        a bitonic network in registers up to 128 entries, in shared
 //        memory up to kSegSmem, in device memory beyond);
 //      - `pointer_kernel`: each event binary-searches its source's segment
 //        for the last writer below its group's first event: a pointer to
@@ -40,7 +45,7 @@
 //        earlier group, so every chain ends whatever the order of blocks;
 //      - `store_kernel`: each word takes its last writer's value.
 //    The histogram, scatter and pointer passes spread 32 pieces' events
-//    over a warp's lanes (`for_events`), so neighbouring lanes handle
+//    over a warp's lanes (`for_events`), neighbouring lanes on
 //    neighbouring words.
 //
 //  * the staged loop (`dbg_microbench_pb`; the probes).  One CTA runs the
@@ -60,12 +65,15 @@
 //      nodma       the group walk, but the stage is never filled
 //                  (undefined output).
 //
-// What bounds it on the H100.  The chase: bytes and latency across all
-// 132 SMs; per event an atomic in each of the histogram and the scatter, a
-// search of about log2(writers) loads, a 64-bit state written and chased
-// (a hop is one L2 load; publication cuts a chain of depth D to about
-// log2 D rounds), and 12 bytes of scratch.  The loop: latency; one warp
-// walks every group, and a group's loads wait for the stores before them.
+// What bounds it on the H100.  The chase: L2 traffic across all 132 SMs;
+// per event an atomic in each of the histogram and the scatter, a search
+// of about log2(writers) loads of a sector each (the largest pass), a
+// 64-bit state written and chased (a hop is one L2 load; publication cuts
+// a chain of depth D to about log2 D rounds), and 12 bytes of scratch.
+// Taken in piece order, the warps running together covered the whole
+// buffer and the searches missed the L2: twice the time.  The loop:
+// latency; one warp walks every group, and a group's loads wait for the
+// stores before them.
 
 #include <climits>
 #include <cstdint>
@@ -95,107 +103,229 @@ enum Variant {
 
 constexpr unsigned kFullMask = chase::kFull;
 constexpr int kWarps = kThreads / 32;
-constexpr int kScanThreads = 1024;
 constexpr int kSegSmem = 1024;  // a segment a warp sorts in shared memory
+constexpr int kScanThreads = 1024;
+constexpr int kScanBlocks = 32;
 
-// The events of the pieces, 32 pieces a warp and their events 32 at a
-// time: f(live, e, p, s, glo) for event e (a number in slot order) of
-// word p, reading word s, glo the first event of its piece's group.
-// ends: the inclusive prefix sums of the pieces' event counts (their
-// words inside the buffer, from max(dst, 0)).  Every lane calls f in every
-// round; live is false where the lane has no event.
+// The pieces: packed words, the inclusive prefix sums of their event
+// counts (their words inside the buffer, from max(dst, 0)), and `order`,
+// the pieces by the row of their first word, which the passes over the
+// events follow.
+struct Pieces {
+  const int* __restrict__ w0;
+  const int* __restrict__ w1;
+  const int* __restrict__ ends;
+  int* __restrict__ order;
+  int n;
+};
+
+__device__ __forceinline__ int first_word(int a) {
+  const int d0 = (a >> 16) * 128 + ((a >> 8) & 127);
+  return d0 > 0 ? d0 : 0;
+}
+
+// old + (lanes before this one in the warp that add to the same word), the
+// warp's lanes on one word adding with one atomic.  Every lane calls it;
+// key < 0: none.
+__device__ __forceinline__ int add_aggregated(int* base, int key, int lane) {
+  const unsigned peers = __match_any_sync(kFullMask, key);
+  const int leader = __ffs(peers) - 1;
+  int old = 0;
+  if (key >= 0 && lane == leader) old = atomicAdd(base + key, __popc(peers));
+  return __shfl_sync(kFullMask, old, leader) +
+         __popc(peers & ((1u << lane) - 1));
+}
+
+// The pieces' order, a counting sort by row: rows counted in cnt, their
+// starts scanned into start (scan_kernel), then each piece placed.
+template <bool kPlace>
+__global__ void __launch_bounds__(kThreads)
+piece_rows_kernel(Pieces pc, int n_rows, int* cnt, const int* start) {
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t t0 = static_cast<int64_t>(blockIdx.x) * kThreads;
+       t0 < pc.n; t0 += stride) {
+    const int64_t t = t0 + threadIdx.x;
+    int row = -1;
+    if (t < pc.n) {
+      row = first_word(__ldg(pc.w0 + t)) >> 7;
+      row = row < n_rows ? row : n_rows - 1;
+    }
+    const int at = add_aggregated(cnt, row, lane);
+    if (kPlace && row >= 0) pc.order[__ldg(start + row) + at] = t;
+  }
+}
+
+struct Event {
+  bool live;  // false where the lane has no event
+  int e;      // the event's number, in slot order
+  int p;      // the word it writes
+  int glo;    // the first event of its piece's group
+  int64_t s;  // the word it reads
+};
+
+// The events of the pieces in `order`, 32 pieces a warp and their events
+// 32 at a time, neighbouring lanes on neighbouring words of a piece: f(ev)
+// for the lane's event.  Every lane calls f in every round.
 template <class F>
-__device__ __forceinline__ void for_events(const int* __restrict__ w0,
-                                           const int* __restrict__ w1,
-                                           const int* __restrict__ ends,
-                                           int n_pieces, const F& f) {
+__device__ __forceinline__ void for_events(const Pieces& pc, const F& f) {
   const int lane = threadIdx.x & 31;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
   for (int64_t g = static_cast<int64_t>(blockIdx.x) * kWarps +
                    (threadIdx.x >> 5);
-       g * 32 < n_pieces; g += warps) {
-    const int64_t t = g * 32 + lane;
-    const int end = __ldg(ends + (t < n_pieces ? t : n_pieces - 1));
-    int64_t p0 = 0, shift = 0;  // first word written; source - destination
-    if (t < n_pieces) {
-      const int a = __ldg(w0 + t), b = __ldg(w1 + t);
-      const int64_t base = static_cast<int64_t>(a >> 16) * 128;
-      const int64_t d0 = base + ((a >> 8) & 127);
-      p0 = d0 > 0 ? d0 : 0;
-      shift = static_cast<int64_t>(b >> 16) * 128 + ((b >> 8) & 127) - base;
+       g * 32 < pc.n; g += warps) {
+    const int64_t k = g * 32 + lane;
+    int len = 0, first = 0, glo = 0, p0 = 0, shift = 0;
+    if (k < pc.n) {
+      const int t = __ldg(pc.order + k), lo = t & ~(kGroup - 1);
+      const int a = __ldg(pc.w0 + t), b = __ldg(pc.w1 + t);
+      first = t > 0 ? __ldg(pc.ends + t - 1) : 0;
+      len = __ldg(pc.ends + t) - first;
+      glo = lo > 0 ? __ldg(pc.ends + lo - 1) : 0;
+      p0 = first_word(a);
+      shift = (b >> 16) * 128 + ((b >> 8) & 127) - (a >> 16) * 128;
     }
-    int excl = __shfl_up_sync(kFullMask, end, 1);
-    if (lane == 0) excl = g == 0 ? 0 : __ldg(ends + g * 32 - 1);
-    const int first = __shfl_sync(kFullMask, excl, 0);
-    const int last = __shfl_sync(kFullMask, end, 31);
-    for (int b0 = first; b0 < last; b0 += 32) {
-      const int e = b0 + lane;
-      int r = 0;  // the last piece whose events start at or before e
+    int incl = len;  // the warp's events, numbered locally
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFullMask, incl, off);
+      if (lane >= off) incl += v;
+    }
+    const int loc = incl - len;
+    const int total = __shfl_sync(kFullMask, incl, 31);
+    for (int q = lane; q - lane < total; q += 32) {
+      int r = 0;  // the last piece whose events start at or before q
       for (int step = 16; step > 0; step >>= 1) {
-        if (__shfl_sync(kFullMask, excl, r + step) <= e) r += step;
+        if (__shfl_sync(kFullMask, loc, r + step) <= q) r += step;
       }
-      const int glo = __shfl_sync(kFullMask, excl, r & ~(kGroup - 1));
-      const int64_t p = __shfl_sync(kFullMask, p0, r) +
-                        (e - __shfl_sync(kFullMask, excl, r));
-      const int64_t s = p + __shfl_sync(kFullMask, shift, r);
-      f(e < last, e, p, s, glo);
+      const int i = q - __shfl_sync(kFullMask, loc, r);
+      Event ev;
+      ev.live = q < total;
+      ev.e = __shfl_sync(kFullMask, first, r) + i;
+      ev.glo = __shfl_sync(kFullMask, glo, r);
+      ev.p = __shfl_sync(kFullMask, p0, r) + i;
+      ev.s = static_cast<int64_t>(ev.p) + __shfl_sync(kFullMask, shift, r);
+      f(ev);
     }
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-histogram_kernel(const int* __restrict__ w0, const int* __restrict__ w1,
-                 const int* __restrict__ ends, int n_pieces, int* cnt) {
-  for_events(w0, w1, ends, n_pieces,
-             [&](bool live, int, int64_t p, int64_t, int) {
-               if (live) atomicAdd(cnt + p, 1);
-             });
+histogram_kernel(Pieces pc, int* cnt) {
+  for_events(pc, [&](const Event& ev) {
+    if (ev.live) atomicAdd(cnt + ev.p, 1);
+  });
 }
 
-// start[w] = the writers of words below w; start[n] = every writer.  One
-// block, each thread a run of consecutive words.
+// The sum of `v` over the block, to every thread; `red` holds a word a
+// warp.
+__device__ __forceinline__ int block_sum(int v, int* red) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = red[threadIdx.x & 31];
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
+  return v;
+}
+
+// start[w] = the writers of words below w; start[n] = every writer.  Block
+// b takes a run of words: it sums the words before its run (every block
+// reads them again; kScanBlocks passes over a 2 MB array stay in the L2),
+// then scans its run 4 words a thread at a time, threads on neighbouring
+// words.
 __global__ void __launch_bounds__(kScanThreads)
 scan_kernel(const int* __restrict__ cnt, int64_t n, int* __restrict__ start) {
-  __shared__ int warp_sum[kScanThreads / 32];
+  __shared__ int red[kScanThreads / 32];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int64_t chunk = (n + kScanThreads - 1) / kScanThreads;
-  const int64_t lo = threadIdx.x * chunk < n ? threadIdx.x * chunk : n;
+  const int64_t chunk = ((n + gridDim.x - 1) / gridDim.x + 3) & ~int64_t{3};
+  const int64_t lo = blockIdx.x * chunk < n ? blockIdx.x * chunk : n;
   const int64_t hi = lo + chunk < n ? lo + chunk : n;
-  int sum = 0;
-  for (int64_t i = lo; i < hi; ++i) sum += cnt[i];
-  int incl = sum;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(kFullMask, incl, off);
-    if (lane >= off) incl += v;
-  }
-  if (lane == 31) warp_sum[wid] = incl;
-  __syncthreads();
-  if (wid == 0) {
-    int w = warp_sum[lane];
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(kFullMask, w, off);
-      if (lane >= off) w += v;
+  int pre = 0;
+#pragma unroll 8
+  for (int64_t i = threadIdx.x; i < lo; i += kScanThreads) pre += __ldg(cnt + i);
+  int carry = block_sum(pre, red);
+  for (int64_t t0 = lo; t0 < hi; t0 += 4 * kScanThreads) {
+    const int64_t i = t0 + 4 * threadIdx.x;
+    int v[4], sum = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = i + k < hi ? __ldg(cnt + i + k) : 0;
+      sum += v[k];
     }
-    warp_sum[lane] = w;
+    int incl = sum;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int x = __shfl_up_sync(kFullMask, incl, off);
+      if (lane >= off) incl += x;
+    }
+    __syncthreads();
+    if (lane == 31) red[wid] = incl;
+    __syncthreads();
+    const int w = red[lane];
+    int wincl = w;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int x = __shfl_up_sync(kFullMask, wincl, off);
+      if (lane >= off) wincl += x;
+    }
+    int run = carry + __shfl_sync(kFullMask, wincl - w, wid) + incl - sum;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (i + k < hi) start[i + k] = run;
+      run += v[k];
+    }
+    carry += __shfl_sync(kFullMask, wincl, 31);
   }
-  __syncthreads();
-  int run = incl - sum + (wid > 0 ? warp_sum[wid - 1] : 0);
-  for (int64_t i = lo; i < hi; ++i) {
-    start[i] = run;
-    run += cnt[i];
-  }
-  if (threadIdx.x == kScanThreads - 1) start[n] = run;
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) start[n] = carry;
 }
 
 // Each event joins its word's segment; cnt counts down to 0.
 __global__ void __launch_bounds__(kThreads)
-scatter_kernel(const int* __restrict__ w0, const int* __restrict__ w1,
-               const int* __restrict__ ends, int n_pieces, int* cnt,
-               const int* __restrict__ start, int* __restrict__ seg) {
-  for_events(w0, w1, ends, n_pieces,
-             [&](bool live, int e, int64_t p, int64_t, int) {
-               if (live) seg[start[p] + atomicSub(cnt + p, 1) - 1] = e;
-             });
+scatter_kernel(Pieces pc, int* cnt, const int* __restrict__ start,
+               int* __restrict__ seg) {
+  for_events(pc, [&](const Event& ev) {
+    if (ev.live) seg[__ldg(start + ev.p) + atomicSub(cnt + ev.p, 1) - 1] = ev.e;
+  });
+}
+
+// Sort x ascending across the warp, element i = lane + 32 * h in x[h]:
+// the bitonic network, by shuffles within 32 and in registers above.
+template <int R>
+__device__ __forceinline__ void sort_registers(int (&x)[R], int lane) {
+#pragma unroll
+  for (int k = 2; k <= 32 * R; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        const int i = lane + 32 * h;
+        const bool up = (i & k) == 0;
+        if (j >= 32) {
+          const int hj = j >> 5;
+          if ((h & hj) == 0) {
+            const int a = x[h], b = x[h | hj];
+            x[h] = up ? min(a, b) : max(a, b);
+            x[h | hj] = up ? max(a, b) : min(a, b);
+          }
+        } else {
+          const int y = __shfl_xor_sync(kFullMask, x[h], j);
+          x[h] = ((i & j) == 0) == up ? min(x[h], y) : max(x[h], y);
+        }
+      }
+    }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void sort_short(int* v, int n, int lane) {
+  int x[R];
+#pragma unroll
+  for (int h = 0; h < R; ++h) {
+    x[h] = lane + 32 * h < n ? v[lane + 32 * h] : INT_MAX;
+  }
+  sort_registers<R>(x, lane);
+#pragma unroll
+  for (int h = 0; h < R; ++h) {
+    if (lane + 32 * h < n) v[lane + 32 * h] = x[h];
+  }
 }
 
 // Sort v[0, n) ascending by one warp: a bitonic network in the form
@@ -237,14 +367,11 @@ sort_kernel(const int* __restrict__ start, int64_t n_out, int* seg) {
     int* v = seg + lo;
     if (n < 2) continue;
     if (n <= 32) {
-      int x = lane < n ? v[lane] : INT_MAX;
-      for (int k = 2; k <= 32; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-          const int y = __shfl_xor_sync(kFullMask, x, j);
-          x = ((lane & j) == 0) == ((lane & k) == 0) ? min(x, y) : max(x, y);
-        }
-      }
-      if (lane < n) v[lane] = x;
+      sort_short<1>(v, n, lane);
+    } else if (n <= 64) {
+      sort_short<2>(v, n, lane);
+    } else if (n <= 128) {
+      sort_short<4>(v, n, lane);
     } else if (n <= kSegSmem) {
       for (int i = lane; i < n; i += 32) buf[wid][i] = v[i];
       __syncwarp();
@@ -257,30 +384,29 @@ sort_kernel(const int* __restrict__ start, int64_t n_out, int* seg) {
   }
 }
 
+// Each event's state: a binary search of its source's segment for the
+// first writer at or past glo; the writer before it, if any, is the last
+// one below the event's group.
 __global__ void __launch_bounds__(kThreads)
-pointer_kernel(const int* __restrict__ out, int64_t n_out,
-               const int* __restrict__ w0, const int* __restrict__ w1,
-               const int* __restrict__ ends, int n_pieces,
+pointer_kernel(const int* __restrict__ out, int64_t n_out, Pieces pc,
                const int* __restrict__ start, const int* __restrict__ seg,
                unsigned long long* __restrict__ state) {
-  for_events(w0, w1, ends, n_pieces,
-             [&](bool live, int e, int64_t, int64_t s, int glo) {
-               if (!live) return;
-               if (s < 0 || s >= n_out) {
-                 state[e] = chase::value_entry(0);
-                 return;
-               }
-               const int first = __ldg(start + s);
-               int lo = first, hi = __ldg(start + s + 1);
-               while (lo < hi) {  // the first writer at or past glo
-                 const int mid = (lo + hi) >> 1;
-                 if (__ldg(seg + mid) < glo) lo = mid + 1;
-                 else hi = mid;
-               }
-               state[e] = lo > first
-                              ? chase::pointer_entry(__ldg(seg + lo - 1))
-                              : chase::value_entry(__ldg(out + s));
-             });
+  for_events(pc, [&](const Event& ev) {
+    if (!ev.live) return;
+    if (ev.s < 0 || ev.s >= n_out) {
+      state[ev.e] = chase::value_entry(0);
+      return;
+    }
+    const int first = __ldg(start + ev.s);
+    int lo = first, hi = __ldg(start + ev.s + 1);
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(seg + mid) < ev.glo) lo = mid + 1;
+      else hi = mid;
+    }
+    state[ev.e] = lo > first ? chase::pointer_entry(__ldg(seg + lo - 1))
+                             : chase::value_entry(__ldg(out + ev.s));
+  });
 }
 
 // An event's state: chase's 64-bit entry, a pointer (another event's
@@ -453,31 +579,42 @@ int launch(int* out, int64_t n_out, const int* w0, const int* w1,
 
 }  // namespace
 
-// The group walk of n_pieces pieces into out (n_out words) by the event
-// chase.  ends: the inclusive prefix sums of the pieces' event counts
-// (n_events in all, below 2^30).  Scratch: cnt n_out and start n_out + 1
-// words, seg n_events words, state n_events 64-bit words.
+// The group walk of n_pieces pieces into out (n_out words, below 2^31) by
+// the event chase.  ends: the inclusive prefix sums of the pieces' event
+// counts (n_events in all, below 2^30).  Scratch: order n_pieces words,
+// cnt n_out and start n_out + 1 words, seg n_events words, state n_events
+// 64-bit words.
 extern "C" int dbg_microbench_chase(int* out, int64_t n_out, const int* w0,
                                     const int* w1, const int* ends,
-                                    int n_pieces, int n_events, int* cnt,
-                                    int* start, int* seg,
+                                    int n_pieces, int n_events, int* order,
+                                    int* cnt, int* start, int* seg,
                                     unsigned long long* state,
                                     cudaStream_t stream) {
   if (n_pieces <= 0 || n_events <= 0) {
     return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err = cudaMemsetAsync(cnt, 0, n_out * sizeof(int), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_out >= INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const Pieces pc{w0, w1, ends, order, n_pieces};
+  const int n_rows = static_cast<int>((n_out + 127) / 128);
   const unsigned by_piece = grid_of(n_pieces, 32 * kWarps);
   const unsigned by_word = grid_of(n_out, kWarps);
-  histogram_kernel<<<by_piece, kThreads, 0, stream>>>(w0, w1, ends, n_pieces,
-                                                      cnt);
-  scan_kernel<<<1, kScanThreads, 0, stream>>>(cnt, n_out, start);
-  scatter_kernel<<<by_piece, kThreads, 0, stream>>>(w0, w1, ends, n_pieces,
-                                                    cnt, start, seg);
+  cudaError_t err = cudaMemsetAsync(cnt, 0, n_rows * sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  piece_rows_kernel<false><<<grid_of(n_pieces, kThreads), kThreads, 0,
+                             stream>>>(pc, n_rows, cnt, start);
+  scan_kernel<<<kScanBlocks, kScanThreads, 0, stream>>>(cnt, n_rows, start);
+  err = cudaMemsetAsync(cnt, 0, n_rows * sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  piece_rows_kernel<true><<<grid_of(n_pieces, kThreads), kThreads, 0,
+                            stream>>>(pc, n_rows, cnt, start);
+  err = cudaMemsetAsync(cnt, 0, n_out * sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  histogram_kernel<<<by_piece, kThreads, 0, stream>>>(pc, cnt);
+  scan_kernel<<<kScanBlocks, kScanThreads, 0, stream>>>(cnt, n_out, start);
+  scatter_kernel<<<by_piece, kThreads, 0, stream>>>(pc, cnt, start, seg);
   sort_kernel<<<by_word, kThreads, 0, stream>>>(start, n_out, seg);
-  pointer_kernel<<<by_piece, kThreads, 0, stream>>>(
-      out, n_out, w0, w1, ends, n_pieces, start, seg, state);
+  pointer_kernel<<<by_piece, kThreads, 0, stream>>>(out, n_out, pc, start,
+                                                    seg, state);
   const int64_t per = static_cast<int64_t>(kThreads) * chase::kChase;
   event_chase_kernel<<<static_cast<unsigned>((n_events + per - 1) / per),
                        kThreads, 0, stream>>>(state, n_events);

@@ -83,7 +83,7 @@ _ENTRIES = {
     "dbg_microbench_pb": ("microbench_pb", [_P, _I64, _P, _P, _I32, _I32,
                                             _I32, _I32]),
     "dbg_microbench_chase": ("microbench_pb", [_P, _I64, _P, _P, _P, _I32,
-                                               _I32, _P, _P, _P, _P]),
+                                               _I32, _P, _P, _P, _P, _P]),
 }
 #: C entries that take nothing and return a constant of the kernel's
 #: layout -> library.

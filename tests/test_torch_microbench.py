@@ -181,15 +181,17 @@ def test_card_branch_counts_its_launch(monkeypatch, variant):
 # ---------------------------------------------------------------------------
 
 
-def _event_model(out, n_out, w0, w1, ends, n_pieces, n_events, cnt, start,
-                 seg, state, seed=0):
+def _event_model(out, n_out, w0, w1, ends, n_pieces, n_events, order, cnt,
+                 start, seg, state, seed=0):
     """A model of the C entry dbg_microbench_chase, pass for pass, on CPU
-    tensors: the events of the pieces (csrc's for_events), histogram,
-    scan, a scatter in a shuffled order (atomics land in no order), the
-    per-word sort, the pointer search, the chase by pointer jumping with
-    owner-only stores, the store.  Checks the scratch it is given."""
-    assert cnt.dtype == start.dtype == seg.dtype == torch.int32
+    tensors: the pieces ordered by the row of their first word, the events
+    of the pieces (csrc's for_events), histogram, scan, a scatter in a
+    shuffled order (atomics land in no order), the per-word sort, the
+    pointer search, the chase by pointer jumping with owner-only stores,
+    the store.  Checks the scratch it is given."""
+    assert order.dtype == cnt.dtype == start.dtype == seg.dtype == torch.int32
     assert state.dtype == torch.int64
+    assert order.numel() == n_pieces
     assert (cnt.numel(), start.numel()) == (n_out, n_out + 1)
     assert seg.numel() == state.numel() == n_events
     a = w0.reshape(-1)[:n_pieces].numpy().astype(np.int64)
@@ -200,6 +202,9 @@ def _event_model(out, n_out, w0, w1, ends, n_pieces, n_events, cnt, start,
     base = (a >> 16) * 128
     p0 = np.maximum(base + ((a >> 8) & 127), 0)
     shift = (b >> 16) * 128 + ((b >> 8) & 127) - base
+    rows = -(-n_out // 128)
+    order.copy_(torch.from_numpy(np.argsort(np.minimum(p0 >> 7, rows - 1),
+                                            kind="stable").astype(np.int32)))
     t = np.repeat(np.arange(n_pieces), end - excl)
     e = np.arange(n_events)
     p = p0[t] + e - excl[t]
