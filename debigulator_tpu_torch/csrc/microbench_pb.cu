@@ -25,16 +25,17 @@
 //        the total back once and sizes the scratch from it; events are
 //        numbered in slot order, so an event's number orders it as its
 //        slot does (a piece writes a word once);
-//      - `piece_rows_kernel` orders the pieces by the row of their first
-//        word (a counting sort; the scan is `scan_kernel`'s).  The passes
-//        over the events take pieces in that order, so the warps that run
-//        together touch neighbouring words, and the segments they search
-//        and fill stay in the L2;
-//      - histogram, scan and scatter build each word's writers as a
-//        segment of `seg`; atomic scatters land in no order, so
-//        `sort_kernel` sorts each segment by event number (a warp a word:
-//        a bitonic network in registers up to 128 entries, in shared
+//      - `piece_rows_kernel` counts the pieces and their events by the
+//        row of their first word, then places each piece in its row's
+//        bucket (a counting sort; `scan_kernel` scans the counts), and
+//        `sort_kernel` sorts each bucket by slot (a warp a bucket: a
+//        bitonic network in registers up to 128 entries, in shared
 //        memory up to kSegSmem, in device memory beyond);
+//      - `row_kernel`: a piece writes within one 128-word row, so a row's
+//        bucket holds every writer of its words.  A thread a word walks
+//        the bucket in slot order twice, to count its writers and then to
+//        list them in `seg`: each word's writers as a segment, in slot
+//        order, with no atomics;
 //      - `pointer_kernel`: each event binary-searches its source's segment
 //        for the last writer below its group's first event: a pointer to
 //        that event's state, else a value (out[s], read before any store,
@@ -44,9 +45,10 @@
 //        hops, then its value).  Every pointer names an event of an
 //        earlier group, so every chain ends whatever the order of blocks;
 //      - `store_kernel`: each word takes its last writer's value.
-//    The histogram, scatter and pointer passes spread 32 pieces' events
+//    The pointer pass takes the pieces in bucket order, 32 pieces' events
 //    over a warp's lanes (`for_events`), neighbouring lanes on
-//    neighbouring words.
+//    neighbouring words: the warps that run together read neighbouring
+//    segments, which stay in the L2.
 //
 //  * the staged loop (`dbg_microbench_pb`; the probes).  One CTA runs the
 //    pieces in stages: its threads stage stage_rows * 128 pieces into
@@ -66,12 +68,12 @@
 //                  (undefined output).
 //
 // What bounds it on the H100.  The chase: L2 traffic across all 132 SMs;
-// per event an atomic in each of the histogram and the scatter, a search
-// of about log2(writers) loads of a sector each (the largest pass), a
-// 64-bit state written and chased (a hop is one L2 load; publication cuts
-// a chain of depth D to about log2 D rounds), and 12 bytes of scratch.
-// Taken in piece order, the warps running together covered the whole
-// buffer and the searches missed the L2: twice the time.  The loop:
+// per event a search of about log2(writers) loads of a sector each (the
+// largest pass), a segment entry written, a 64-bit state written and
+// chased (a hop is one L2 load; publication cuts a chain of depth D to
+// about log2 D rounds): 12 bytes of scratch an event.  Taken in slot
+// order, the warps running together covered the whole buffer and the
+// searches missed the L2.  The loop:
 // latency; one warp walks every group, and a group's loads wait for the
 // stores before them.
 
@@ -106,11 +108,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSegSmem = 1024;  // a segment a warp sorts in shared memory
 constexpr int kScanThreads = 1024;
 constexpr int kScanBlocks = 32;
+constexpr int kRow = 128;  // words a row; a piece writes within one row
 
 // The pieces: packed words, the inclusive prefix sums of their event
 // counts (their words inside the buffer, from max(dst, 0)), and `order`,
-// the pieces by the row of their first word, which the passes over the
-// events follow.
+// the pieces by the row of their first word and by slot within a row.
 struct Pieces {
   const int* __restrict__ w0;
   const int* __restrict__ w1;
@@ -120,46 +122,110 @@ struct Pieces {
 };
 
 __device__ __forceinline__ int first_word(int a) {
-  const int d0 = (a >> 16) * 128 + ((a >> 8) & 127);
+  const int d0 = (a >> 16) * kRow + ((a >> 8) & 127);
   return d0 > 0 ? d0 : 0;
 }
 
-// old + (lanes before this one in the warp that add to the same word), the
-// warp's lanes on one word adding with one atomic.  Every lane calls it;
-// key < 0: none.
-__device__ __forceinline__ int add_aggregated(int* base, int key, int lane) {
-  const unsigned peers = __match_any_sync(kFullMask, key);
-  const int leader = __ffs(peers) - 1;
-  int old = 0;
-  if (key >= 0 && lane == leader) old = atomicAdd(base + key, __popc(peers));
-  return __shfl_sync(kFullMask, old, leader) +
-         __popc(peers & ((1u << lane) - 1));
+__device__ __forceinline__ int first_event(const Pieces& pc, int t) {
+  return t > 0 ? __ldg(pc.ends + t - 1) : 0;
 }
 
-// The pieces' order, a counting sort by row: rows counted in cnt, their
-// starts scanned into start (scan_kernel), then each piece placed.
-template <bool kPlace>
+// Per row (the row of each piece's first word, the last row for a piece
+// past the buffer): kCount counts its pieces into rows[0, n_rows) and
+// their events into rows[n_rows + 1, ...), the lanes of a warp on one row
+// with one atomic each; !kCount places each piece in its row's bucket of
+// `order` (starts in bucket, counted again in rows[0, n_rows)).
+template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
-piece_rows_kernel(Pieces pc, int n_rows, int* cnt, const int* start) {
+piece_rows_kernel(Pieces pc, int n_rows, int* rows, const int* bucket) {
   const int lane = threadIdx.x & 31;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   for (int64_t t0 = static_cast<int64_t>(blockIdx.x) * kThreads;
        t0 < pc.n; t0 += stride) {
-    const int64_t t = t0 + threadIdx.x;
-    int row = -1;
+    const int t = static_cast<int>(t0 + threadIdx.x);
+    int row = -1, len = 0;
     if (t < pc.n) {
-      row = first_word(__ldg(pc.w0 + t)) >> 7;
+      row = first_word(__ldg(pc.w0 + t)) / kRow;
       row = row < n_rows ? row : n_rows - 1;
+      len = __ldg(pc.ends + t) - first_event(pc, t);
     }
-    const int at = add_aggregated(cnt, row, lane);
-    if (kPlace && row >= 0) pc.order[__ldg(start + row) + at] = t;
+    const unsigned peers = __match_any_sync(kFullMask, row);
+    const int leader = __ffs(peers) - 1;
+    if (kCount) {
+      const int events = __reduce_add_sync(peers, len);
+      if (row >= 0 && lane == leader) {
+        atomicAdd(rows + row, __popc(peers));
+        atomicAdd(rows + n_rows + 1 + row, events);
+      }
+    } else {
+      int at = 0;
+      if (row >= 0 && lane == leader) at = atomicAdd(rows + row, __popc(peers));
+      at = __shfl_sync(kFullMask, at, leader) +
+           __popc(peers & ((1u << lane) - 1));
+      if (row >= 0) pc.order[__ldg(bucket + row) + at] = t;
+    }
+  }
+}
+
+// Each word's writers in slot order, a block of kRow threads a row, a
+// thread a word: the row's pieces (its bucket, sorted by slot) pass
+// through shared memory kRow at a time, twice: to count each word's
+// writers, whose scan over the row (from the row's first event, base)
+// gives start, then to write them into seg.
+__global__ void __launch_bounds__(kRow)
+row_kernel(Pieces pc, int64_t n_out, int n_rows, const int* __restrict__ bucket,
+           const int* __restrict__ base, int* __restrict__ start,
+           int* __restrict__ seg) {
+  __shared__ int s_lo[kRow], s_hi[kRow], s_ev[kRow];
+  __shared__ int red[kRow / 32];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  for (int r = blockIdx.x; r < n_rows; r += gridDim.x) {
+    const int b0 = __ldg(bucket + r), b1 = __ldg(bucket + r + 1);
+    const int w = threadIdx.x;  // the thread's word in the row
+    int k = 0, at = 0;
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int c = b0; c < b1; c += kRow) {
+        __syncthreads();
+        if (c + w < b1) {
+          const int t = __ldg(pc.order + c + w);
+          const int e0 = first_event(pc, t);
+          const int lo = first_word(__ldg(pc.w0 + t)) - r * kRow;
+          s_lo[w] = lo;
+          s_hi[w] = lo + __ldg(pc.ends + t) - e0;
+          s_ev[w] = e0 - lo;  // + word: the piece's event on that word
+        }
+        __syncthreads();
+        const int n = b1 - c < kRow ? b1 - c : kRow;
+        for (int j = 0; j < n; ++j) {
+          if (s_lo[j] <= w && w < s_hi[j]) {
+            if (pass == 1) seg[at + k] = s_ev[j] + w;
+            ++k;
+          }
+        }
+      }
+      if (pass == 0) {  // at = base + the writers of the words before w
+        int incl = k;
+        for (int off = 1; off < 32; off <<= 1) {
+          const int x = __shfl_up_sync(kFullMask, incl, off);
+          if (lane >= off) incl += x;
+        }
+        __syncthreads();
+        if (lane == 31) red[wid] = incl;
+        __syncthreads();
+        at = __ldg(base + r) + incl - k;
+        for (int i = 0; i < wid; ++i) at += red[i];
+        const int64_t word = static_cast<int64_t>(r) * kRow + w;
+        if (word < n_out) start[word] = at;
+        if (r == n_rows - 1 && w == 0) start[n_out] = __ldg(base + n_rows);
+        k = 0;
+      }
+    }
   }
 }
 
 struct Event {
   bool live;  // false where the lane has no event
   int e;      // the event's number, in slot order
-  int p;      // the word it writes
   int glo;    // the first event of its piece's group
   int64_t s;  // the word it reads
 };
@@ -175,15 +241,15 @@ __device__ __forceinline__ void for_events(const Pieces& pc, const F& f) {
                    (threadIdx.x >> 5);
        g * 32 < pc.n; g += warps) {
     const int64_t k = g * 32 + lane;
-    int len = 0, first = 0, glo = 0, p0 = 0, shift = 0;
+    int len = 0, first = 0, glo = 0, s0 = 0;
     if (k < pc.n) {
       const int t = __ldg(pc.order + k), lo = t & ~(kGroup - 1);
       const int a = __ldg(pc.w0 + t), b = __ldg(pc.w1 + t);
-      first = t > 0 ? __ldg(pc.ends + t - 1) : 0;
+      first = first_event(pc, t);
       len = __ldg(pc.ends + t) - first;
-      glo = lo > 0 ? __ldg(pc.ends + lo - 1) : 0;
-      p0 = first_word(a);
-      shift = (b >> 16) * 128 + ((b >> 8) & 127) - (a >> 16) * 128;
+      glo = first_event(pc, lo);
+      // the source of the first word written
+      s0 = first_word(a) + (b >> 16) * kRow + ((b >> 8) & 127) - (a >> 16) * kRow;
     }
     int incl = len;  // the warp's events, numbered locally
     for (int off = 1; off < 32; off <<= 1) {
@@ -202,18 +268,10 @@ __device__ __forceinline__ void for_events(const Pieces& pc, const F& f) {
       ev.live = q < total;
       ev.e = __shfl_sync(kFullMask, first, r) + i;
       ev.glo = __shfl_sync(kFullMask, glo, r);
-      ev.p = __shfl_sync(kFullMask, p0, r) + i;
-      ev.s = static_cast<int64_t>(ev.p) + __shfl_sync(kFullMask, shift, r);
+      ev.s = static_cast<int64_t>(__shfl_sync(kFullMask, s0, r)) + i;
       f(ev);
     }
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-histogram_kernel(Pieces pc, int* cnt) {
-  for_events(pc, [&](const Event& ev) {
-    if (ev.live) atomicAdd(cnt + ev.p, 1);
-  });
 }
 
 // The sum of `v` over the block, to every thread; `red` holds a word a
@@ -228,11 +286,10 @@ __device__ __forceinline__ int block_sum(int v, int* red) {
   return v;
 }
 
-// start[w] = the writers of words below w; start[n] = every writer.  Block
-// b takes a run of words: it sums the words before its run (every block
-// reads them again; kScanBlocks passes over a 2 MB array stay in the L2),
-// then scans its run 4 words a thread at a time, threads on neighbouring
-// words.
+// start[i] = the sum of cnt[0, i), for i <= n.  Block b takes a run of
+// the n counts: it sums the counts before its run (every block reads them
+// again, in the L2), then scans its run 4 counts a thread at a time,
+// threads on neighbouring counts.
 __global__ void __launch_bounds__(kScanThreads)
 scan_kernel(const int* __restrict__ cnt, int64_t n, int* __restrict__ start) {
   __shared__ int red[kScanThreads / 32];
@@ -275,15 +332,6 @@ scan_kernel(const int* __restrict__ cnt, int64_t n, int* __restrict__ start) {
     carry += __shfl_sync(kFullMask, wincl, 31);
   }
   if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) start[n] = carry;
-}
-
-// Each event joins its word's segment; cnt counts down to 0.
-__global__ void __launch_bounds__(kThreads)
-scatter_kernel(Pieces pc, int* cnt, const int* __restrict__ start,
-               int* __restrict__ seg) {
-  for_events(pc, [&](const Event& ev) {
-    if (ev.live) seg[__ldg(start + ev.p) + atomicSub(cnt + ev.p, 1) - 1] = ev.e;
-  });
 }
 
 // Sort x ascending across the warp, element i = lane + 32 * h in x[h]:
@@ -355,30 +403,31 @@ __device__ __forceinline__ void sort_warp(P v, int n, int lane) {
   }
 }
 
-// Each word's writers in slot order: a warp a word.
+// Sort each segment v[start[i], start[i + 1]) of v, i < n: a warp a
+// segment (the rows' buckets of pieces).
 __global__ void __launch_bounds__(kThreads)
-sort_kernel(const int* __restrict__ start, int64_t n_out, int* seg) {
+sort_kernel(const int* __restrict__ start, int64_t n_seg, int* v) {
   __shared__ int buf[kWarps][kSegSmem];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  for (int64_t w = static_cast<int64_t>(blockIdx.x) * kWarps + wid;
-       w < n_out; w += warps) {
-    const int lo = __ldg(start + w), n = __ldg(start + w + 1) - lo;
-    int* v = seg + lo;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kWarps + wid;
+       i < n_seg; i += warps) {
+    const int lo = __ldg(start + i), n = __ldg(start + i + 1) - lo;
+    int* x = v + lo;
     if (n < 2) continue;
     if (n <= 32) {
-      sort_short<1>(v, n, lane);
+      sort_short<1>(x, n, lane);
     } else if (n <= 64) {
-      sort_short<2>(v, n, lane);
+      sort_short<2>(x, n, lane);
     } else if (n <= 128) {
-      sort_short<4>(v, n, lane);
+      sort_short<4>(x, n, lane);
     } else if (n <= kSegSmem) {
-      for (int i = lane; i < n; i += 32) buf[wid][i] = v[i];
+      for (int j = lane; j < n; j += 32) buf[wid][j] = x[j];
       __syncwarp();
       sort_warp(buf[wid], n, lane);
-      for (int i = lane; i < n; i += 32) v[i] = buf[wid][i];
+      for (int j = lane; j < n; j += 32) x[j] = buf[wid][j];
     } else {
-      sort_warp(v, n, lane);  // hand-made lists only
+      sort_warp(x, n, lane);
     }
     __syncwarp();
   }
@@ -582,12 +631,12 @@ int launch(int* out, int64_t n_out, const int* w0, const int* w1,
 // The group walk of n_pieces pieces into out (n_out words, below 2^31) by
 // the event chase.  ends: the inclusive prefix sums of the pieces' event
 // counts (n_events in all, below 2^30).  Scratch: order n_pieces words,
-// cnt n_out and start n_out + 1 words, seg n_events words, state n_events
-// 64-bit words.
+// rows 4 (n_rows + 1) words (n_rows = ceil(n_out / 128)), start
+// n_out + 1 words, seg n_events words, state n_events 64-bit words.
 extern "C" int dbg_microbench_chase(int* out, int64_t n_out, const int* w0,
                                     const int* w1, const int* ends,
                                     int n_pieces, int n_events, int* order,
-                                    int* cnt, int* start, int* seg,
+                                    int* rows, int* start, int* seg,
                                     unsigned long long* state,
                                     cudaStream_t stream) {
   if (n_pieces <= 0 || n_events <= 0) {
@@ -595,26 +644,28 @@ extern "C" int dbg_microbench_chase(int* out, int64_t n_out, const int* w0,
   }
   if (n_out >= INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const Pieces pc{w0, w1, ends, order, n_pieces};
-  const int n_rows = static_cast<int>((n_out + 127) / 128);
-  const unsigned by_piece = grid_of(n_pieces, 32 * kWarps);
-  const unsigned by_word = grid_of(n_out, kWarps);
-  cudaError_t err = cudaMemsetAsync(cnt, 0, n_rows * sizeof(int), stream);
+  const int n_rows = static_cast<int>((n_out + kRow - 1) / kRow);
+  int* bucket = rows + 2 * (n_rows + 1);  // a row's first piece in order
+  int* base = rows + 3 * (n_rows + 1);    // a row's first writer in seg
+  cudaError_t err = cudaMemsetAsync(rows, 0, 2 * (n_rows + 1) * sizeof(int),
+                                    stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  piece_rows_kernel<false><<<grid_of(n_pieces, kThreads), kThreads, 0,
-                             stream>>>(pc, n_rows, cnt, start);
-  scan_kernel<<<kScanBlocks, kScanThreads, 0, stream>>>(cnt, n_rows, start);
-  err = cudaMemsetAsync(cnt, 0, n_rows * sizeof(int), stream);
+  const unsigned by_piece = grid_of(n_pieces, kThreads);
+  piece_rows_kernel<true><<<by_piece, kThreads, 0, stream>>>(pc, n_rows, rows,
+                                                             bucket);
+  scan_kernel<<<kScanBlocks, kScanThreads, 0, stream>>>(rows, n_rows, bucket);
+  scan_kernel<<<kScanBlocks, kScanThreads, 0, stream>>>(rows + n_rows + 1,
+                                                        n_rows, base);
+  err = cudaMemsetAsync(rows, 0, n_rows * sizeof(int), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  piece_rows_kernel<true><<<grid_of(n_pieces, kThreads), kThreads, 0,
-                            stream>>>(pc, n_rows, cnt, start);
-  err = cudaMemsetAsync(cnt, 0, n_out * sizeof(int), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  histogram_kernel<<<by_piece, kThreads, 0, stream>>>(pc, cnt);
-  scan_kernel<<<kScanBlocks, kScanThreads, 0, stream>>>(cnt, n_out, start);
-  scatter_kernel<<<by_piece, kThreads, 0, stream>>>(pc, cnt, start, seg);
-  sort_kernel<<<by_word, kThreads, 0, stream>>>(start, n_out, seg);
-  pointer_kernel<<<by_piece, kThreads, 0, stream>>>(out, n_out, pc, start,
-                                                    seg, state);
+  piece_rows_kernel<false><<<by_piece, kThreads, 0, stream>>>(pc, n_rows,
+                                                              rows, bucket);
+  sort_kernel<<<grid_of(n_rows, kWarps), kThreads, 0, stream>>>(bucket, n_rows,
+                                                               order);
+  row_kernel<<<grid_of(n_rows, 1), kRow, 0, stream>>>(pc, n_out, n_rows, bucket,
+                                                      base, start, seg);
+  pointer_kernel<<<grid_of(n_pieces, 32 * kWarps), kThreads, 0, stream>>>(
+      out, n_out, pc, start, seg, state);
   const int64_t per = static_cast<int64_t>(kThreads) * chase::kChase;
   event_chase_kernel<<<static_cast<unsigned>((n_events + per - 1) / per),
                        kThreads, 0, stream>>>(state, n_events);

@@ -206,10 +206,11 @@ def piece_events(w0, n_out: int, stage_rows: int = STAGE_ROWS):
 
 
 def chase_scratch_bytes(n_out: int, n_pieces: int, n_events: int) -> int:
-    """The event chase's scratch: the pieces' event ends and order, a
-    count and a segment start per word, and per event a segment entry and
-    a 64-bit state."""
-    return 8 * n_pieces + 4 * (2 * n_out + 1) + 12 * n_events
+    """The event chase's scratch: the pieces' event ends and order, four
+    counts or starts a 128-word row, a segment start a word, and per event
+    a segment entry and a 64-bit state."""
+    return (8 * n_pieces + 16 * (-(-n_out // 128) + 1) + 4 * (n_out + 1)
+            + 12 * n_events)
 
 
 def _plan(variant, w0, w1, n_out: int, stage_rows: int):
@@ -246,7 +247,7 @@ def _launch(variant, w0, w1, out, stage_rows: int, plan=None) -> None:
             _kernels.launch(
                 "dbg_microbench_chase", out, n_out, w0, w1, ends,
                 ends.numel(), n_events, torch.empty(ends.numel(), **i32),
-                torch.empty(n_out, **i32),
+                torch.empty(4 * (-(-n_out // 128) + 1), **i32),
                 torch.empty(n_out + 1, **i32), torch.empty(n_events, **i32),
                 torch.empty(n_events, dtype=torch.int64, device=out.device))
             microbench.launches += 1
@@ -265,9 +266,10 @@ def microbench(variant: str, w0, w1, init, stage_rows: int = STAGE_ROWS):
     ((rows, 128) int32); returns the buffer.
 
     CUDA kernels (csrc/microbench_pb.cu).  full and unrollN: the event
-    chase, a 64-bit state per written word (the pieces ordered by row,
-    then histogram, scan, scatter, sort, pointer, chase and store passes,
-    in one entry), its scratch sized from the event count.  The probes: one CTA stages ``stage_rows`` rows
+    chase, a 64-bit state per written word (the pieces bucketed by row
+    and sorted, each word's writers listed row by row, then pointer, chase
+    and store passes, in one entry), its scratch sized from the event
+    count.  The probes: one CTA stages ``stage_rows`` rows
     of pieces into shared memory per round as w0 and the 16-bit distance,
     one warp walks their groups.  The card takes w1's low byte as 128 - r
     and a distance below 65,536: checked here, in the one read-back that

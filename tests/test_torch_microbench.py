@@ -181,18 +181,18 @@ def test_card_branch_counts_its_launch(monkeypatch, variant):
 # ---------------------------------------------------------------------------
 
 
-def _event_model(out, n_out, w0, w1, ends, n_pieces, n_events, order, cnt,
+def _event_model(out, n_out, w0, w1, ends, n_pieces, n_events, order, rows,
                  start, seg, state, seed=0):
     """A model of the C entry dbg_microbench_chase, pass for pass, on CPU
-    tensors: the pieces ordered by the row of their first word, the events
-    of the pieces (csrc's for_events), histogram, scan, a scatter in a
-    shuffled order (atomics land in no order), the per-word sort, the
-    pointer search, the chase by pointer jumping with owner-only stores,
-    the store.  Checks the scratch it is given."""
-    assert order.dtype == cnt.dtype == start.dtype == seg.dtype == torch.int32
+    tensors: the pieces bucketed by the row of their first word (in a
+    shuffled order, as atomics place them) and each bucket sorted, each
+    word's writers listed from its row's bucket, the events of the pieces
+    (csrc's for_events), the pointer search, the chase by pointer jumping
+    with owner-only stores, the store.  Checks the scratch it is given."""
+    assert order.dtype == rows.dtype == start.dtype == seg.dtype == torch.int32
     assert state.dtype == torch.int64
-    assert order.numel() == n_pieces
-    assert (cnt.numel(), start.numel()) == (n_out, n_out + 1)
+    assert order.numel() == n_pieces and rows.numel() == 4 * (-(-n_out // 128) + 1)
+    assert start.numel() == n_out + 1
     assert seg.numel() == state.numel() == n_events
     a = w0.reshape(-1)[:n_pieces].numpy().astype(np.int64)
     b = w1.reshape(-1)[:n_pieces].numpy().astype(np.int64)
@@ -202,25 +202,29 @@ def _event_model(out, n_out, w0, w1, ends, n_pieces, n_events, order, cnt,
     base = (a >> 16) * 128
     p0 = np.maximum(base + ((a >> 8) & 127), 0)
     shift = (b >> 16) * 128 + ((b >> 8) & 127) - base
-    rows = -(-n_out // 128)
-    order.copy_(torch.from_numpy(np.argsort(np.minimum(p0 >> 7, rows - 1),
-                                            kind="stable").astype(np.int32)))
+    n_rows = -(-n_out // 128)
+    row = np.minimum(p0 >> 7, n_rows - 1)
+    shuffled = np.random.default_rng(seed).permutation(n_pieces)
+    by_row = shuffled[np.argsort(row[shuffled], kind="stable")]
+    bounds = np.searchsorted(row[by_row], np.arange(n_rows + 1))
+    for r in range(n_rows):  # the sort of each bucket
+        by_row[bounds[r]:bounds[r + 1]].sort()
+    order.copy_(torch.from_numpy(by_row.astype(np.int32)))
     t = np.repeat(np.arange(n_pieces), end - excl)
     e = np.arange(n_events)
     p = p0[t] + e - excl[t]
     s = p + shift[t]
     glo = excl[t & ~(mb.GROUP - 1)]
     assert ((p >= 0) & (p < n_out)).all()
+    assert (p >> 7 == row[t]).all()  # a piece writes within its row
     counts = np.bincount(p, minlength=n_out)
     first = np.concatenate([[0], np.cumsum(counts)])
-    order = np.random.default_rng(seed).permutation(n_events)
     fill = first[:-1].copy()
     segs = np.empty(n_events, np.int64)
-    for x in order:  # the scatter
-        segs[fill[p[x]]] = x
-        fill[p[x]] += 1
-    for w in np.flatnonzero(counts > 1):  # the sort
-        segs[first[w]:first[w + 1]].sort()
+    for x in by_row:  # the rows' lists: each bucket in slot order
+        for y in range(excl[x], end[x]):
+            segs[fill[p[y]]] = y
+            fill[p[y]] += 1
     flat = out.view(-1).numpy()
     inside = (s >= 0) & (s < n_out)
     ptr = np.full(n_events, -1)
@@ -242,7 +246,6 @@ def _event_model(out, n_out, w0, w1, ends, n_pieces, n_events, order, cnt,
         ptr[live] = nxt
     written = np.flatnonzero(counts)
     flat[written] = val[segs[first[written + 1] - 1]]  # the store
-    cnt.copy_(torch.zeros(n_out, dtype=torch.int32))
     start.copy_(torch.from_numpy(first.astype(np.int32)))
     seg.copy_(torch.from_numpy(segs.astype(np.int32)))
 
