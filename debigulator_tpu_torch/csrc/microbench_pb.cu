@@ -29,8 +29,8 @@
 //        row of their first word, then places each piece in its row's
 //        bucket (a counting sort; `scan_kernel` scans the counts), and
 //        `sort_kernel` sorts each bucket by slot (a warp a bucket: a
-//        bitonic network in registers up to 128 entries, in shared
-//        memory up to kSegSmem, in device memory beyond);
+//        bitonic network in shared memory up to kSegSmem entries, in
+//        device memory beyond);
 //      - `row_kernel`: a piece writes within one 128-word row, so a row's
 //        bucket holds every writer of its words.  A thread a word walks
 //        the bucket in slot order twice, to count its writers and then to
@@ -45,10 +45,6 @@
 //        hops, then its value).  Every pointer names an event of an
 //        earlier group, so every chain ends whatever the order of blocks;
 //      - `store_kernel`: each word takes its last writer's value.
-//    The pointer pass takes the pieces in bucket order, 32 pieces' events
-//    over a warp's lanes (`for_events`), neighbouring lanes on
-//    neighbouring words: the warps that run together read neighbouring
-//    segments, which stay in the L2.
 //
 //  * the staged loop (`dbg_microbench_pb`; the probes).  One CTA runs the
 //    pieces in stages: its threads stage stage_rows * 128 pieces into
@@ -73,9 +69,8 @@
 // chased (a hop is one L2 load; publication cuts a chain of depth D to
 // about log2 D rounds): 12 bytes of scratch an event.  Taken in slot
 // order, the warps running together covered the whole buffer and the
-// searches missed the L2.  The loop:
-// latency; one warp walks every group, and a group's loads wait for the
-// stores before them.
+// searches missed the L2.  The loop: latency; one warp walks every group,
+// and a group's loads wait for the stores before them.
 
 #include <climits>
 #include <cstdint>
@@ -223,57 +218,6 @@ row_kernel(Pieces pc, int64_t n_out, int n_rows, const int* __restrict__ bucket,
   }
 }
 
-struct Event {
-  bool live;  // false where the lane has no event
-  int e;      // the event's number, in slot order
-  int glo;    // the first event of its piece's group
-  int64_t s;  // the word it reads
-};
-
-// The events of the pieces in `order`, 32 pieces a warp and their events
-// 32 at a time, neighbouring lanes on neighbouring words of a piece: f(ev)
-// for the lane's event.  Every lane calls f in every round.
-template <class F>
-__device__ __forceinline__ void for_events(const Pieces& pc, const F& f) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kWarps +
-                   (threadIdx.x >> 5);
-       g * 32 < pc.n; g += warps) {
-    const int64_t k = g * 32 + lane;
-    int len = 0, first = 0, glo = 0, s0 = 0;
-    if (k < pc.n) {
-      const int t = __ldg(pc.order + k), lo = t & ~(kGroup - 1);
-      const int a = __ldg(pc.w0 + t), b = __ldg(pc.w1 + t);
-      first = first_event(pc, t);
-      len = __ldg(pc.ends + t) - first;
-      glo = first_event(pc, lo);
-      // the source of the first word written
-      s0 = first_word(a) + (b >> 16) * kRow + ((b >> 8) & 127) - (a >> 16) * kRow;
-    }
-    int incl = len;  // the warp's events, numbered locally
-    for (int off = 1; off < 32; off <<= 1) {
-      const int v = __shfl_up_sync(kFullMask, incl, off);
-      if (lane >= off) incl += v;
-    }
-    const int loc = incl - len;
-    const int total = __shfl_sync(kFullMask, incl, 31);
-    for (int q = lane; q - lane < total; q += 32) {
-      int r = 0;  // the last piece whose events start at or before q
-      for (int step = 16; step > 0; step >>= 1) {
-        if (__shfl_sync(kFullMask, loc, r + step) <= q) r += step;
-      }
-      const int i = q - __shfl_sync(kFullMask, loc, r);
-      Event ev;
-      ev.live = q < total;
-      ev.e = __shfl_sync(kFullMask, first, r) + i;
-      ev.glo = __shfl_sync(kFullMask, glo, r);
-      ev.s = static_cast<int64_t>(__shfl_sync(kFullMask, s0, r)) + i;
-      f(ev);
-    }
-  }
-}
-
 // The sum of `v` over the block, to every thread; `red` holds a word a
 // warp.
 __device__ __forceinline__ int block_sum(int v, int* red) {
@@ -334,48 +278,6 @@ scan_kernel(const int* __restrict__ cnt, int64_t n, int* __restrict__ start) {
   if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) start[n] = carry;
 }
 
-// Sort x ascending across the warp, element i = lane + 32 * h in x[h]:
-// the bitonic network, by shuffles within 32 and in registers above.
-template <int R>
-__device__ __forceinline__ void sort_registers(int (&x)[R], int lane) {
-#pragma unroll
-  for (int k = 2; k <= 32 * R; k <<= 1) {
-#pragma unroll
-    for (int j = k >> 1; j > 0; j >>= 1) {
-#pragma unroll
-      for (int h = 0; h < R; ++h) {
-        const int i = lane + 32 * h;
-        const bool up = (i & k) == 0;
-        if (j >= 32) {
-          const int hj = j >> 5;
-          if ((h & hj) == 0) {
-            const int a = x[h], b = x[h | hj];
-            x[h] = up ? min(a, b) : max(a, b);
-            x[h | hj] = up ? max(a, b) : min(a, b);
-          }
-        } else {
-          const int y = __shfl_xor_sync(kFullMask, x[h], j);
-          x[h] = ((i & j) == 0) == up ? min(x[h], y) : max(x[h], y);
-        }
-      }
-    }
-  }
-}
-
-template <int R>
-__device__ __forceinline__ void sort_short(int* v, int n, int lane) {
-  int x[R];
-#pragma unroll
-  for (int h = 0; h < R; ++h) {
-    x[h] = lane + 32 * h < n ? v[lane + 32 * h] : INT_MAX;
-  }
-  sort_registers<R>(x, lane);
-#pragma unroll
-  for (int h = 0; h < R; ++h) {
-    if (lane + 32 * h < n) v[lane + 32 * h] = x[h];
-  }
-}
-
 // Sort v[0, n) ascending by one warp: a bitonic network in the form
 // whose every comparator puts the smaller value at the lower index (each
 // merge starts by comparing i with its mirror in the block), over n
@@ -415,13 +317,7 @@ sort_kernel(const int* __restrict__ start, int64_t n_seg, int* v) {
     const int lo = __ldg(start + i), n = __ldg(start + i + 1) - lo;
     int* x = v + lo;
     if (n < 2) continue;
-    if (n <= 32) {
-      sort_short<1>(x, n, lane);
-    } else if (n <= 64) {
-      sort_short<2>(x, n, lane);
-    } else if (n <= 128) {
-      sort_short<4>(x, n, lane);
-    } else if (n <= kSegSmem) {
+    if (n <= kSegSmem) {
       for (int j = lane; j < n; j += 32) buf[wid][j] = x[j];
       __syncwarp();
       sort_warp(buf[wid], n, lane);
@@ -434,28 +330,63 @@ sort_kernel(const int* __restrict__ start, int64_t n_seg, int* v) {
 }
 
 // Each event's state: a binary search of its source's segment for the
-// first writer at or past glo; the writer before it, if any, is the last
-// one below the event's group.
+// first writer at or past glo, the first event of the event's group; the
+// writer before it, if any, is the last one below the group.  The pieces
+// come in bucket order, 32 a warp, their events spread 32 at a time over
+// the lanes, neighbouring lanes on neighbouring words: the warps that run
+// together read neighbouring segments, which stay in the L2.
 __global__ void __launch_bounds__(kThreads)
 pointer_kernel(const int* __restrict__ out, int64_t n_out, Pieces pc,
                const int* __restrict__ start, const int* __restrict__ seg,
                unsigned long long* __restrict__ state) {
-  for_events(pc, [&](const Event& ev) {
-    if (!ev.live) return;
-    if (ev.s < 0 || ev.s >= n_out) {
-      state[ev.e] = chase::value_entry(0);
-      return;
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kWarps +
+                   (threadIdx.x >> 5);
+       g * 32 < pc.n; g += warps) {
+    const int64_t k = g * 32 + lane;
+    int len = 0, first = 0, glo = 0, s0 = 0;  // s0: the first word's source
+    if (k < pc.n) {
+      const int t = __ldg(pc.order + k), lo = t & ~(kGroup - 1);
+      const int a = __ldg(pc.w0 + t), b = __ldg(pc.w1 + t);
+      first = first_event(pc, t);
+      len = __ldg(pc.ends + t) - first;
+      glo = first_event(pc, lo);
+      s0 = first_word(a) + (b >> 16) * kRow + ((b >> 8) & 127) -
+           (a >> 16) * kRow;
     }
-    const int first = __ldg(start + ev.s);
-    int lo = first, hi = __ldg(start + ev.s + 1);
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (__ldg(seg + mid) < ev.glo) lo = mid + 1;
-      else hi = mid;
+    int incl = len;  // the warp's events, numbered locally
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFullMask, incl, off);
+      if (lane >= off) incl += v;
     }
-    state[ev.e] = lo > first ? chase::pointer_entry(__ldg(seg + lo - 1))
-                             : chase::value_entry(__ldg(out + ev.s));
-  });
+    const int loc = incl - len;
+    const int total = __shfl_sync(kFullMask, incl, 31);
+    for (int q = lane; q - lane < total; q += 32) {
+      int r = 0;  // the last piece whose events start at or before q
+      for (int step = 16; step > 0; step >>= 1) {
+        if (__shfl_sync(kFullMask, loc, r + step) <= q) r += step;
+      }
+      const int i = q - __shfl_sync(kFullMask, loc, r);
+      const int e = __shfl_sync(kFullMask, first, r) + i;
+      const int ge = __shfl_sync(kFullMask, glo, r);
+      const int64_t s = static_cast<int64_t>(__shfl_sync(kFullMask, s0, r)) + i;
+      if (q >= total) continue;
+      if (s < 0 || s >= n_out) {
+        state[e] = chase::value_entry(0);
+        continue;
+      }
+      const int lo = __ldg(start + s);
+      int x = lo, y = __ldg(start + s + 1);
+      while (x < y) {
+        const int mid = (x + y) >> 1;
+        if (__ldg(seg + mid) < ge) x = mid + 1;
+        else y = mid;
+      }
+      state[e] = x > lo ? chase::pointer_entry(__ldg(seg + x - 1))
+                        : chase::value_entry(__ldg(out + s));
+    }
+  }
 }
 
 // An event's state: chase's 64-bit entry, a pointer (another event's
