@@ -2772,8 +2772,9 @@ def archive_kernel_phases(dev, base, streams):
     rec["parts"] = device_parts(chase)
     # ms a launch of each pass: the profiler may lose records here, after
     # the earlier phases' profiling (launches a call below the call's own).
-    rec["pass_ms"] = {name.split("::")[-1].split("(")[0].strip(): ms / n
-                      for name, ms, n in rec["parts"] if n}
+    rec["pass_ms"] = {
+        name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        .split("(")[0].strip(): ms / n for name, ms, n in rec["parts"] if n}
     rec.update(event_stats(mb, w0, init.numel()))
     if rec["events"] != plan[1]:
         raise AssertionError("microbench: the wrapper's event count "

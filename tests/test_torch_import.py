@@ -43,6 +43,7 @@ MODULES = [
     "debigulator_tpu_torch.parallel.merged",
     "debigulator_tpu_torch.parallel.mesh",
     "debigulator_tpu_torch.parallel.split_stream",
+    "debigulator_tpu_torch.tools.event_chase",
     "debigulator_tpu_torch.tools.first_call",
     "debigulator_tpu_torch.tools.microbench_pb",
     "debigulator_tpu_torch.tools.profile_merged",
@@ -110,7 +111,11 @@ def _entry_calls():
         decode_merged,
     )
     from debigulator_tpu_torch.parallel.mesh import make_mesh
-    from debigulator_tpu_torch.tools import microbench_pb, profile_merged
+    from debigulator_tpu_torch.tools import (
+        event_chase,
+        microbench_pb,
+        profile_merged,
+    )
 
     data = b"default device " * 100
     arr = np.frombuffer(data, np.uint8)
@@ -142,6 +147,7 @@ def _entry_calls():
         "literal_runs": lambda: host_fed.literal_runs(
             build_merged_plan([raw], records=True).recs),
         "microbench_pb": microbench_pb.main,
+        "event_chase": event_chase.main,
         "make_mesh": make_mesh,
         "decode_batch_device": lambda: batch.decode_batch_device([raw]),
         "decode_split_emulated": lambda: split_stream.decode_split_emulated(
@@ -157,7 +163,7 @@ def _entry_calls():
     "deflate_fixed_device", "lz77_parse_device", "lz77_parse_device_short",
     "lz77_select_device", "build_v9_arrays", "profile_merged",
     "host_fed_inputs", "build_group_arrays_v10", "literal_runs",
-    "microbench_pb", "make_mesh", "decode_batch_device",
+    "microbench_pb", "event_chase", "make_mesh", "decode_batch_device",
     "decode_split_emulated", "decode_split_stream"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():

@@ -283,16 +283,24 @@ def test_clash_list_matches_the_reference_kernel(ref_tool, monkeypatch,
     assert (got.numpy() != init).sum() > 900
 
 
-@pytest.mark.parametrize("case", ["clash", "pieces"])
+@pytest.mark.parametrize("case", ["clash", "pieces", "past_end"])
 def test_event_chase_card_branch(ref_tool, monkeypatch, case):
     """full's card branch with the C entry replaced by _event_model: one
     read-back (the packing and the event count), then one entry, the event
     chase, with its scratch sized from that count and nothing read back
-    after it; one count per call; the reference kernel's buffer."""
+    after it; one count per call; the reference kernel's buffer.  past_end:
+    a buffer of 60 rows, which many pieces write past and read past (the
+    plain version's buffer: the reference leaves such stores undefined)."""
     from debigulator_tpu_torch.ops import _kernels
 
     w0, w1, init = mb.clash_pieces() if case == "clash" else _pieces()
-    want = _ref_run(ref_tool, monkeypatch, "full", w0, w1, init, 16)
+    if case == "past_end":
+        init = np.ascontiguousarray(init[:60])
+        want = mb.microbench_plain("full", torch.from_numpy(w0),
+                                   torch.from_numpy(w1),
+                                   torch.from_numpy(init)).numpy()
+    else:
+        want = _ref_run(ref_tool, monkeypatch, "full", w0, w1, init, 16)
     made, modelling = [], []
 
     def refuse_after_launch(real):
@@ -323,7 +331,9 @@ def test_event_chase_card_branch(ref_tool, monkeypatch, case):
     args = made[0][1]
     assert len(args) == len(_kernels._ENTRIES["dbg_microbench_chase"][1])
     n_events = int(mb.piece_events(tw0, tinit.numel()).sum())
-    assert args[6] == n_events > 20 * 1024
+    unclipped = int(mb.piece_events(tw0, 1 << 30).sum())
+    assert args[6] == n_events > 10 * 1024
+    assert (n_events < unclipped) == (case == "past_end")
     scratch = sum(x.numel() * x.element_size() for x in (args[4], *args[7:]))
     assert scratch == mb.chase_scratch_bytes(tinit.numel(), tw0.numel(),
                                              n_events)
