@@ -1252,7 +1252,11 @@ def png_and_encode_phases(dev):
     if zlib.decompress(stream, -15) != filtered:
         raise AssertionError("the encoder's stream does not decode to its input")
     sel, _, _ = enc.lz77_select_device(enc_filtered, stride=stride, device=dev)
-    png = png_codec.encode_png(src, device=dev)
+    # The device encoder, passed in: encode_png's default is the host one.
+    def device_deflate(d):
+        return enc.deflate_fixed_device(d, stride=stride, device=dev)
+
+    png = png_codec.encode_png(src, deflate_fn=device_deflate, device=dev)
     if not np.array_equal(pl.decode_png_device(png, device=dev), src):
         raise AssertionError("encode_png -> decode_png_device is not the image")
     enc_launches = counts()
@@ -1262,7 +1266,8 @@ def png_and_encode_phases(dev):
     select_ms = host_ms(lambda: enc.lz77_select_device(
         enc_filtered, stride=stride, device=dev), 3)
     mine_ms = host_ms(lambda: enc.mine_distances(enc_filtered), 3)
-    encode_png_ms = host_ms(lambda: png_codec.encode_png(src, device=dev), 3)
+    encode_png_ms = host_ms(lambda: png_codec.encode_png(
+        src, deflate_fn=device_deflate, device=dev), 3)
     filt_dev = torch.from_numpy(src.reshape(enc_h, -1).copy()).to(dev)
     filter_ms = time_ms(lambda: uf.filter_image_best_device(
         filt_dev, enc_h, enc_w, enc_ch), 3)
@@ -3040,6 +3045,270 @@ def parallel_phases(dev, base: bytes, streams: list[bytes], cards=None):
     return line, extra
 
 
+# ---------------------------------------------------------------------------
+# The fifteenth slice: the front door (CLIs, host encoder) and multihost
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parent
+#: The port's kernels of the gzip path, as they are named in a profiler
+#: trace: Phase A (its table, then the decode), compact, and the walk.
+TRACE_KERNELS = {"phase_a": ("phase_a_kernel", "lut_kernel"),
+                 "compact": ("compact_kernel",),
+                 "walk": ("run_kernel", "pointer_kernel", "chase_kernel")}
+#: The flagship's named scopes around those kernels.
+TRACE_SCOPES = ("phase_a_huffman", "phase_b_lz77", "v15_compact", "v15_walk")
+#: Side of the crop that cuda_png encode and roundtrip take: the host
+#: encoder and the serial Python inflate of roundtrip make a whole corpus
+#: image minutes of host time.
+CLI_CROP = 192
+
+
+def run_cli(module: str, *args: str, timeout: float = 600.0) -> dict:
+    """One CLI of the port as a subprocess from the checkout's root: its
+    stderr, stdout and wall ms.  Raises when it exits non-zero."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", f"debigulator_tpu_torch.cli.{module}", *args],
+        capture_output=True, text=True, timeout=timeout, cwd=ROOT)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if r.returncode != 0:
+        raise AssertionError(f"{module} {args[0]} exited {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    return {"err": r.stderr, "out": r.stdout, "wall_ms": wall_ms}
+
+
+def first_steady(err: str) -> dict:
+    """The first and steady ms a cuda_gz decode printed."""
+    import re
+
+    m = re.search(r"first ([\d.]+) ms, steady ([\d.]+) ms", err)
+    return {"first_ms": float(m.group(1)), "steady_ms": float(m.group(2))}
+
+
+def top_ops(err: str) -> list:
+    """The (ms, name) rows of --trace's top-ops list."""
+    rows = []
+    for line in err.split("top ops:\n", 1)[1].splitlines():
+        if not line.startswith("  "):
+            break
+        ms, name = line.split(" ms  ", 1)
+        rows.append([float(ms), name])
+    return rows
+
+
+def trace_kernel_events(logdir: Path) -> dict:
+    """Kernel events in the Chrome traces under ``logdir``, for each of
+    TRACE_KERNELS: [launches, device ms, longest launch us]."""
+    found = {k: [0, 0.0, 0.0] for k in TRACE_KERNELS}
+    for f in logdir.glob("**/*.json"):
+        for e in json.loads(f.read_text()).get("traceEvents", []):
+            if e.get("cat") != "kernel":
+                continue
+            for k, names in TRACE_KERNELS.items():
+                if any(n + "(" in e.get("name", "") or
+                       n + "<" in e.get("name", "") for n in names):
+                    found[k][0] += 1
+                    found[k][1] += e.get("dur", 0) / 1e3
+                    found[k][2] = max(found[k][2], e.get("dur", 0))
+    return found
+
+
+def front_door_phase(dev, base: bytes) -> dict:
+    """The CLIs as a user runs them, each a subprocess: cuda_gz decode
+    (--repeat 3 --trace) of the OBJ text gzipped by the port's encode_gzip
+    and by gzip, cuda_gz encode, cuda_png decode of the 16-image corpus
+    (--bench), encode and roundtrip of a crop, cuda_bmp roundtrip and info;
+    every output checked against zlib or the source pixels, and the trace
+    shown to hold the port's Phase A, compact and walk kernels on the card.
+    Before them, in this process on the card's host: the host encoder on
+    the text (deflate, encode_gzip) and encode_png with its default (the
+    host encoder) on the encode path's 1024x1024 RGBA image, beside the
+    device encoder on the same rows."""
+    import tempfile
+
+    from debigulator_tpu_torch.models import bmp_codec, png_codec
+    from debigulator_tpu_torch.models import pipeline as pl
+    from debigulator_tpu_torch.models.gzip_codec import encode_gzip
+    from debigulator_tpu_torch.ops import deflate_encode as henc
+    from debigulator_tpu_torch.ops import deflate_encode_device as enc
+    from debigulator_tpu_torch.utils.preview import summary
+
+    line = {"phase": "front_door"}
+    # --- host encoder on the card's host ---------------------------------
+    t0 = time.perf_counter()
+    raw = henc.deflate(base)
+    deflate_ms = (time.perf_counter() - t0) * 1e3
+    if zlib.decompress(raw, -15) != base:
+        raise AssertionError("host deflate does not decode to its input")
+    t0 = time.perf_counter()
+    gz_port = encode_gzip(base, fname=b"obj.txt")
+    gzip_ms = (time.perf_counter() - t0) * 1e3
+    if gzip.decompress(gz_port) != base:
+        raise AssertionError("encode_gzip does not decode to its input")
+    line["host_encoder"] = {
+        "input_bytes": len(base), "deflate_ms": deflate_ms,
+        "deflate_bytes": len(raw), "encode_gzip_ms": gzip_ms,
+        "encode_gzip_bytes": len(gz_port),
+        "zlib6_bytes": len(zlib.compress(base, 6)) - 6,
+        "btype": (raw[0] >> 1) & 3}
+
+    corpus = make_corpus(0)
+    src = corpus[0][2]  # the encode path's 1024 x 1024 RGBA image
+    h, w, ch = src.shape
+    t0 = time.perf_counter()
+    png_host = png_codec.encode_png(src, device=dev)
+    host_png_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(pl.decode_png_device(png_host, device=dev), src):
+        raise AssertionError("encode_png's default output is not the image")
+
+    def device_deflate(d):
+        return enc.deflate_fixed_device(d, stride=1 + w * ch, device=dev)
+
+    t0 = time.perf_counter()
+    png_dev = png_codec.encode_png(src, deflate_fn=device_deflate, device=dev)
+    dev_png_ms = (time.perf_counter() - t0) * 1e3
+    line["encode_png"] = {
+        "image": f"{w}x{h}x{ch}", "filtered_bytes": h * (1 + w * ch),
+        "default_ms": host_png_ms, "default_bytes": len(png_host),
+        "device_encoder_ms": dev_png_ms, "device_encoder_bytes": len(png_dev),
+        "exact": True}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # --- cuda_gz -------------------------------------------------------
+        (tmp / "obj.txt").write_bytes(base)
+        gz_files = {"encode_gzip": gz_port, "gzip": gzip.compress(base, 6)}
+        line["cuda_gz"] = {}
+        for name, blob in gz_files.items():
+            f, out, logdir = tmp / f"{name}.gz", tmp / f"{name}.out", \
+                tmp / f"trace_{name}"
+            f.write_bytes(blob)
+            r = run_cli("cuda_gz", "decode", str(f), "-o", str(out),
+                        "--repeat", "3", "--trace", str(logdir),
+                        "--device", dev.type)
+            if out.read_bytes() != base:
+                raise AssertionError(f"cuda_gz decode of {name} is not exact")
+            ops = top_ops(r["err"])
+            kernels = trace_kernel_events(logdir)
+            missing = [k for k, v in kernels.items() if not v[0]]
+            if missing:
+                raise AssertionError(
+                    f"cuda_gz --trace of {name} holds no kernel event of "
+                    f"{missing}: the CLI did not launch them on the card")
+            listed = {n for _, n in ops}
+            line["cuda_gz"][name] = {
+                "compressed_bytes": len(blob), **first_steady(r["err"]),
+                "wall_ms": r["wall_ms"], "top_ops": ops,
+                "scopes_listed": [s for s in TRACE_SCOPES if s in listed],
+                "kernels_listed": {k: any(any(n in name for n in names)
+                                          for name in listed)
+                                   for k, names in TRACE_KERNELS.items()},
+                "trace_kernels": kernels}
+        r = run_cli("cuda_gz", "encode", str(tmp / "obj.txt"), "-o",
+                    str(tmp / "enc.gz"))
+        blob = (tmp / "enc.gz").read_bytes()
+        if blob != gz_port or gzip.decompress(blob) != base:
+            raise AssertionError("cuda_gz encode differs from encode_gzip")
+        line["cuda_gz"]["encode"] = {"bytes": len(blob),
+                                     "wall_ms": r["wall_ms"],
+                                     "stderr": r["err"].strip()[-200:]}
+
+        # --- cuda_png ------------------------------------------------------
+        files = []
+        for name, png, rgba, _, _ in corpus:
+            files.append(tmp / f"{name}.png")
+            files[-1].write_bytes(png)
+        r = run_cli("cuda_png", "decode", *map(str, files), "--bench",
+                    "--device", dev.type)
+        lines = r["err"].strip().splitlines()
+        for f, (_, _, rgba, _, _), got in zip(files, corpus, lines):
+            if not got.startswith(f"{f}: {summary(rgba)} in "):
+                raise AssertionError(f"cuda_png decode of {f.name}: {got}")
+        if not lines[-1].startswith("total:"):
+            raise AssertionError("cuda_png decode --bench printed no total")
+        crop = np.ascontiguousarray(src[:CLI_CROP, :CLI_CROP])
+        crop.tofile(tmp / "crop.raw")
+        r2 = run_cli("cuda_png", "encode", str(tmp / "crop.raw"),
+                     f"{CLI_CROP}x{CLI_CROP}", "-o", str(tmp / "crop.png"),
+                     "--device", dev.type)
+        crop_png = (tmp / "crop.png").read_bytes()
+        if not np.array_equal(pl.decode_png_device(crop_png, device=dev), crop):
+            raise AssertionError("cuda_png encode's file is not the crop")
+        r3 = run_cli("cuda_png", "roundtrip", str(tmp / "crop.png"),
+                     "--device", dev.type)
+        if "RGBA-bit-exact" not in r3["err"]:
+            raise AssertionError(f"cuda_png roundtrip: {r3['err']}")
+        line["cuda_png"] = {
+            "decode": {"images": len(files), "total": lines[-1],
+                       "wall_ms": r["wall_ms"]},
+            "encode": {"crop": f"{CLI_CROP}x{CLI_CROP} of {w}x{h}",
+                       "png_bytes": len(crop_png), "wall_ms": r2["wall_ms"],
+                       "stderr": r2["err"].strip()[-200:]},
+            "roundtrip": {"wall_ms": r3["wall_ms"],
+                          "stderr": r3["err"].strip()[-200:]}}
+
+        # --- cuda_bmp ------------------------------------------------------
+        bmp = bmp_codec.encode_bmp(src)
+        (tmp / "img.bmp").write_bytes(bmp)
+        r = run_cli("cuda_bmp", "roundtrip", str(tmp / "img.bmp"), "-o",
+                    str(tmp / "out.bmp"))
+        if (tmp / "out.bmp").read_bytes() != bmp or "bit-exact" not in r["err"]:
+            raise AssertionError("cuda_bmp roundtrip is not exact")
+        ri = run_cli("cuda_bmp", "info", str(tmp / "img.bmp"))
+        if not ri["out"].strip().endswith(f"{w}x{h}"):
+            raise AssertionError(f"cuda_bmp info: {ri['out']}")
+        line["cuda_bmp"] = {"bytes": len(bmp), "wall_ms": r["wall_ms"],
+                            "info_wall_ms": ri["wall_ms"]}
+    line["exact"] = True
+    return line
+
+
+def multihost_phase(streams: list[bytes], procs: int,
+                    device: str = "cuda") -> dict:
+    """A world of ``procs`` processes over the streams on this machine's
+    cards (rank r on cuda:{r % cards}; gloo carries the manifest), beside a
+    world of one: every stream exact in its worker, the manifest complete
+    and equal to zlib's sizes and CRC-32s, rows 1-3 launched in every
+    worker, each worker's decode ms."""
+    import tempfile
+
+    from debigulator_tpu_torch.parallel import multihost as mh
+
+    datas = [zlib.decompress(s, -15) for s in streams]
+    want = [[1, len(d), zlib.crc32(d)] for d in datas]
+    with tempfile.TemporaryDirectory() as tmp:
+        files = []
+        for i, s in enumerate(streams):
+            files.append(str(Path(tmp) / f"s{i:02d}.deflate"))
+            Path(files[-1]).write_bytes(s)
+        t0 = time.perf_counter()
+        single = mh.cluster(1, device, files)[0]
+        single_wall = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        outs = mh.cluster(procs, device, files)
+        world_wall = (time.perf_counter() - t0) * 1e3
+    workers = []
+    for rank, so in enumerate([single] + outs):
+        launches = mh.worker_field(so, "LAUNCHES")
+        if mh.worker_field(so, "MANIFEST") != want:
+            raise AssertionError(f"worker {rank}: manifest differs from zlib")
+        if not all(launches.get(k, 0) > 0
+                   for k in ("phase_a", "compact", "walk")):
+            raise AssertionError(f"worker {rank} launched no kernel of rows "
+                                 f"1-3: {launches}")
+        workers.append({"decode_ms": mh.decode_ms(so), "launches": launches})
+    single_ms = workers[0]["decode_ms"]
+    world_ms = max(wk["decode_ms"] for wk in workers[1:])
+    return {"phase": "multihost", "world": procs,
+            "cards": torch.cuda.device_count(), "backend": "gloo",
+            "streams": len(streams), "out_bytes": sum(map(len, datas)),
+            "exact": True, "manifest_complete": True,
+            "single_decode_ms": single_ms, "single": workers[0],
+            "workers": workers[1:], "world_decode_ms_max": world_ms,
+            "ratio": single_ms / world_ms,
+            "single_wall_ms": single_wall, "world_wall_ms": world_wall}
+
+
 def finish(smi: str) -> int:
     """The card's nvidia-smi line, then the last line."""
     print(smi, flush=True)
@@ -3093,6 +3362,8 @@ def main() -> int:
         cards = [torch.device("cuda", i)
                  for i in range(torch.cuda.device_count())]
         emit(parallel_phases(dev, base, streams, cards)[0])
+        torch.cuda.empty_cache()
+        emit(multihost_phase(streams, max(2, len(cards))))
         return finish(smi)
 
     # --- kernels vs plain at ~1.1 MB of output -------------------------
@@ -3355,6 +3626,11 @@ def main() -> int:
     emit(line)
     for k in kernels:
         k.update(extra.get(k["name"], {}))
+
+    # --- the fifteenth slice: the CLIs, the host encoder, multihost ------
+    torch.cuda.empty_cache()
+    emit(front_door_phase(dev, base))
+    emit(multihost_phase(streams, 2))
 
     emit({"kernels": kernels})
     return finish(smi)

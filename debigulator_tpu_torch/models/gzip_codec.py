@@ -1,10 +1,10 @@
-"""gzip (RFC 1952) container, host side: the port's copy of
-debigulator_tpu/models/gzip_codec.py without ``encode_gzip`` (it needs the
-host DEFLATE encoder, which is not ported yet).
+"""gzip (RFC 1952) container, host side: the port of
+debigulator_tpu/models/gzip_codec.py.
 
 Member header parsing (FEXTRA, FNAME, FCOMMENT and a verified FHCRC), the
-exact multi-member index and the host decode with CRC-32 and ISIZE
-verified.  The device decode is models.pipeline.decode_gzip_device."""
+exact multi-member index, the host decode with CRC-32 and ISIZE verified,
+and ``encode_gzip`` over the host encoder.  The device decode is
+models.pipeline.decode_gzip_device."""
 
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import struct
 
 from debigulator_tpu_torch import constants as C
 from debigulator_tpu_torch.ops import checksum as ck
+from debigulator_tpu_torch.ops.deflate_encode import deflate
 from debigulator_tpu_torch.ops.inflate_ref import inflate as _inflate
 
 
@@ -170,3 +171,18 @@ def decode_gzip(data, verify: bool = True, inflate_fn=None) -> bytes:
         out_parts.append(out)
         at = end + 8
     return b"".join(out_parts)
+
+
+def encode_gzip(data: bytes, deflate_fn=None, fname: bytes | None = None) -> bytes:
+    """One gzip member of ``data`` (FNAME set when ``fname`` is given).
+
+    deflate_fn(data) -> raw DEFLATE bytes; the default is the host encoder
+    ``ops.deflate_encode.deflate``, as in the reference.
+    """
+    flg = C.GZIP_FNAME if fname else 0
+    header = struct.pack("<2sBBIBB", C.GZIP_MAGIC, C.GZIP_CM_DEFLATE, flg, 0, 0, 255)
+    if fname:
+        header += fname + b"\x00"
+    payload = (deflate_fn or deflate)(data)
+    footer = struct.pack("<II", ck.crc32(data), len(data) & 0xFFFFFFFF)
+    return header + payload + footer

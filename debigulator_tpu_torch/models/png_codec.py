@@ -14,7 +14,8 @@ addition to 2/3/6, IHDR must be the first chunk, all sizes bounded.
 This module is the host orchestration layer; the hot compute (inflate,
 unfilter, filter search, deflate) is pluggable.  ``decode_png`` defaults
 to the serial Python inflate and the NumPy unfilter; ``encode_png``
-defaults to the device filter search and the device LZ77 encoder.
+defaults to the device filter search and the host encoder
+(``ops.deflate_encode.deflate``), as the reference does.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from debigulator_tpu_torch.models.zlib_codec import (
 )
 from debigulator_tpu_torch.ops import checksum as ck
 from debigulator_tpu_torch.ops import unfilter as uf
-from debigulator_tpu_torch.ops.deflate_encode_device import deflate_fixed_device
 from debigulator_tpu_torch.ops.inflate_ref import inflate as _inflate
 
 
@@ -243,9 +243,12 @@ def encode_png(rgba: np.ndarray, deflate_fn=None, filter_fn=None,
     """Encode (h, w, 4|3|2|1) uint8 to PNG (color type 6/2/4/0, bit depth 8):
     per-row best-of-5 filter search -> one zlib stream -> single IDAT.
 
-    Defaults run on ``device``: the tensor filter search and the device
-    LZ77 encoder with the scanline stride as a candidate distance.
-    filter_fn(raw (h, w*ch), h, w, ch) -> filtered bytes;
+    The default filter search runs on ``device`` (tensor ops; the same
+    bytes as the reference's host search), and the default encoder is the
+    host ``ops.deflate_encode.deflate``, as in the reference.  The device
+    encoder, with the scanline stride as a candidate distance, is
+    ``deflate_fn=lambda d: deflate_fixed_device(d, stride=1 + w * ch,
+    device=dev)``.  filter_fn(raw (h, w*ch), h, w, ch) -> filtered bytes;
     deflate_fn(bytes) -> raw DEFLATE bytes.
     """
     rgba = np.asarray(rgba, dtype=np.uint8)
@@ -261,12 +264,7 @@ def encode_png(rgba: np.ndarray, deflate_fn=None, filter_fn=None,
             torch.from_numpy(raw).to(dev), h, w, ch).cpu().numpy()
     else:
         filtered = filter_fn(raw, h, w, ch)
-    filtered = bytes(filtered)
-    if deflate_fn is None:
-        def deflate_fn(d):
-            return deflate_fixed_device(d, stride=1 + w * ch, device=device)
-
-    idat = encode_zlib(filtered, deflate_fn=deflate_fn)
+    idat = encode_zlib(bytes(filtered), deflate_fn=deflate_fn)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)
     return (
         C.PNG_SIGNATURE

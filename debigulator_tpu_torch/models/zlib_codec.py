@@ -14,7 +14,7 @@ import struct
 
 from debigulator_tpu_torch import constants as C
 from debigulator_tpu_torch.ops import checksum as ck
-from debigulator_tpu_torch.ops.deflate_encode_device import deflate_fixed_device
+from debigulator_tpu_torch.ops.deflate_encode import deflate
 from debigulator_tpu_torch.ops.inflate_ref import inflate as _inflate
 
 
@@ -77,12 +77,10 @@ def zlib_wrap(payload: bytes, data: bytes, level_hint: int = 2) -> bytes:
     return bytes([cmf, flg]) + payload + struct.pack(">I", ck.adler32(data))
 
 
-def encode_zlib(data: bytes, deflate_fn=None, device="cuda") -> bytes:
+def encode_zlib(data: bytes, deflate_fn=None) -> bytes:
     """zlib stream of ``data``.  deflate_fn(bytes) -> raw DEFLATE bytes; the
-    default is the device encoder (one fixed-Huffman block, LZ77 selection
-    on ``device``)."""
-    if deflate_fn is None:
-        def deflate_fn(d):
-            return deflate_fixed_device(d, device=device)
-
-    return zlib_wrap(deflate_fn(data), data)
+    default is the host encoder ``ops.deflate_encode.deflate`` (the smallest
+    of stored, fixed and dynamic), as in the reference.  The device encoder
+    is one argument away: ``deflate_fn=lambda d: deflate_fixed_device(d,
+    device=dev)``."""
+    return zlib_wrap((deflate_fn or deflate)(data), data)

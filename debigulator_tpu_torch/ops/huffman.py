@@ -1,11 +1,14 @@
-"""Canonical Huffman decode tables, host form (the port's copy of
-``DecodeTable``/``build_decode_table``/``HuffmanError`` from
-debigulator_tpu/ops/huffman.py; ``canonical_codes``, the encoder side,
-lives in ops.deflate_encode).
+"""Canonical Huffman codes and decode tables (the port of
+debigulator_tpu/ops/huffman.py).
 
 RFC 1951 §3.2.2 construction in the flat canonical form: per-length
 (count, first_code, index_base) plus a symbol permutation sorted by
-(code length, symbol).
+(code length, symbol).  Two forms:
+
+* ``build_decode_table`` / ``canonical_codes``: NumPy, for the host
+  oracle, the plan and the encoder;
+* ``build_decode_table_tensor`` / ``decode_one_msb_tensor``: tensor ops on
+  the tensors' device (the reference's jittable ``*_jnp`` pair).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from debigulator_tpu_torch.constants import MAX_BITS
 
@@ -82,3 +86,82 @@ def build_decode_table(lengths: np.ndarray) -> DecodeTable:
         min_len=int(assigned.min()) if assigned.size else 0,
         complete=left == 0,
     )
+
+
+def canonical_codes(lengths: np.ndarray) -> np.ndarray:
+    """Per-symbol MSB-first canonical code values (encoder side).
+
+    Returns (len(lengths),) int32; entries with length 0 are 0.  Raises
+    HuffmanError on an over-subscribed code.
+    """
+    lengths = np.asarray(lengths, dtype=np.int32)
+    t = build_decode_table(lengths)
+    codes = np.zeros(len(lengths), dtype=np.int32)
+    next_code = t.first_code.astype(np.int64).copy()
+    for sym, ln in enumerate(lengths):
+        if ln:
+            codes[sym] = next_code[ln]
+            next_code[ln] += 1
+    return codes
+
+
+# ---------------------------------------------------------------------------
+# Tensor form (the reference's jittable build_decode_table_jnp :123 and
+# decode_one_msb_jnp :168)
+# ---------------------------------------------------------------------------
+
+
+def build_decode_table_tensor(lengths: torch.Tensor, num_syms: int) -> dict:
+    """Canonical decode table from (num_syms,) code lengths (0 = unused),
+    in tensor ops on the lengths' device.
+
+    Returns a dict of tensors: count (16,), first_code (16,), index_base
+    (16,), syms (num_syms,) the symbol permutation (unused symbols last),
+    oversubscribed () bool, true if the code is invalid.
+    """
+    lengths = lengths.to(torch.int64)
+    dev = lengths.device
+    count = torch.bincount(lengths, minlength=MAX_BITS + 1)[: MAX_BITS + 1]
+    count[0] = 0
+
+    # first_code[l] = sum over k < l of count[k] << (l - k), on the static
+    # 16 x 16 (l, k) grid.
+    ln = torch.arange(MAX_BITS + 1, device=dev)
+    below = ln[:, None] > ln[None, :]
+    shift = torch.where(below, ln[:, None] - ln[None, :], 0)
+    first_code = torch.where(below, count[None, :] << shift, 0).sum(1)
+
+    # Over-subscription: first_code[l] + count[l] <= 2^l for every used l.
+    capacity = torch.ones_like(ln) << ln
+    oversub = ((count > 0) & (first_code + count > capacity)).any()
+    index_base = torch.cumsum(count, 0) - count
+
+    # Stable order by length, unused symbols (length 0) keyed past 15.
+    sym_ids = torch.arange(num_syms, device=dev)
+    key = torch.where(lengths > 0, lengths, MAX_BITS + 1) * (num_syms + 1) \
+        + sym_ids
+    syms = sym_ids[torch.argsort(key)]
+    i32 = torch.int32
+    return {"count": count.to(i32), "first_code": first_code.to(i32),
+            "index_base": index_base.to(i32), "syms": syms.to(i32),
+            "oversubscribed": oversub}
+
+
+def decode_one_msb_tensor(window15: torch.Tensor, table: dict):
+    """Decode one code from 15-bit MSB-first windows (any shape; the first
+    stream bit in bit 14) with a table of ``build_decode_table_tensor``.
+
+    Returns (sym, length); length 0 (and sym -1) where no code matches
+    (a corrupt stream or an unassigned code).
+    """
+    count, first_code = table["count"], table["first_code"]
+    index_base, syms = table["index_base"], table["syms"]
+    length = torch.zeros_like(window15)
+    offset = torch.zeros_like(window15)
+    for ln in range(1, MAX_BITS + 1):
+        off = (window15 >> (MAX_BITS - ln)) - first_code[ln]
+        ok = (off >= 0) & (off < count[ln]) & (length == 0)
+        length = torch.where(ok, ln, length)
+        offset = torch.where(ok, index_base[ln] + off, offset)
+    sym = torch.where(length > 0, syms[offset.long()], -1)
+    return sym, length

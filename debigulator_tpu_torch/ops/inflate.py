@@ -69,6 +69,8 @@ from debigulator_tpu_torch.ops.plan import (
     v15_stream_too_large,
 )
 from debigulator_tpu_torch.ops.scanner import scan_stream_cells
+from debigulator_tpu_torch.utils.config import get_config
+from debigulator_tpu_torch.utils.profiling import named_scope
 
 
 class SingleBlockTooLarge(RuntimeError):
@@ -115,10 +117,12 @@ def flagship_body(st: StagedPlan, tail0=None) -> torch.Tensor:
     scanner's exact per-cell token bound, so no tape can overflow."""
     if not st.slots_exact:
         raise ValueError("the plan needs the scanner's exact slot bound")
-    ma, mb, ra, rb, lit, cnt, outlen = phase_a(st.pa, st.slots)
-    return phase_b.resolve(ma, mb, ra, rb, lit, cnt, outlen, st.pa.bob_cell,
-                           st.n_seg, st.stored_pos, st.stored_val, st.slots,
-                           tail0=tail0)
+    with named_scope("phase_a_huffman"):
+        ma, mb, ra, rb, lit, cnt, outlen = phase_a(st.pa, st.slots)
+    with named_scope("phase_b_lz77"):
+        return phase_b.resolve(ma, mb, ra, rb, lit, cnt, outlen,
+                               st.pa.bob_cell, st.n_seg, st.stored_pos,
+                               st.stored_val, st.slots, tail0=tail0)
 
 
 # ---------------------------------------------------------------------------
@@ -425,7 +429,7 @@ def _retry_on_overflow(call, slots: int, probe: bool = True):
 
 
 def inflate_device_dev(data: bytes, scanned=None, device="cuda",
-                       use_kernels: bool = True):
+                       use_kernels: bool | None = None):
     """Device inflate of one raw DEFLATE stream, output left on the device.
 
     Returns (body, out_size): body is a flat int32 tensor (one byte per
@@ -433,10 +437,13 @@ def inflate_device_dev(data: bytes, scanned=None, device="cuda",
     from scan_stream_cells, so a container codec that already indexed the
     stream does not pay a second scan.  use_kernels=False takes the
     all-tensor-op driver v3 whatever the plan (the counterpart of the
-    reference's ``force_pallas=False``); the module docstring has the
-    selection.
+    reference's ``force_pallas=False``); None takes
+    ``Config.use_kernels``, True unless a caller turned it off.  The module
+    docstring has the selection.
     """
     dev = resolve_device(device)
+    if use_kernels is None:
+        use_kernels = get_config().use_kernels
     if scanned is not None:
         blocks, lengths, cells = scanned
     else:
@@ -489,7 +496,7 @@ def inflate_device_dev(data: bytes, scanned=None, device="cuda",
 
 
 def inflate_device(data: bytes, scanned=None, device="cuda",
-                   use_kernels: bool = True) -> bytes:
+                   use_kernels: bool | None = None) -> bytes:
     """Device inflate of one raw DEFLATE stream -> host bytes."""
     body, out_size = inflate_device_dev(data, scanned=scanned, device=device,
                                         use_kernels=use_kernels)

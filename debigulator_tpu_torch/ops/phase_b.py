@@ -36,6 +36,7 @@ from debigulator_tpu_torch import constants as C
 from debigulator_tpu_torch.device import plain_here as _plain_here
 from debigulator_tpu_torch.ops import _kernels
 from debigulator_tpu_torch.ops.plan import SEG_BYTES, TC
+from debigulator_tpu_torch.utils.profiling import named_scope
 
 WINDOW = C.WINDOW_SIZE
 BIG = 1 << 30
@@ -198,23 +199,24 @@ def size8(mdst: torch.Tensor, mmeta: torch.Tensor) -> torch.Tensor:
     """Frontier batch sizes: size8[s] = the largest t <= 8 such that every
     record j in [s, s+t) is narrow and has src_j + len_j <= dst_s; 0 marks
     an overlapping (dist < len) or wide record (phase_b_v15.py:931-953)."""
-    mlen = mmeta >> 16
-    dist = mmeta & 0xFFFF
-    req = mdst - dist + mlen
-    rp = mdst & 127
-    qr = (mdst - dist - rp) & 127
-    narrow = (rp + (mlen & 0x1FF) + qr) <= 2 * 128
-    n = mdst.numel()
-    reqp = torch.cat([req, torch.full((GROUP,), BIG, dtype=req.dtype,
-                                      device=req.device)])
-    nrwp = torch.cat([narrow, torch.ones(GROUP, dtype=torch.bool,
-                                         device=req.device)])
-    acc = torch.ones(n, dtype=torch.bool, device=req.device)
-    out = torch.zeros(n, dtype=torch.int32, device=req.device)
-    for t in range(GROUP):
-        acc &= (reqp[t : t + n] <= mdst) & nrwp[t : t + n]
-        out += acc.to(torch.int32)
-    return out
+    with named_scope("v15_size8"):
+        mlen = mmeta >> 16
+        dist = mmeta & 0xFFFF
+        req = mdst - dist + mlen
+        rp = mdst & 127
+        qr = (mdst - dist - rp) & 127
+        narrow = (rp + (mlen & 0x1FF) + qr) <= 2 * 128
+        n = mdst.numel()
+        reqp = torch.cat([req, torch.full((GROUP,), BIG, dtype=req.dtype,
+                                          device=req.device)])
+        nrwp = torch.cat([narrow, torch.ones(GROUP, dtype=torch.bool,
+                                             device=req.device)])
+        acc = torch.ones(n, dtype=torch.bool, device=req.device)
+        out = torch.zeros(n, dtype=torch.int32, device=req.device)
+        for t in range(GROUP):
+            acc &= (reqp[t : t + n] <= mdst) & nrwp[t : t + n]
+            out += acc.to(torch.int32)
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -310,10 +312,14 @@ def resolve(ma, mb, ra, rb, lit, cnt, outlen, bob_cell, n_seg: int,
     the body (n_seg*SEG_BYTES,) int32, one byte per element.  A merged
     batch of streams resolves as one: no match crosses into another
     stream."""
-    rec = prep_records(ma, mb, ra, rb, lit, cnt, outlen, bob_cell, slots)
-    mdst, mmeta, rdst, rmeta = compact(rec, slots)
-    out = init_body(n_seg, stored_pos, stored_val, tail0, device=ma.device)
-    walk(out, mdst, mmeta, rdst, rmeta, rec.lit)
+    with named_scope("v15_prep"):
+        rec = prep_records(ma, mb, ra, rb, lit, cnt, outlen, bob_cell, slots)
+    with named_scope("v15_compact"):
+        mdst, mmeta, rdst, rmeta = compact(rec, slots)
+    with named_scope("v15_walk"):
+        out = init_body(n_seg, stored_pos, stored_val, tail0,
+                        device=ma.device)
+        walk(out, mdst, mmeta, rdst, rmeta, rec.lit)
     return out[WINDOW:]
 
 

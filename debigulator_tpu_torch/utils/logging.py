@@ -1,13 +1,16 @@
-"""Structured phase logging: the port's copy of debigulator_tpu's
-``PhaseLog``.  Lines go to stderr as ``[dbg] event key=value ...`` when
-the ``DBG_VERBOSITY`` environment variable is at least the line's level
-(1 per-item summaries, 2 per-phase detail)."""
+"""Structured phase logging: the port of debigulator_tpu/utils/logging.py.
+Lines go to stderr as ``[dbg] event key=value ...`` when the verbosity is
+at least the line's level (1 per-item summaries, 2 per-phase detail): the
+larger of ``Config.verbosity`` (which the CLIs' -v/-vv raise) and the
+``DBG_VERBOSITY`` environment variable, read at call time."""
 
 from __future__ import annotations
 
 import os
 import sys
 import time
+
+from debigulator_tpu_torch.utils.config import get_config
 
 
 def _fmt(v) -> str:
@@ -17,8 +20,9 @@ def _fmt(v) -> str:
 
 
 def log(level: int, event: str, **fields) -> None:
-    """Emit one structured line iff DBG_VERBOSITY >= level."""
-    if int(os.environ.get("DBG_VERBOSITY", "0")) < level:
+    """Emit one structured line iff the verbosity is at least ``level``."""
+    if max(get_config().verbosity,
+           int(os.environ.get("DBG_VERBOSITY", "0"))) < level:
         return
     kv = " ".join(f"{k}={_fmt(v)}" for k, v in fields.items())
     sys.stderr.write(f"[dbg] {event}{' ' if kv else ''}{kv}\n")

@@ -10,47 +10,19 @@ import numpy as np
 import pytest
 import torch
 
-MODULES = [
-    "debigulator_tpu_torch",
-    "debigulator_tpu_torch.constants",
-    "debigulator_tpu_torch.device",
-    "debigulator_tpu_torch.native",
-    "debigulator_tpu_torch.native.scanner",
-    "debigulator_tpu_torch.ops.checksum",
-    "debigulator_tpu_torch.ops.deflate_encode",
-    "debigulator_tpu_torch.ops.deflate_encode_device",
-    "debigulator_tpu_torch.ops.graph",
-    "debigulator_tpu_torch.ops.huffman",
-    "debigulator_tpu_torch.ops.inflate",
-    "debigulator_tpu_torch.ops.inflate_ref",
-    "debigulator_tpu_torch.ops.lz77",
-    "debigulator_tpu_torch.ops.phase_a",
-    "debigulator_tpu_torch.ops.phase_b",
-    "debigulator_tpu_torch.ops.plan",
-    "debigulator_tpu_torch.ops.scanner",
-    "debigulator_tpu_torch.ops.unfilter",
-    "debigulator_tpu_torch.ops._kernels",
-    "debigulator_tpu_torch.ops.archive",
-    "debigulator_tpu_torch.ops.archive.host_fed",
-    "debigulator_tpu_torch.ops.archive.inflate_generations",
-    "debigulator_tpu_torch.ops.archive.lz77_generations",
-    "debigulator_tpu_torch.models.bmp_codec",
-    "debigulator_tpu_torch.models.gzip_codec",
-    "debigulator_tpu_torch.models.pipeline",
-    "debigulator_tpu_torch.models.png_codec",
-    "debigulator_tpu_torch.models.zlib_codec",
-    "debigulator_tpu_torch.parallel.batch",
-    "debigulator_tpu_torch.parallel.merged",
-    "debigulator_tpu_torch.parallel.mesh",
-    "debigulator_tpu_torch.parallel.split_stream",
-    "debigulator_tpu_torch.tools.event_chase",
-    "debigulator_tpu_torch.tools.first_call",
-    "debigulator_tpu_torch.tools.microbench_pb",
-    "debigulator_tpu_torch.tools.profile_merged",
-    "debigulator_tpu_torch.tools.unfilter_bands",
-    "debigulator_tpu_torch.utils.logging",
-    "debigulator_tpu_torch.utils.manifest",
-]
+
+def _walk_modules() -> list[str]:
+    """Every module of the port, found by walking the package."""
+    import pkgutil
+
+    import debigulator_tpu_torch
+
+    return ["debigulator_tpu_torch"] + sorted(
+        m.name for m in pkgutil.walk_packages(debigulator_tpu_torch.__path__,
+                                              "debigulator_tpu_torch."))
+
+
+MODULES = _walk_modules()
 
 _CHECK = """
 import sys, zlib
@@ -85,6 +57,24 @@ print("BAD", bad)
 """
 
 
+def test_module_walk_covers_every_source_file():
+    """The walk finds each .py file of the package (new ones included) and
+    every module the hand-kept list of earlier slices named."""
+    import pathlib
+
+    import debigulator_tpu_torch
+
+    root = pathlib.Path(debigulator_tpu_torch.__file__).parent
+    files = {".".join(("debigulator_tpu_torch",) + p.relative_to(root)
+                      .with_suffix("").parts).removesuffix(".__init__")
+             for p in root.rglob("*.py") if "build" not in p.parts}
+    assert files == set(MODULES)
+    assert {"debigulator_tpu_torch.parallel.multihost",
+            "debigulator_tpu_torch.cli.cuda_gz",
+            "debigulator_tpu_torch.utils.sanitize",
+            "debigulator_tpu_torch.tools.event_chase"} <= files
+
+
 def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", _CHECK.format(mods=MODULES)],
                        capture_output=True, text=True, timeout=300)
@@ -117,12 +107,23 @@ def _entry_calls():
         profile_merged,
     )
 
+    import tempfile
+    from pathlib import Path
+
+    from debigulator_tpu_torch.cli import cuda_gz, cuda_png
+    from debigulator_tpu_torch.utils import profiling
+
     data = b"default device " * 100
     arr = np.frombuffer(data, np.uint8)
     c = zlib.compressobj(6, zlib.DEFLATED, -15)
     raw = c.compress(data) + c.flush()
     img = np.zeros((4, 4, 4), np.uint8)
     png = encode_png(img, device="cpu")
+    tmp = Path(tempfile.mkdtemp())
+    gz_path, png_path, raw_path = tmp / "a.gz", tmp / "a.png", tmp / "a.raw"
+    gz_path.write_bytes(gzip.compress(data))
+    png_path.write_bytes(png)
+    img.tofile(raw_path)
     return {
         "decode_merged": lambda: decode_merged([raw]),
         "decode_gzip_device": lambda: pl.decode_gzip_device(gzip.compress(data)),
@@ -133,7 +134,10 @@ def _entry_calls():
         "decode_png_batch": lambda: pl.decode_png_batch([png]),
         "decode_corpus": lambda: pl.decode_corpus([]),
         "encode_png": lambda: encode_png(img),
-        "encode_zlib": lambda: encode_zlib(data),
+        # encode_zlib's own default is the host encoder; the device encoder
+        # it reaches through deflate_fn defaults to the card.
+        "encode_zlib": lambda: encode_zlib(
+            data, deflate_fn=dev.deflate_fixed_device),
         "deflate_fixed_device": lambda: dev.deflate_fixed_device(data),
         "lz77_parse_device": lambda: dev.lz77_parse_device(arr),
         "lz77_parse_device_short": lambda: dev.lz77_parse_device(arr[:5]),
@@ -153,6 +157,13 @@ def _entry_calls():
         "decode_split_emulated": lambda: split_stream.decode_split_emulated(
             raw, 2),
         "decode_split_stream": lambda: split_stream.decode_split_stream(raw),
+        "device_trace": lambda: profiling.device_trace(
+            str(tmp / "trace")).__enter__(),
+        "cuda_gz": lambda: cuda_gz.main(["decode", str(gz_path), "-o",
+                                         str(tmp / "out")]),
+        "cuda_png_decode": lambda: cuda_png.main(["decode", str(png_path)]),
+        "cuda_png_encode": lambda: cuda_png.main(
+            ["encode", str(raw_path), "4x4", "-o", str(tmp / "o.png")]),
     }
 
 
@@ -164,7 +175,8 @@ def _entry_calls():
     "lz77_select_device", "build_v9_arrays", "profile_merged",
     "host_fed_inputs", "build_group_arrays_v10", "literal_runs",
     "microbench_pb", "event_chase", "make_mesh", "decode_batch_device",
-    "decode_split_emulated", "decode_split_stream"])
+    "decode_split_emulated", "decode_split_stream", "device_trace", "cuda_gz",
+    "cuda_png_decode", "cuda_png_encode"])
 def test_entry_points_default_to_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")

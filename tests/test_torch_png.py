@@ -14,6 +14,7 @@ from debigulator_tpu.ops import deflate_encode_jnp as jax_dev
 from debigulator_tpu.ops import unfilter as jax_uf
 from debigulator_tpu_torch.models import bmp_codec, png_codec, zlib_codec
 from debigulator_tpu_torch.models import pipeline as pl
+from debigulator_tpu_torch.ops.deflate_encode_device import deflate_fixed_device
 from torch_png_cases import CASES, make_case
 from torch_stream_cases import ensure_reference_native
 
@@ -45,7 +46,9 @@ def test_encode_png_matches_jax_and_round_trips(ch):
     h, w = 19, 23
     img = (rng.randint(0, 256, (h, w, ch)) // 16 * 16).astype(np.uint8)
     img[::3] = img[0]
-    got = png_codec.encode_png(img, device="cpu")
+    got = png_codec.encode_png(
+        img, deflate_fn=lambda d: deflate_fixed_device(
+            d, stride=1 + w * ch, device="cpu"), device="cpu")
     want = jax_png.encode_png(
         img,
         deflate_fn=lambda d: jax_dev.deflate_fixed_device(d, stride=1 + w * ch),
@@ -68,7 +71,8 @@ def test_zlib_codec_matches_jax():
     assert zlib_codec.decode_zlib(blob) == data
     assert vars(zlib_codec.parse_zlib_header(blob)) == \
         vars(jax_zlib.parse_zlib_header(blob))
-    enc = zlib_codec.encode_zlib(data, device="cpu")
+    enc = zlib_codec.encode_zlib(
+        data, deflate_fn=lambda d: deflate_fixed_device(d, device="cpu"))
     assert enc == jax_zlib.encode_zlib(data,
                                        deflate_fn=jax_dev.deflate_fixed_device)
     assert zlib.decompress(enc) == data
@@ -78,6 +82,27 @@ def test_zlib_codec_matches_jax():
         zlib_codec.decode_zlib(bytes(bad))
     with pytest.raises(zlib_codec.ZlibError, match="FCHECK"):
         zlib_codec.parse_zlib_header(b"\x78\x00")
+
+
+@pytest.mark.parametrize("ch", [1, 3, 4])
+def test_encode_defaults_match_jax_defaults(ch):
+    """encode_png and encode_zlib with their defaults give the JAX
+    package's bytes with its defaults: the host filter search's choice and
+    the host best-of-three deflate (here a dynamic block)."""
+    from debigulator_tpu.models import zlib_codec as jax_zlib
+
+    rng = np.random.RandomState(10 + ch)
+    h, w = 21, 34
+    img = (rng.randint(0, 256, (h, w, ch)) // 32 * 32).astype(np.uint8)
+    img[1::4] = img[0]
+    got = png_codec.encode_png(img, device="cpu")
+    assert got == jax_png.encode_png(img)
+    assert np.array_equal(png_codec.decode_png(got), jax_png.decode_png(got))
+    data = b"zlib container with its default encoder " * 80
+    enc = zlib_codec.encode_zlib(data)
+    assert enc == jax_zlib.encode_zlib(data)
+    assert zlib.decompress(enc) == data
+    assert enc[2] & 0x06 == 0x04  # BTYPE 2: the dynamic block won
 
 
 def test_pil_pngs_decode():
