@@ -124,15 +124,30 @@ Each phase prints one JSON line:
   matches and their share, host plan and staging ms, phase 1 and each
   round by CUDA events, e2e ms and walk launches; the walk against its
   plain version on shard 1's phase-1 list and first patch round;
+* front_door: the host encoder on the card's host (deflate and
+  encode_gzip of the OBJ text, ms and bytes; encode_png with its default,
+  the host encoder, on a 512 x 512 crop of the encode path's image beside
+  the device encoder on the same rows), then the CLIs as subprocesses:
+  cuda_gz decode --repeat 3 --trace of the text gzipped by encode_gzip and
+  by gzip (first and steady ms, the top-ops list, which names the
+  flagship's scopes, and the kernels of the trace, which must hold Phase
+  A, compact and the walk), cuda_gz encode, cuda_png decode --bench of
+  the 16-image corpus, encode and roundtrip of a 192 x 192 crop, cuda_bmp
+  roundtrip and info; every output checked against zlib or the pixels;
+* multihost: parallel/multihost.py's world of two processes on the card
+  over the 29 streams (gloo carries the manifest) beside a world of one:
+  every stream exact in its worker, the manifest equal to zlib's sizes
+  and CRC-32s, rows 1-3 launched in every worker, each worker's ms;
 * kernels: per kernel its launches on its path, times and bound (the
   rows on the group chase also their replayed ms and scratch bytes; the
   walk and the unfilter also their launches on parallel_paths, the walk
   its split shapes).
 
-With --parallel-only the script builds, then runs parallel_paths alone
-with its meshes over every card the machine has (the sp mesh takes the
-cards in turn, the dp meshes one row a card), and prints no kernels line:
-the check of the mesh layer across cards.
+With --parallel-only the script builds, then runs parallel_paths with its
+meshes over every card the machine has (the sp mesh takes the cards in
+turn, the dp meshes one row a card) and multihost with one rank a card
+(at least two), and prints no kernels line: the check of the mesh layer
+and of multi-process decode across cards.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them, and the last line is {"ok": true, "device": {...}}.  Any
@@ -3050,13 +3065,20 @@ def parallel_phases(dev, base: bytes, streams: list[bytes], cards=None):
 # ---------------------------------------------------------------------------
 
 ROOT = Path(__file__).resolve().parent
-#: The port's kernels of the gzip path, as they are named in a profiler
-#: trace: Phase A (its table, then the decode), compact, and the walk.
+#: The port's kernels of the gzip path, as a profiler trace names them:
+#: Phase A (its table, then the decode), compact, and the walk.
 TRACE_KERNELS = {"phase_a": ("phase_a_kernel", "lut_kernel"),
                  "compact": ("compact_kernel",),
                  "walk": ("run_kernel", "pointer_kernel", "chase_kernel")}
-#: The flagship's named scopes around those kernels.
-TRACE_SCOPES = ("phase_a_huffman", "phase_b_lz77", "v15_compact", "v15_walk")
+#: The flagship's named scopes around those kernels.  On one 562 KB stream
+#: each kernel runs 5-16 us, under the 100 us cut of the top-ops list, so
+#: that list names the scopes and the CLI lists the kernels after it.
+TRACE_SCOPES = ("phase_a_huffman", "phase_b_lz77", "v15_prep", "v15_compact",
+                "v15_walk")
+#: Side of the top-left crop of the encode path's image that encode_png
+#: encodes with its default, the host encoder: the whole 1024 x 1024 image
+#: took 190 s of host time on the card's machine.
+HOST_PNG_SIDE = 512
 #: Side of the crop that cuda_png encode and roundtrip take: the host
 #: encoder and the serial Python inflate of roundtrip make a whole corpus
 #: image minutes of host time.
@@ -3085,32 +3107,22 @@ def first_steady(err: str) -> dict:
     return {"first_ms": float(m.group(1)), "steady_ms": float(m.group(2))}
 
 
-def top_ops(err: str) -> list:
-    """The (ms, name) rows of --trace's top-ops list."""
+def listed_rows(err: str, heading: str) -> list:
+    """The rows a cuda_gz --trace printed under ``heading`` ("top ops:":
+    [ms, name]; "device kernels:": [ms, launches, name])."""
     rows = []
-    for line in err.split("top ops:\n", 1)[1].splitlines():
+    if heading not in err:
+        return rows
+    for line in err.split(heading + "\n", 1)[1].splitlines():
         if not line.startswith("  "):
             break
-        ms, name = line.split(" ms  ", 1)
-        rows.append([float(ms), name])
+        ms, rest = line.split(" ms  ", 1)
+        if heading == "device kernels:":
+            n, name = rest.strip().split("x  ", 1)
+            rows.append([float(ms), int(n), name])
+        else:
+            rows.append([float(ms), rest])
     return rows
-
-
-def trace_kernel_events(logdir: Path) -> dict:
-    """Kernel events in the Chrome traces under ``logdir``, for each of
-    TRACE_KERNELS: [launches, device ms, longest launch us]."""
-    found = {k: [0, 0.0, 0.0] for k in TRACE_KERNELS}
-    for f in logdir.glob("**/*.json"):
-        for e in json.loads(f.read_text()).get("traceEvents", []):
-            if e.get("cat") != "kernel":
-                continue
-            for k, names in TRACE_KERNELS.items():
-                if any(n + "(" in e.get("name", "") or
-                       n + "<" in e.get("name", "") for n in names):
-                    found[k][0] += 1
-                    found[k][1] += e.get("dur", 0) / 1e3
-                    found[k][2] = max(found[k][2], e.get("dur", 0))
-    return found
 
 
 def front_door_phase(dev, base: bytes) -> dict:
@@ -3122,8 +3134,8 @@ def front_door_phase(dev, base: bytes) -> dict:
     shown to hold the port's Phase A, compact and walk kernels on the card.
     Before them, in this process on the card's host: the host encoder on
     the text (deflate, encode_gzip) and encode_png with its default (the
-    host encoder) on the encode path's 1024x1024 RGBA image, beside the
-    device encoder on the same rows."""
+    host encoder) on a HOST_PNG_SIDE crop of the encode path's 1024x1024
+    RGBA image, beside the device encoder on the same rows."""
     import tempfile
 
     from debigulator_tpu_torch.models import bmp_codec, png_codec
@@ -3153,7 +3165,8 @@ def front_door_phase(dev, base: bytes) -> dict:
         "btype": (raw[0] >> 1) & 3}
 
     corpus = make_corpus(0)
-    src = corpus[0][2]  # the encode path's 1024 x 1024 RGBA image
+    full = corpus[0][2]  # the encode path's 1024 x 1024 RGBA image
+    src = np.ascontiguousarray(full[:HOST_PNG_SIDE, :HOST_PNG_SIDE])
     h, w, ch = src.shape
     t0 = time.perf_counter()
     png_host = png_codec.encode_png(src, device=dev)
@@ -3168,7 +3181,8 @@ def front_door_phase(dev, base: bytes) -> dict:
     png_dev = png_codec.encode_png(src, deflate_fn=device_deflate, device=dev)
     dev_png_ms = (time.perf_counter() - t0) * 1e3
     line["encode_png"] = {
-        "image": f"{w}x{h}x{ch}", "filtered_bytes": h * (1 + w * ch),
+        "image": f"{w}x{h}x{ch}", "cut": f"top-left {w}x{h} of "
+        f"{full.shape[1]}x{full.shape[0]}", "filtered_bytes": h * (1 + w * ch),
         "default_ms": host_png_ms, "default_bytes": len(png_host),
         "device_encoder_ms": dev_png_ms, "device_encoder_bytes": len(png_dev),
         "exact": True}
@@ -3188,22 +3202,21 @@ def front_door_phase(dev, base: bytes) -> dict:
                         "--device", dev.type)
             if out.read_bytes() != base:
                 raise AssertionError(f"cuda_gz decode of {name} is not exact")
-            ops = top_ops(r["err"])
-            kernels = trace_kernel_events(logdir)
-            missing = [k for k, v in kernels.items() if not v[0]]
-            if missing:
+            ops = listed_rows(r["err"], "top ops:")
+            kernels = listed_rows(r["err"], "device kernels:")
+            missing = [k for k, names in TRACE_KERNELS.items()
+                       if not any(n in row[2] for row in kernels
+                                  for n in names)]
+            scopes = [sc for sc in TRACE_SCOPES if sc in {n for _, n in ops}]
+            if missing or not {"phase_a_huffman", "phase_b_lz77"} <= set(scopes):
                 raise AssertionError(
-                    f"cuda_gz --trace of {name} holds no kernel event of "
-                    f"{missing}: the CLI did not launch them on the card")
-            listed = {n for _, n in ops}
+                    f"cuda_gz --trace of {name} lists no kernel of {missing} "
+                    f"or misses the flagship's scopes ({scopes}): the CLI "
+                    "did not run them on the card")
             line["cuda_gz"][name] = {
                 "compressed_bytes": len(blob), **first_steady(r["err"]),
                 "wall_ms": r["wall_ms"], "top_ops": ops,
-                "scopes_listed": [s for s in TRACE_SCOPES if s in listed],
-                "kernels_listed": {k: any(any(n in name for n in names)
-                                          for name in listed)
-                                   for k, names in TRACE_KERNELS.items()},
-                "trace_kernels": kernels}
+                "scopes_listed": scopes, "device_kernels": kernels}
         r = run_cli("cuda_gz", "encode", str(tmp / "obj.txt"), "-o",
                     str(tmp / "enc.gz"))
         blob = (tmp / "enc.gz").read_bytes()
@@ -3241,21 +3254,22 @@ def front_door_phase(dev, base: bytes) -> dict:
         line["cuda_png"] = {
             "decode": {"images": len(files), "total": lines[-1],
                        "wall_ms": r["wall_ms"]},
-            "encode": {"crop": f"{CLI_CROP}x{CLI_CROP} of {w}x{h}",
+            "encode": {"crop": f"{CLI_CROP}x{CLI_CROP} of "
+                                f"{full.shape[1]}x{full.shape[0]}",
                        "png_bytes": len(crop_png), "wall_ms": r2["wall_ms"],
                        "stderr": r2["err"].strip()[-200:]},
             "roundtrip": {"wall_ms": r3["wall_ms"],
                           "stderr": r3["err"].strip()[-200:]}}
 
         # --- cuda_bmp ------------------------------------------------------
-        bmp = bmp_codec.encode_bmp(src)
+        bmp = bmp_codec.encode_bmp(full)
         (tmp / "img.bmp").write_bytes(bmp)
         r = run_cli("cuda_bmp", "roundtrip", str(tmp / "img.bmp"), "-o",
                     str(tmp / "out.bmp"))
         if (tmp / "out.bmp").read_bytes() != bmp or "bit-exact" not in r["err"]:
             raise AssertionError("cuda_bmp roundtrip is not exact")
         ri = run_cli("cuda_bmp", "info", str(tmp / "img.bmp"))
-        if not ri["out"].strip().endswith(f"{w}x{h}"):
+        if not ri["out"].strip().endswith(f"{full.shape[1]}x{full.shape[0]}"):
             raise AssertionError(f"cuda_bmp info: {ri['out']}")
         line["cuda_bmp"] = {"bytes": len(bmp), "wall_ms": r["wall_ms"],
                             "info_wall_ms": ri["wall_ms"]}

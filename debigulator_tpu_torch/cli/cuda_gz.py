@@ -34,7 +34,8 @@ def main(argv=None) -> int:
     d.add_argument("--trace", metavar="LOGDIR", nargs="?",
                    const=DEFAULT_LOGDIR,
                    help="capture a torch.profiler trace around the "
-                        "steady-state decode and print the top ops")
+                        "steady-state decode and print the top ops (and, "
+                        "on the card, the kernels)")
     d.add_argument("--device", default="cuda",
                    help="device of the decode (default cuda)")
     e = sub.add_parser("encode")
@@ -66,6 +67,7 @@ def main(argv=None) -> int:
         if args.trace:
             from debigulator_tpu_torch.utils.profiling import (
                 device_trace,
+                trace_kernel_summary,
                 trace_op_summary,
             )
 
@@ -74,6 +76,12 @@ def main(argv=None) -> int:
             sys.stderr.write(f"trace written to {logdir}; top ops:\n")
             for ms, name in trace_op_summary(logdir, top=10):
                 sys.stderr.write(f"  {ms:9.2f} ms  {name}\n")
+            # On the card: the kernels themselves, each launch however short.
+            kernels = trace_kernel_summary(logdir, top=10)
+            if kernels:
+                sys.stderr.write("device kernels:\n")
+            for ms, n, name in kernels:
+                sys.stderr.write(f"  {ms:9.4f} ms  {n:3d}x  {name[:100]}\n")
         if args.repeat > 1:
             t0 = time.time()
             for _ in range(args.repeat - 1):

@@ -64,19 +64,40 @@ def named_scope(name: str):
             torch.cuda.nvtx.range_pop()
 
 
-def trace_op_summary(logdir: str, top: int = 15) -> list[tuple[float, str]]:
-    """(total_ms, name) rows of the traces under ``logdir`` (``.json`` or
-    ``.json.gz``, any depth): complete ("X") events longer than 100 us,
-    summed by name, largest first."""
-    agg: dict[str, float] = {}
+def _trace_events(logdir: str):
+    """Every event of the Chrome traces under ``logdir`` (``.json`` or
+    ``.json.gz``, any depth)."""
     files = (glob.glob(f"{logdir}/**/*.json", recursive=True)
              + glob.glob(f"{logdir}/**/*.json.gz", recursive=True))
     for f in files:
         opener = gzip.open if f.endswith(".gz") else open
         with opener(f, "rt") as fh:
-            data = json.load(fh)
-        for e in data.get("traceEvents", []):
-            if e.get("ph") == "X" and e.get("dur", 0) > 100:
-                agg[e.get("name", "?")] = agg.get(e.get("name", "?"), 0) + e["dur"]
+            yield from json.load(fh).get("traceEvents", [])
+
+
+def trace_op_summary(logdir: str, top: int = 15) -> list[tuple[float, str]]:
+    """(total_ms, name) rows of the traces under ``logdir``: complete
+    ("X") events longer than 100 us, summed by name, largest first."""
+    agg: dict[str, float] = {}
+    for e in _trace_events(logdir):
+        if e.get("ph") == "X" and e.get("dur", 0) > 100:
+            agg[e.get("name", "?")] = agg.get(e.get("name", "?"), 0) + e["dur"]
     rows = sorted(((v / 1e3, k) for k, v in agg.items()), reverse=True)
+    return rows[:top]
+
+
+def trace_kernel_summary(logdir: str,
+                         top: int = 10) -> list[tuple[float, int, str]]:
+    """(total_ms, launches, name) rows of the CUDA kernels in the traces
+    under ``logdir``, summed by name, largest first, however short each
+    launch (the kernels of one call on a small input run microseconds,
+    below ``trace_op_summary``'s cut).  Empty for a CPU trace."""
+    agg: dict[str, list] = {}
+    for e in _trace_events(logdir):
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            row = agg.setdefault(e.get("name", "?"), [0.0, 0])
+            row[0] += e.get("dur", 0)
+            row[1] += 1
+    rows = sorted(((v[0] / 1e3, v[1], k) for k, v in agg.items()),
+                  reverse=True)
     return rows[:top]

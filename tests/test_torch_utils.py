@@ -169,3 +169,21 @@ def test_preview_matches_jax():
         assert preview.ascii_preview(img, width=20) == \
             jax_preview.ascii_preview(img, width=20)
         assert preview.summary(img) == jax_preview.summary(img)
+
+
+def test_trace_kernel_summary_sums_kernel_events(tmp_path):
+    """Kernel events of a card's trace, however short, summed by name with
+    their launch counts; other events and CPU traces give nothing."""
+    import json
+
+    events = [{"ph": "X", "cat": "kernel", "name": "k_a(int*)", "dur": 12},
+              {"ph": "X", "cat": "kernel", "name": "k_a(int*)", "dur": 8},
+              {"ph": "X", "cat": "kernel", "name": "k_b(int*)", "dur": 30},
+              {"ph": "X", "cat": "cpu_op", "name": "aten::add", "dur": 500}]
+    (tmp_path / "t.json").write_text(json.dumps({"traceEvents": events}))
+    rows = profiling.trace_kernel_summary(str(tmp_path))
+    assert rows == [(0.03, 1, "k_b(int*)"), (0.02, 2, "k_a(int*)")]
+    assert profiling.trace_op_summary(str(tmp_path)) == [(0.5, "aten::add")]
+    with profiling.device_trace(str(tmp_path / "cpu"), device="cpu"):
+        torch.ones(4).sum()
+    assert profiling.trace_kernel_summary(str(tmp_path / "cpu")) == []
