@@ -1,8 +1,10 @@
 """Runtime configuration (the port of debigulator_tpu/utils/config.py):
-the reference's compile-time #defines (INFLATE_SILENCE,
-DECODE_PNG_IGNORE_CRC_CHECKS, hard-coded scratch sizes) as settings that
-can be switched at run time.  The JAX compilation cache has no
-counterpart here."""
+switches that the reference's compile-time #defines held, settable at
+run time.  Only the fields something reads are carried over: the JAX
+package's ``verify_checksums``, ``strict`` and ``use_native_scanner`` have
+no reader there (checksums are a ``verify=`` argument of each decode, the
+native scan is switched off by ``DBG_NO_NATIVE``), and its compilation
+cache has no counterpart here."""
 
 from __future__ import annotations
 
@@ -12,12 +14,6 @@ import os
 
 @dataclasses.dataclass
 class Config:
-    #: Verify CRC-32 / Adler-32 / ISIZE on decode (reference skips most).
-    verify_checksums: bool = True
-    #: Reject malformed streams instead of best-effort output.
-    strict: bool = True
-    #: Use the native C++ host scanner when available.
-    use_native_scanner: bool = True
     #: The default of ``ops.inflate.inflate_device_dev``'s ``use_kernels``:
     #: False sends every stream through the all-tensor-op v3 driver, with
     #: no CUDA kernel (the reference's ``use_pallas_lz77``).

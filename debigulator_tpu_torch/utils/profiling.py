@@ -87,11 +87,12 @@ def trace_op_summary(logdir: str, top: int = 15) -> list[tuple[float, str]]:
 
 
 def trace_kernel_summary(logdir: str,
-                         top: int = 10) -> list[tuple[float, int, str]]:
+                         top: int | None = 10) -> list[tuple[float, int, str]]:
     """(total_ms, launches, name) rows of the CUDA kernels in the traces
-    under ``logdir``, summed by name, largest first, however short each
-    launch (the kernels of one call on a small input run microseconds,
-    below ``trace_op_summary``'s cut).  Empty for a CPU trace."""
+    under ``logdir``, summed by name, largest first (all of them with
+    ``top=None``), however short each launch: the kernels of one call on a
+    small input run microseconds, below ``trace_op_summary``'s cut.  Empty
+    for a CPU trace."""
     agg: dict[str, list] = {}
     for e in _trace_events(logdir):
         if e.get("ph") == "X" and e.get("cat") == "kernel":

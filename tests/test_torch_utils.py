@@ -23,8 +23,8 @@ from debigulator_tpu_torch.utils.sanitize import (
 def test_config_fields_and_defaults():
     cfg = config.get_config()
     assert cfg is config.get_config()
-    assert (cfg.verify_checksums, cfg.strict, cfg.use_native_scanner,
-            cfg.use_kernels) == (True, True, True, True)
+    assert cfg.use_kernels is True
+    assert isinstance(cfg.verbosity, int)
     assert not hasattr(cfg, "compilation_cache")
     assert not hasattr(config, "setup_jax_cache")
 
