@@ -130,10 +130,11 @@ Each phase prints one JSON line:
   the device encoder on the same rows), then the CLIs as subprocesses:
   cuda_gz decode --repeat 3 --trace of the text gzipped by encode_gzip and
   by gzip (first and steady ms, the top-ops list, which names the
-  flagship's scopes, and the kernels of the trace, which must hold Phase
-  A, compact and the walk), cuda_gz encode, cuda_png decode --bench of
-  the 16-image corpus, encode and roundtrip of a 192 x 192 crop, cuda_bmp
-  roundtrip and info; every output checked against zlib or the pixels;
+  flagship's scopes, and the trace's kernels as the CLI lists them, which
+  must hold Phase A, compact and the walk), cuda_gz encode, cuda_png
+  decode --bench of the 16-image corpus, encode and roundtrip of a 192 x
+  192 crop, cuda_bmp roundtrip and info; every output checked against
+  zlib or the pixels;
 * multihost: parallel/multihost.py's world of two processes on the card
   over the 29 streams (gloo carries the manifest) beside a world of one:
   every stream exact in its worker, the manifest equal to zlib's sizes
@@ -3071,8 +3072,8 @@ TRACE_KERNELS = {"phase_a": ("phase_a_kernel", "lut_kernel"),
                  "compact": ("compact_kernel",),
                  "walk": ("run_kernel", "pointer_kernel", "chase_kernel")}
 #: The flagship's named scopes around those kernels.  On one 562 KB stream
-#: each kernel runs 5-16 us, under the 100 us cut of the top-ops list, so
-#: that list names the scopes; the kernels are read from the trace.
+#: each kernel runs 2-16 us, under the 100 us cut of the top-ops list, so
+#: that list names the scopes; the CLI lists every kernel after it.
 TRACE_SCOPES = ("phase_a_huffman", "phase_b_lz77", "v15_prep", "v15_compact",
                 "v15_walk")
 #: Side of the top-left crop of the encode path's image that encode_png
@@ -3144,7 +3145,6 @@ def front_door_phase(dev, base: bytes) -> dict:
     from debigulator_tpu_torch.ops import deflate_encode as henc
     from debigulator_tpu_torch.ops import deflate_encode_device as enc
     from debigulator_tpu_torch.utils.preview import summary
-    from debigulator_tpu_torch.utils.profiling import trace_kernel_summary
 
     line = {"phase": "front_door"}
     # --- host encoder on the card's host ---------------------------------
@@ -3204,24 +3204,22 @@ def front_door_phase(dev, base: bytes) -> dict:
             if out.read_bytes() != base:
                 raise AssertionError(f"cuda_gz decode of {name} is not exact")
             ops = listed_rows(r["err"], "top ops:")
-            printed = listed_rows(r["err"], "device kernels:")
+            # Every kernel of the trace, ranked by device time.
+            ranked = listed_rows(r["err"], "device kernels:")
             scopes = [sc for sc in TRACE_SCOPES if sc in {n for _, n in ops}]
-            # Every kernel of the trace, ranked by device time: the CLI
-            # prints the first 10, and the call's glue and CRC-32 run many.
-            ranked = trace_kernel_summary(str(logdir), top=None)
             ours = {k: [[i + 1, n, ms] for i, (ms, n, kname)
                         in enumerate(ranked) if any(x in kname for x in names)]
                     for k, names in TRACE_KERNELS.items()}
             missing = [k for k, rows in ours.items() if not rows]
             if missing or not {"phase_a_huffman", "phase_b_lz77"} <= set(scopes):
                 raise AssertionError(
-                    f"cuda_gz --trace of {name}: no kernel of {missing} in the "
-                    f"trace, or the flagship's scopes missing from the top "
-                    f"ops ({scopes}): the CLI did not run them on the card")
+                    f"cuda_gz --trace of {name} lists no kernel of {missing}, "
+                    f"or the top ops miss the flagship's scopes ({scopes}): "
+                    "the CLI did not run them on the card")
             line["cuda_gz"][name] = {
                 "compressed_bytes": len(blob), **first_steady(r["err"]),
                 "wall_ms": r["wall_ms"], "top_ops": ops,
-                "scopes_listed": scopes, "kernels_printed": printed,
+                "scopes_listed": scopes, "kernels": ranked[:12],
                 "trace_kernels": len(ranked),
                 "trace_launches": sum(n for _, n, _ in ranked),
                 "trace_kernel_ms": sum(ms for ms, _, _ in ranked),

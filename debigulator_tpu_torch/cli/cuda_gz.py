@@ -76,8 +76,9 @@ def main(argv=None) -> int:
             sys.stderr.write(f"trace written to {logdir}; top ops:\n")
             for ms, name in trace_op_summary(logdir, top=10):
                 sys.stderr.write(f"  {ms:9.2f} ms  {name}\n")
-            # On the card: the kernels themselves, each launch however short.
-            kernels = trace_kernel_summary(logdir, top=10)
+            # On the card: every kernel, however short its launches (one
+            # stream's run microseconds, under the top-ops list's cut).
+            kernels = trace_kernel_summary(logdir, top=None)
             if kernels:
                 sys.stderr.write("device kernels:\n")
             for ms, n, name in kernels:
