@@ -22,7 +22,8 @@ from __future__ import annotations
 import numpy as np
 
 from debigulator_tpu_torch import constants as C
-from debigulator_tpu_torch.ops.huffman import canonical_codes
+# HuffmanError is part of this module's interface: the code builds raise it.
+from debigulator_tpu_torch.ops.huffman import HuffmanError, canonical_codes  # noqa: F401
 
 _FIXED_LITLEN_LENGTHS = C.fixed_litlen_lengths()
 _FIXED_LITLEN_CODES = canonical_codes(_FIXED_LITLEN_LENGTHS)
