@@ -37,7 +37,7 @@ Each phase prints one JSON line:
   greedy walk at edge shapes, on a 4 MB filtered image, and at that size on
   every len 3 (no_merge), every len 11 and 258-long matches across every
   chunk boundary, each with the chunks' fix-up lengths;
-* png_path: a corpus of 16 PNGs made here from numpy seed 0 with zlib and
+* png_path: a corpus of 16 PNGs made from numpy seed 0 with zlib and
   struct (about 64 MB of RGBA: RGBA, RGB, gray+alpha, palette with tRNS,
   gray, and one image cycling through all five filters) through
   decode_png_corpus_device, decode_png_device and decode_png_batch, every
@@ -139,6 +139,14 @@ Each phase prints one JSON line:
   over the 29 streams (gloo carries the manifest) beside a world of one:
   every stream exact in its worker, the manifest equal to zlib's sizes
   and CRC-32s, rows 1-3 launched in every worker, each worker's ms;
+* tools: the five profiling tools of debigulator_tpu_torch/tools, each
+  function called here on the card at its defaults (trace_v15 on the 29
+  streams with its trace, profile_r3 on 16 copies of the first stream,
+  profile_encoder and profile_corpus on this script's corpus,
+  check_4k_unfilter on tools/inputs.k4_png's 4096x4096 RGBA image, whose
+  scanlines' sha256 is checked first), each with its wall seconds and the
+  launches of rows 1-5 and 9 it made (after the kernels line's counts were
+  read), and trace_v15 --no-trace once as a subprocess (its -m entry);
 * kernels: per kernel its launches on its path, times and bound (the
   rows on the group chase also their replayed ms and scratch bytes; the
   walk and the unfilter also their launches on parallel_paths, the walk
@@ -170,6 +178,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from debigulator_tpu_torch.tools.inputs import (
+    BIG_SIDE,
+    N_STREAMS,
+    big_image_png,
+    make_corpus,
+    make_png,
+    make_streams,
+    obj_text,
+    smooth_pixels,
+)
+
 #: H100 SXM published peaks (NVIDIA data sheet, as listed in the repo's
 #: measurement notes): HBM bandwidth, and the non-tensor 32-bit rate that
 #: the integer work of these kernels is counted against.
@@ -179,8 +198,6 @@ ALU_OPS_PER_S = 67e12
 #: probe with telescoped offset, table lookup, window and state update).
 OPS_PER_SYMBOL = 120
 
-N_STREAMS = 29
-BASE_BYTES = 561_872
 #: The hand-made shapes of group_case.
 GROUP_SHAPES = ("clashing", "two_writer", "many_writer")
 
@@ -194,44 +211,6 @@ def group_scratch_bytes(n_out: int, n_slots: int, piece: int = 128) -> int:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def obj_text(seed: int = 0, size: int = BASE_BYTES) -> bytes:
-    """Wavefront-OBJ-like text (v / vt / vn / f lines on a coarse grid, so
-    lines repeat the way exported meshes do), made from a numpy seed."""
-    rng = np.random.default_rng(seed)
-    parts = ["# Blender v2.79 (sub 0) OBJ File: ''\n# www.blender.org\n"
-             "mtllib sample.mtl\n"]
-    total, n, obj = len(parts[0]), 0, 0
-    while total < size:
-        obj += 1
-        nv = int(rng.integers(40, 120))
-        v = rng.integers(-24, 25, (nv, 3)) / 8.0
-        vt = rng.integers(0, 17, (nv, 2)) / 16.0
-        vn = rng.integers(-1, 2, (nv, 3)).astype(float)
-        lines = [f"o Mesh.{obj:03d}"]
-        lines += [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in v]
-        lines += [f"vt {u:.6f} {w:.6f}" for u, w in vt]
-        lines += [f"vn {x:.4f} {y:.4f} {z:.4f}" for x, y, z in vn]
-        lines += ["usemtl Material.001", "s off"]
-        for _ in range(nv):
-            idx = n + rng.integers(1, nv + 1, 3)
-            lines.append("f " + " ".join(f"{a}/{a}/{a}" for a in idx))
-        n += nv
-        chunk = "\n".join(lines) + "\n"
-        parts.append(chunk)
-        total += len(chunk)
-    return "".join(parts).encode()[:size]
-
-
-def make_streams(base: bytes, k: int) -> list[bytes]:
-    """bench.py's _make_streams: rotate the content, compress at 6..9."""
-    streams = []
-    for i in range(k):
-        rot = (i * 40961) % len(base)
-        c = zlib.compressobj(6 + (i % 4), zlib.DEFLATED, -15)
-        streams.append(c.compress(base[rot:] + base[:rot]) + c.flush())
-    return streams
 
 
 def time_ms(fn, reps: int) -> float:
@@ -277,132 +256,6 @@ def max_abs_err(got, want) -> int:
             raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
         err = max(err, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
     return err
-
-
-# ---------------------------------------------------------------------------
-# PNG corpus, made here: numpy pixels, a small filter writer, zlib, struct
-# ---------------------------------------------------------------------------
-
-PNG_SIGNATURE = bytes([137, 80, 78, 71, 13, 10, 26, 10])
-PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-#: (name, color type, height, width) of the corpus images; 713 x 1040 RGB
-#: is the shape of the reference corpus's most common images.
-CORPUS_SPECS = ([("rgba", 6, 1024, 1024)] * 6 + [("rgb", 2, 713, 1040)] * 5
-                + [("graya", 4, 351, 387)] * 2 + [("pal", 3, 480, 640),
-                                                 ("gray", 0, 2048, 2048),
-                                                 ("cycle", 6, 1024, 1024)])
-#: Side of the one large RGBA image decoded on its own.
-BIG_SIDE = 4096
-
-
-def smooth_pixels(rng, h: int, w: int, ch: int, noisy: bool = False) -> np.ndarray:
-    """(h, w, ch) uint8: stepped gradients, a band of low noise (every row
-    when `noisy`, which makes the zlib stream several times longer) and flat
-    rectangles, so the streams hold real matches of many lengths."""
-    y, x = np.mgrid[0:h, 0:w]
-    planes = []
-    for _ in range(ch):
-        kx, ky = (int(v) for v in rng.integers(1, 4, 2))
-        planes.append(((x * kx + y * ky) // int(rng.integers(3, 9))) & 0xFF)
-    img = np.stack(planes, -1).astype(np.uint8)
-    band = slice(0, h) if noisy else slice(h // 4, h // 2)
-    img[band] += rng.integers(0, 3, img[band].shape, dtype=np.uint8)
-    img[h // 2 : h // 2 + h // 4, w // 3 : 2 * w // 3] = \
-        rng.integers(0, 256, ch, dtype=np.uint8)
-    img[-(h // 8 + 1) :, : w // 2] = rng.integers(0, 256, ch, dtype=np.uint8)
-    return img
-
-
-def filter_scanlines(pix: np.ndarray, ftypes=None) -> bytes:
-    """PNG filtering of (h, w, ch) samples: per row the filter type given,
-    or the one with the least sum of absolute signed residuals."""
-    h, w, ch = pix.shape
-    stride = w * ch
-    raw = pix.reshape(h, stride).astype(np.int16)
-    left = np.zeros_like(raw)
-    left[:, ch:] = raw[:, :-ch]
-    up = np.zeros_like(raw)
-    up[1:] = raw[:-1]
-    upleft = np.zeros_like(raw)
-    upleft[1:, ch:] = raw[:-1, :-ch]
-    p = left + up - upleft
-    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
-    paeth = np.where((pa <= pb) & (pa <= pc), left,
-                     np.where(pb <= pc, up, upleft))
-    del p, pa, pb, pc, upleft
-    out = np.empty((h, 1 + stride), np.uint8)
-    best = np.full(h, np.iinfo(np.int64).max)
-    for f, pred in enumerate((0, left, up, (left + up) >> 1, paeth)):
-        cand = ((raw - pred) & 0xFF).astype(np.uint8)
-        if ftypes is None:
-            score = np.abs(cand.view(np.int8).astype(np.int16)).sum(
-                1, dtype=np.int64)
-            rows = score < best
-            best = np.where(rows, score, best)
-        else:
-            rows = np.asarray(ftypes) == f
-        out[rows, 0] = f
-        out[rows, 1:] = cand[rows]
-    return out.tobytes()
-
-
-def png_chunk(ctype: bytes, payload: bytes) -> bytes:
-    return (struct.pack(">I", len(payload)) + ctype + payload
-            + struct.pack(">I", zlib.crc32(ctype + payload)))
-
-
-def make_png(pix: np.ndarray, color_type: int, level: int, palette=None,
-             trns=None, ftypes=None) -> tuple[bytes, bytes]:
-    """(PNG file, its filtered scanlines) for (h, w, ch) samples."""
-    h, w, _ = pix.shape
-    filtered = filter_scanlines(pix, ftypes)
-    out = PNG_SIGNATURE + png_chunk(
-        b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
-    if palette is not None:
-        out += png_chunk(b"PLTE", palette.tobytes())
-    if trns is not None:
-        out += png_chunk(b"tRNS", trns.tobytes())
-    out += png_chunk(b"IDAT", zlib.compress(filtered, level))
-    return out + png_chunk(b"IEND", b""), filtered
-
-
-def to_rgba(pix: np.ndarray, color_type: int, palette=None, trns=None):
-    """The (h, w, 4) RGBA a decoder must give for these samples."""
-    h, w, _ = pix.shape
-    rgba = np.full((h, w, 4), 255, np.uint8)
-    if color_type == 6:
-        rgba[:] = pix
-    elif color_type == 2:
-        rgba[..., :3] = pix
-    elif color_type == 0:
-        rgba[..., :3] = pix
-    elif color_type == 4:
-        rgba[..., :3], rgba[..., 3] = pix[..., :1], pix[..., 1]
-    else:
-        alpha = np.full(len(palette), 255, np.uint8)
-        alpha[: len(trns)] = trns
-        rgba[..., :3], rgba[..., 3] = palette[pix[..., 0]], alpha[pix[..., 0]]
-    return rgba
-
-
-def make_corpus(seed: int = 0):
-    """The 16-image corpus: [(name, png, expected RGBA, filtered scanlines,
-    (h, w, bpp))]."""
-    rng = np.random.default_rng(seed)
-    corpus = []
-    for k, (name, ct, h, w) in enumerate(CORPUS_SPECS):
-        ch = PNG_CHANNELS[ct]
-        palette = trns = ftypes = None
-        pix = smooth_pixels(rng, h, w, ch)
-        if ct == 3:
-            palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
-            trns = rng.integers(0, 256, 64, dtype=np.uint8)
-        if name == "cycle":
-            ftypes = np.arange(h) % 5
-        png, filtered = make_png(pix, ct, 6 + k % 4, palette, trns, ftypes)
-        corpus.append((f"{name}{k}", png, to_rgba(pix, ct, palette, trns),
-                       filtered, (h, w, ch)))
-    return corpus
 
 
 def gpu_filtered(filtered: bytes, dev) -> torch.Tensor:
@@ -908,14 +761,6 @@ def greedy_cases(dev, filtered: np.ndarray, stride: int, chunk: int) -> dict:
             "cross_chunk": (cross, far), "dists": dists}
 
 
-def big_image_png() -> tuple[bytes, bytes, np.ndarray]:
-    """The noisy BIG_SIDE x BIG_SIDE RGBA image (numpy seed 1) as a level-6
-    PNG: (PNG, filtered scanlines, pixels)."""
-    pix = smooth_pixels(np.random.default_rng(1), BIG_SIDE, BIG_SIDE, 4,
-                        noisy=True)
-    return (*make_png(pix, 6, 6), pix)
-
-
 def decode_breakdown(png: bytes, dev) -> dict:
     """One decode_png_device call taken apart: its host steps, each timed
     alone (median of 3: CRC and chunk parse, the native scan, the inflate
@@ -1028,9 +873,10 @@ def walk_phases(dev, base: bytes) -> dict:
                                 "max_abs_err": 0}}
 
 
-def png_and_encode_phases(dev):
+def png_and_encode_phases(dev, corpus):
     """The second slice: the unfilter and greedy-walk kernels against their
-    plain versions, the PNG decode path and the encode path.  Returns the
+    plain versions, the PNG decode path (``corpus``: make_corpus(0)) and
+    the encode path.  Returns the
     two kernels' entries for the `kernels` line and extra `kernel_times`
     fields."""
     from debigulator_tpu_torch.models import pipeline as pl
@@ -1052,7 +898,6 @@ def png_and_encode_phases(dev):
         return {k: fn.launches for k, fn in counted.items()}
 
     t0 = time.perf_counter()
-    corpus = make_corpus(0)
     big_png, big_filtered, big_pix = big_image_png()
     make_s = time.perf_counter() - t0
     pngs = [c[1] for c in corpus]
@@ -2949,13 +2794,14 @@ def split_walk_vs_plain(name, staged, p1_outs) -> list:
     return rows
 
 
-def parallel_phases(dev, base: bytes, streams: list[bytes], cards=None):
+def parallel_phases(dev, base: bytes, streams: list[bytes], corpus,
+                    cards=None):
     """The thirteenth slice: the split-stream decode of one stream over
     four shards (the 29 rotations as one 16,294,288-byte stream, and a 4
     MiB b"ab" run whose taint reaches every tail) through a 4-entry sp
     mesh of ``cards`` (``[dev]`` by default; the shards take the cards in
     turn); the batch layer on the 29 streams (on ``dev``, and over a mesh
-    of ``cards``) and on the PNG corpus through
+    of ``cards``) and on the PNG corpus (make_corpus(0)) through
     decode_png_batch(mesh=make_mesh()).  Every output exact.  Then the
     split path's parts: host plan, phase 1 and each round by CUDA events,
     and row 3 against its plain version on the split shapes.  Returns the
@@ -2974,7 +2820,6 @@ def parallel_phases(dev, base: bytes, streams: list[bytes], cards=None):
     for name, data in (("text", text), ("rle", rle)):
         c = zlib.compressobj(6, zlib.DEFLATED, -15)
         cases[name] = (c.compress(data) + c.flush(), data)
-    corpus = make_corpus(0)
     cards = cards or [dev]
     sp_mesh = make_mesh(dp=1, sp=n,
                         devices=[cards[i % len(cards)] for i in range(n)])
@@ -3126,7 +2971,7 @@ def listed_rows(err: str, heading: str) -> list:
     return rows
 
 
-def front_door_phase(dev, base: bytes) -> dict:
+def front_door_phase(dev, base: bytes, corpus) -> dict:
     """The CLIs as a user runs them, each a subprocess: cuda_gz decode
     (--repeat 3 --trace) of the OBJ text gzipped by the port's encode_gzip
     and by gzip, cuda_gz encode, cuda_png decode of the 16-image corpus
@@ -3165,7 +3010,6 @@ def front_door_phase(dev, base: bytes) -> dict:
         "zlib6_bytes": len(zlib.compress(base, 6)) - 6,
         "btype": (raw[0] >> 1) & 3}
 
-    corpus = make_corpus(0)
     full = corpus[0][2]  # the encode path's 1024 x 1024 RGBA image
     src = np.ascontiguousarray(full[:HOST_PNG_SIDE, :HOST_PNG_SIDE])
     h, w, ch = src.shape
@@ -3330,6 +3174,109 @@ def multihost_phase(streams: list[bytes], procs: int,
             "single_wall_ms": single_wall, "world_wall_ms": world_wall}
 
 
+# ---------------------------------------------------------------------------
+# The sixteenth slice: the profiling tools
+# ---------------------------------------------------------------------------
+
+#: sha256 of tools/inputs.k4_png()'s filtered scanlines (numpy makes them;
+#: the PNG's bytes depend on the machine's zlib as well).
+K4_SCANLINES_SHA256 = (
+    "c338ac4d71f6514e2ab66bfd9bd974ba35e37039e78e84ec272275b1841db7a0")
+
+
+def tools_phase(dev, streams: list[bytes], corpus) -> dict:
+    """The five tools' functions in this process on the card at their
+    defaults, each raising on any mismatch: its numbers, wall seconds and
+    the launches of rows 1-5 and 9 it made (check_4k_unfilter also its
+    stream's plan and one call taken apart by decode_breakdown); then
+    trace_v15 --no-trace as a subprocess."""
+    import hashlib
+    import os
+    import re
+
+    from debigulator_tpu_torch.models import png_codec
+    from debigulator_tpu_torch.ops import deflate_encode_device as denc
+    from debigulator_tpu_torch.ops import lz77 as lz
+    from debigulator_tpu_torch.ops import phase_a as pa
+    from debigulator_tpu_torch.ops import phase_b as pb
+    from debigulator_tpu_torch.ops import unfilter as uf
+    from debigulator_tpu_torch.ops.plan import (
+        CELL_BITS,
+        build_plan_v3,
+        v15_stream_too_large,
+    )
+    from debigulator_tpu_torch.ops.scanner import scan_stream_cells
+    from debigulator_tpu_torch.tools import (
+        check_4k_unfilter,
+        inputs,
+        profile_corpus,
+        profile_encoder,
+        profile_r3,
+        trace_v15,
+    )
+
+    counted = {"phase_a": pa.phase_a, "compact": pb.compact, "walk": pb.walk,
+               "unfilter": uf.unfilter, "greedy_walk": denc.greedy_walk,
+               "lz77_ops": lz.resolve_ops_v13}
+    t_phase = time.perf_counter()
+
+    def run(fn):
+        for w in counted.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = {k: w.launches for k, w in counted.items()}
+        return out
+
+    line = {"phase": "tools"}
+    r = run(lambda: trace_v15.trace(streams, dev))
+    r["trace_kernels"] = len(r["kernels"])
+    r["kernels"] = r["kernels"][:12]
+    line["trace_v15"] = r
+    line["profile_r3"] = run(lambda: profile_r3.profile(streams[:1] * 16, dev))
+    line["profile_encoder"] = run(
+        lambda: profile_encoder.profile(corpus[0][2], dev))
+    line["profile_corpus"] = run(lambda: profile_corpus.profile(
+        [(png, rgba) for _, png, rgba, _, _ in corpus], dev))
+    t0 = time.perf_counter()
+    png, raw, pix = inputs.k4_png()
+    build_s = time.perf_counter() - t0
+    if hashlib.sha256(raw).hexdigest() != K4_SCANLINES_SHA256:
+        raise AssertionError("k4_png's scanlines changed")
+    k4 = {"build_s": build_s, **run(lambda: check_4k_unfilter.check(
+        png, raw, pix, dev, os.cpu_count() or 1))}
+    del raw, pix
+    # Its stream's plan (one call, or the chunked long-stream decode) and
+    # one call taken apart.
+    stream = png_codec.parse_chunks(png).idat[2:]
+    blocks, lengths, cells = scan_stream_cells(stream, CELL_BITS)
+    plan = build_plan_v3(stream, blocks, lengths, cells=cells)
+    k4["plan"] = {"stream_bytes": len(stream), "blocks": len(blocks),
+                  "cells": plan.num_cells, "slots": plan.slots,
+                  "stored_bytes": len(plan.stored_val),
+                  "out_size": plan.out_size,
+                  "long_stream": v15_stream_too_large(plan)}
+    del stream, blocks, lengths, cells, plan
+    k4["breakdown"] = decode_breakdown(png, dev)
+    line["check_4k_unfilter"] = k4
+    del png
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "debigulator_tpu_torch.tools.trace_v15",
+         "--no-trace"], capture_output=True, text=True, timeout=600, cwd=ROOT)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    m = re.search(r"device/batch: ([\d.]+) ms -> ([\d.]+) GB/s", r.stdout)
+    if r.returncode != 0 or not m:
+        raise AssertionError(f"trace_v15 --no-trace exited {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    line["trace_v15_cli"] = {"device_ms": float(m.group(1)),
+                             "gbps": float(m.group(2)), "wall_ms": wall_ms}
+    line["wall_s"] = time.perf_counter() - t_phase
+    line["exact"] = True
+    return line
+
+
 def finish(smi: str) -> int:
     """The card's nvidia-smi line, then the last line."""
     print(smi, flush=True)
@@ -3382,7 +3329,7 @@ def main() -> int:
     if parallel_only:
         cards = [torch.device("cuda", i)
                  for i in range(torch.cuda.device_count())]
-        emit(parallel_phases(dev, base, streams, cards)[0])
+        emit(parallel_phases(dev, base, streams, make_corpus(0), cards)[0])
         torch.cuda.empty_cache()
         emit(multihost_phase(streams, max(2, len(cards))))
         return finish(smi)
@@ -3586,7 +3533,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- the second slice: PNG decode and the encoder -------------------
-    kernels2, times2 = png_and_encode_phases(dev)
+    corpus = make_corpus(0)
+    kernels2, times2 = png_and_encode_phases(dev, corpus)
     kernels += kernels2
     emit({"phase": "kernel_times", "cells_pad": cells_pad, "slots": slots,
           "matches": n_match, "runs": n_run, "literals": n_lit,
@@ -3643,15 +3591,20 @@ def main() -> int:
 
     # --- the thirteenth slice: split-stream decode and the batch layer ---
     torch.cuda.empty_cache()
-    line, extra = parallel_phases(dev, base, streams)
+    line, extra = parallel_phases(dev, base, streams, corpus)
     emit(line)
     for k in kernels:
         k.update(extra.get(k["name"], {}))
 
     # --- the fifteenth slice: the CLIs, the host encoder, multihost ------
     torch.cuda.empty_cache()
-    emit(front_door_phase(dev, base))
+    emit(front_door_phase(dev, base, corpus))
     emit(multihost_phase(streams, 2))
+
+    # --- the sixteenth slice: the tools, after the kernels line's counts
+    # were read (the phase resets them) ---------------------------------
+    torch.cuda.empty_cache()
+    emit(tools_phase(dev, streams, corpus))
 
     emit({"kernels": kernels})
     return finish(smi)

@@ -37,18 +37,21 @@ from debigulator_tpu_torch.parallel.merged import (
 )
 
 
-def _sync(dev: torch.device) -> None:
+def sync(dev: torch.device) -> None:
+    """Wait for the card's work (nothing to wait for on the CPU)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
-def _ms(fn, dev: torch.device, reps: int) -> float:
+def mean_ms(fn, dev: torch.device, reps: int) -> float:
+    """Mean wall ms of ``reps`` calls of ``fn`` after one warm-up call,
+    host clocks around work that ends in a synchronise."""
     fn()
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    _sync(dev)
+    sync(dev)
     return (time.perf_counter() - t0) / reps * 1e3
 
 
@@ -71,7 +74,7 @@ def host_fed_inputs(streams: list[bytes], device="cuda"):
     v9 = host_fed.build_v9_arrays(mp, n_seg, device=dev)
     stored = (torch.from_numpy(np.asarray(mp.plan.stored_pos, np.int32)).to(dev),
               torch.from_numpy(np.asarray(mp.plan.stored_val, np.uint8)).to(dev))
-    _sync(dev)
+    sync(dev)
     t2 = time.perf_counter()
     return mp, v9, stored, n_seg, {"host_scan_ms": (t1 - t0) * 1e3,
                                    "v9_prep_ms": (t2 - t1) * 1e3}
@@ -92,12 +95,12 @@ def profile(streams: list[bytes], device="cuda", reps: int = 5) -> dict:
     wants = [inflate_native(s)[0] for s in streams]
     mp, v9, stored, n_seg, out = host_fed_inputs(streams, dev)
     check(inflate_generations.inflate_v10(v9, *stored, n_seg), mp, wants)
-    out["host_fed_ms"] = _ms(
+    out["host_fed_ms"] = mean_ms(
         lambda: inflate_generations.inflate_v10(v9, *stored, n_seg), dev, reps)
     flat = build_merged_plan(streams)
     run = prepare_merged(flat, device=dev)
     check(run(), flat, wants)
-    out["flagship_ms"] = _ms(run, dev, reps)
+    out["flagship_ms"] = mean_ms(run, dev, reps)
     out["out_bytes"] = mp.plan.out_size
     return out
 

@@ -13,9 +13,12 @@ from debigulator_tpu.ops import inflate_v3 as v3
 from debigulator_tpu.ops import lz77_pallas as lz
 from debigulator_tpu.ops.phase_a_pallas import build_pa_arrays
 from debigulator_tpu.ops.scanner import scan_stream_cells
+from debigulator_tpu.parallel.merged import build_merged_plan
 from debigulator_tpu_torch.ops import inflate as inf
 from debigulator_tpu_torch.ops import phase_a as tpa
 from debigulator_tpu_torch.ops import plan as tp
+from debigulator_tpu_torch.tools import profile_r3
+from debigulator_tpu_torch.tools.inputs import make_streams, obj_text
 from torch_stream_cases import (
     STREAMS,
     deflate,
@@ -131,15 +134,30 @@ def test_inflate_v7(name):
     assert _bytes(got, plan.out_size) == data
 
 
-@pytest.mark.parametrize("name", ["dynamic", "mixed", "rle"])
+def _v13_case(name):
+    """(reference plan, the port's staged v13 inputs and slots, decoded
+    bytes): a stream of STREAMS staged from the reference's plan, or
+    "profile_r3", tools/profile_r3's batch (two copies of a 20,000-byte
+    OBJ-text stream) as that tool plans and stages it."""
+    if name != "profile_r3":
+        plan, data = _ref_plan(name)
+        port, pa, arrays = _staged(plan)
+        return plan, pa, arrays, port.slots, data
+    text = obj_text(size=20_000)
+    streams = make_streams(text, 1) * 2
+    mp, pa, arrays, _, _ = profile_r3.stage(streams, CPU)
+    plan = build_merged_plan(streams, records=False).plan
+    return plan, pa, arrays, mp.plan.slots, text * 2
+
+
+@pytest.mark.parametrize("name", ["dynamic", "mixed", "rle", "profile_r3"])
 def test_inflate_v13(name):
-    plan, data = _ref_plan(name)
+    plan, pa, arrays, slots, data = _v13_case(name)
     ref_pa = build_pa_arrays(plan)
     want, want_of = v3._inflate_v13_jit(
         ref_pa, v3.plan_arrays_v7(plan), plan.slots, _n_seg(plan),
         interpret=True)
-    port, pa, arrays = _staged(plan)
-    got, overflow = inf.inflate_v13(pa, arrays, port.slots, _n_seg(plan))
+    got, overflow = inf.inflate_v13(pa, arrays, slots, _n_seg(plan))
     assert not bool(overflow) and not bool(want_of)
     assert np.array_equal(got.numpy(), np.asarray(want))
     assert _bytes(got, plan.out_size) == data

@@ -102,9 +102,14 @@ def _entry_calls():
     )
     from debigulator_tpu_torch.parallel.mesh import make_mesh
     from debigulator_tpu_torch.tools import (
+        check_4k_unfilter,
         event_chase,
         microbench_pb,
+        profile_corpus,
+        profile_encoder,
         profile_merged,
+        profile_r3,
+        trace_v15,
     )
 
     import tempfile
@@ -151,6 +156,11 @@ def _entry_calls():
         "literal_runs": lambda: host_fed.literal_runs(
             build_merged_plan([raw], records=True).recs),
         "microbench_pb": microbench_pb.main,
+        "trace_v15": lambda: trace_v15.main([]),
+        "profile_encoder": lambda: profile_encoder.main([]),
+        "profile_corpus": lambda: profile_corpus.main([]),
+        "check_4k_unfilter": lambda: check_4k_unfilter.main([]),
+        "profile_r3": lambda: profile_r3.main([]),
         "event_chase": event_chase.main,
         "make_mesh": make_mesh,
         "decode_batch_device": lambda: batch.decode_batch_device([raw]),
@@ -174,7 +184,9 @@ def _entry_calls():
     "deflate_fixed_device", "lz77_parse_device", "lz77_parse_device_short",
     "lz77_select_device", "build_v9_arrays", "profile_merged",
     "host_fed_inputs", "build_group_arrays_v10", "literal_runs",
-    "microbench_pb", "event_chase", "make_mesh", "decode_batch_device",
+    "microbench_pb", "trace_v15", "profile_encoder", "profile_corpus",
+    "check_4k_unfilter", "profile_r3", "event_chase", "make_mesh",
+    "decode_batch_device",
     "decode_split_emulated", "decode_split_stream", "device_trace", "cuda_gz",
     "cuda_png_decode", "cuda_png_encode"])
 def test_entry_points_default_to_cuda(entry):
