@@ -3191,7 +3191,6 @@ def tools_phase(dev, streams: list[bytes], corpus) -> dict:
     stream's plan and one call taken apart by decode_breakdown); then
     trace_v15 --no-trace as a subprocess."""
     import hashlib
-    import os
     import re
 
     from debigulator_tpu_torch.models import png_codec
@@ -3245,7 +3244,7 @@ def tools_phase(dev, streams: list[bytes], corpus) -> dict:
     if hashlib.sha256(raw).hexdigest() != K4_SCANLINES_SHA256:
         raise AssertionError("k4_png's scanlines changed")
     k4 = {"build_s": build_s, **run(lambda: check_4k_unfilter.check(
-        png, raw, pix, dev, os.cpu_count() or 1))}
+        png, raw, pix, dev))}
     del raw, pix
     # Its stream's plan (one call, or the chunked long-stream decode) and
     # one call taken apart.

@@ -12,23 +12,21 @@ port does not have; this one runs the port's ``decode_png_device``: the
 native scan, the plan (chunked when the literal rows pass one call's cap),
 the inflate kernels and the unfilter kernel.  Prints the PNG and RGBA
 sizes, the first call's seconds, then checks the image against the NumPy
-oracle (``ops/unfilter.unfilter_image`` of the known scanlines) and the
-source pixels, and prints a warm call's seconds and MB/s.
+oracle and the source pixels, and prints a warm call's seconds and MB/s.
 
-The oracle steps pixel by pixel in Python (minutes at 4096 x 4096), so it
-runs in bands of rows over ``--workers`` processes, each band started from
-the source's row above it (a row of filter type 0).  Every band equal to
-the source's rows means, band by band, that the oracle run over the whole
-image gives the source, as the decode must.  Runs on the card; ``--device
+``ops/unfilter.unfilter_image`` steps pixel by pixel in Python, so the
+oracle here runs the other way: the decode, filtered again with the
+scanlines' own filter types (``inputs.filter_scanlines``, one vectorised
+pass), must give the known scanlines byte for byte; as each filter type
+has one inverse, that holds exactly when ``unfilter_image`` of the
+scanlines equals the decode.  The CPU tests hold ``unfilter_image``
+itself against the decode on a small image.  Runs on the card; ``--device
 cpu`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import argparse
-import concurrent.futures as cf
-import multiprocessing
-import os
 import sys
 import time
 
@@ -37,60 +35,24 @@ import torch
 
 from debigulator_tpu_torch.device import resolve as resolve_device
 from debigulator_tpu_torch.models.pipeline import decode_png_device
-from debigulator_tpu_torch.ops.unfilter import unfilter_image
-from debigulator_tpu_torch.tools.inputs import k4_png
+from debigulator_tpu_torch.tools.inputs import filter_scanlines, k4_png
 
 SIDE = 4096
 
 
-def oracle_band(filtered: bytes, above: bytes | None, rows: int,
-                width: int) -> np.ndarray:
-    """``unfilter_image`` of ``rows`` filtered RGBA scanlines whose row
-    above holds the bytes ``above`` (none for the image's first row):
-    (rows, 4 * width) uint8."""
-    f = np.frombuffer(filtered, np.uint8)
-    if above is None:
-        return unfilter_image(f, rows, width, 4)
-    f = np.concatenate([np.zeros(1, np.uint8), np.frombuffer(above, np.uint8),
-                        f])
-    return unfilter_image(f, rows + 1, width, 4)[1:]
+def oracle_check(raw: bytes, rgba: np.ndarray) -> None:
+    """Raise unless the (h, w, 4) ``rgba``, filtered with the filter types
+    of the scanlines ``raw``, gives ``raw``."""
+    h, w, _ = rgba.shape
+    ftypes = np.frombuffer(raw, np.uint8)[:: 1 + 4 * w]
+    again = np.frombuffer(filter_scanlines(rgba, ftypes), np.uint8)
+    diff = np.flatnonzero(again != np.frombuffer(raw, np.uint8))
+    if len(diff):
+        raise AssertionError(f"the decode differs from the oracle from row "
+                             f"{diff[0] // (1 + 4 * w)} on")
 
 
-def oracle_check(raw: bytes, rgba: np.ndarray, pix: np.ndarray,
-                 workers: int) -> int:
-    """Hold ``rgba`` and the source ``pix`` against the oracle of the
-    filtered scanlines ``raw``, in ``workers`` bands of rows (one process
-    each when there are more than one); returns the number of bands."""
-    h, w, _ = pix.shape
-    line = 1 + 4 * w
-    step = -(-h // max(1, workers))
-    bands = [(y0, min(h, y0 + step)) for y0 in range(0, h, step)]
-    jobs = [(raw[y0 * line : y1 * line],
-             pix[y0 - 1].tobytes() if y0 else None, y1 - y0, w)
-            for y0, y1 in bands]
-
-    def compare(y0, y1, rows):
-        want = pix[y0:y1].reshape(y1 - y0, 4 * w)
-        if not np.array_equal(rgba[y0:y1].reshape(y1 - y0, 4 * w), rows):
-            raise AssertionError(f"the decode differs from the oracle in rows "
-                                 f"{y0}-{y1}")
-        if not np.array_equal(rows, want):
-            raise AssertionError(f"the oracle differs from the source pixels "
-                                 f"in rows {y0}-{y1}")
-
-    if len(bands) == 1:
-        compare(*bands[0], oracle_band(*jobs[0]))
-        return 1
-    ctx = multiprocessing.get_context("spawn")
-    with cf.ProcessPoolExecutor(len(bands), mp_context=ctx) as pool:
-        futs = [pool.submit(oracle_band, *job) for job in jobs]
-        for (y0, y1), fut in zip(bands, futs):
-            compare(y0, y1, fut.result())
-    return len(bands)
-
-
-def check(png: bytes, raw: bytes, pix: np.ndarray, device="cuda",
-          workers: int = 1) -> dict:
+def check(png: bytes, raw: bytes, pix: np.ndarray, device="cuda") -> dict:
     """``decode_png_device`` of ``png`` (the filtered scanlines ``raw`` of
     the (h, w, 4) pixels ``pix``): first call, oracle and source checks,
     warm call.  Raises on any mismatch."""
@@ -102,8 +64,10 @@ def check(png: bytes, raw: bytes, pix: np.ndarray, device="cuda",
     if rgba.shape != (h, w, 4):
         raise AssertionError(f"decoded shape {rgba.shape} != {(h, w, 4)}")
     t0 = time.perf_counter()
-    bands = oracle_check(raw, rgba, pix, workers)
+    oracle_check(raw, rgba)
     oracle_s = time.perf_counter() - t0
+    if not np.array_equal(rgba, pix):
+        raise AssertionError("the decode differs from the source pixels")
     del rgba
     t0 = time.perf_counter()
     rgba = decode_png_device(png, device=dev)
@@ -111,7 +75,7 @@ def check(png: bytes, raw: bytes, pix: np.ndarray, device="cuda",
     if not np.array_equal(rgba, pix):
         raise AssertionError("the warm call differs from the source pixels")
     return {"side": f"{w}x{h}", "png_bytes": len(png), "rgba_bytes": pix.nbytes,
-            "first_s": first_s, "oracle_s": oracle_s, "oracle_bands": bands,
+            "first_s": first_s, "oracle_s": oracle_s,
             "warm_s": warm_s, "warm_mbps": pix.nbytes / warm_s / 1e6,
             "exact": True}
 
@@ -120,8 +84,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--side", type=int, default=SIDE,
                     help="image side (default 4096)")
-    ap.add_argument("--workers", type=int, default=os.cpu_count() or 1,
-                    help="processes of the oracle (default: one a core)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
@@ -132,9 +94,9 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if dev.type == "cuda":
         print(f"card: {torch.cuda.get_device_name(dev)}", flush=True)
-    r = check(png, raw, pix, dev, args.workers)
+    r = check(png, raw, pix, dev)
     print(f"device decode: {r['first_s']:.2f} s (first call)", flush=True)
-    print(f"oracle ({r['oracle_bands']} bands): {r['oracle_s']:.1f} s; "
+    print(f"oracle: {r['oracle_s']:.1f} s; "
           f"equal to the decode and to the source pixels", flush=True)
     print(f"{r['side']} decode OK, bit-exact; warm {r['warm_s']:.2f} s = "
           f"{r['warm_mbps']:.0f} MB/s", flush=True)

@@ -205,38 +205,11 @@ def k4_png(h: int = 4096, w: int = 4096,
     base = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
     base[::3] = base[0]
     base[:, ::2, 1] = 77
-    stride = w * 4
-    raw = bytearray()
-    ft = np.tile(np.array([0, 1, 2, 3, 4], np.uint8), h // 5 + 1)[:h]
-    prev = np.zeros(stride, np.int32)
-    for y in range(h):
-        row = base[y].reshape(-1).astype(np.int32)
-        f = int(ft[y])
-        a = np.concatenate([np.zeros(4, np.int32), row[:-4]])
-        pa = np.concatenate([np.zeros(4, np.int32), prev[:-4]])
-        if f == 0:
-            res = row
-        elif f == 1:
-            res = row - a
-        elif f == 2:
-            res = row - prev
-        elif f == 3:
-            res = row - ((a + prev) >> 1)
-        else:
-            p = a + prev - pa
-            pl_ = np.abs(p - a)
-            pb = np.abs(p - prev)
-            pc = np.abs(p - pa)
-            pred = np.where((pl_ <= pb) & (pl_ <= pc), a,
-                            np.where(pb <= pc, prev, pa))
-            res = row - pred
-        raw.append(f)
-        raw.extend((res & 0xFF).astype(np.uint8).tobytes())
-        prev = row
-    comp = zlib.compress(bytes(raw), 6)
+    raw = filter_scanlines(base, np.arange(h) % 5)
+    comp = zlib.compress(raw, 6)
     parts = [PNG_SIGNATURE,
              png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))]
     parts += [png_chunk(b"IDAT", comp[i : i + (1 << 20)])
               for i in range(0, len(comp), 1 << 20)]
     parts.append(png_chunk(b"IEND", b""))
-    return b"".join(parts), bytes(raw), base
+    return b"".join(parts), raw, base

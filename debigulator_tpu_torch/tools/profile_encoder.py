@@ -12,11 +12,13 @@ warm-up call, then one timed: ms, MB/s of filtered bytes, bytes out,
 checked with zlib), ``lz77_select_device`` (match lengths, greedy-walk
 kernel, read-back), ``lz77_parse_device`` (the same plus the token
 arrays), then the host's ``_tokens_to_fields`` with the fixed tables and
-``pack_bits``.  Host encoder, on the centred ``--host-crop`` square
-(default 256: the whole 1024 x 1024 image takes minutes): ``lz77_parse``,
-with the time of its ``_match_lengths`` calls, and ``deflate`` (checked
-with zlib).  Host clocks; each phase reads its result back.  Runs on the
-card; ``--device cpu`` runs the kernels' plain versions.
+``pack_bits`` with the end-of-block code, whose bytes must be
+``deflate_fixed_device``'s.  Host encoder, on the centred
+``--host-crop`` square (default 256: the whole 1024 x 1024 image takes
+minutes): ``lz77_parse``, with the time of its ``_match_lengths`` calls,
+and ``deflate`` (checked with zlib).  Host clocks; each phase reads its
+result back.  Runs on the card; ``--device cpu`` runs the kernels' plain
+versions.
 """
 
 from __future__ import annotations
@@ -73,9 +75,20 @@ def device_phases(rgba: np.ndarray, device="cuda") -> dict:
         tokens, enc._FIXED_LITLEN_CODES, enc._FIXED_LITLEN_LENGTHS,
         enc._FIXED_DIST_CODES, enc._FIXED_DIST_LENGTHS)
     out["tokens_to_fields_ms"] = _ms(t0)
+    # The end-of-block code, as deflate_fixed_device appends it.
+    eob_bits = int(enc._FIXED_LITLEN_LENGTHS[256])
+    eob_val = int(enc._reverse_bits(
+        np.array([enc._FIXED_LITLEN_CODES[256]]), np.array([eob_bits]))[0])
+    vals = np.concatenate([vals, [np.uint64(eob_val)]])
+    bits = np.concatenate([bits, [eob_bits]])
     t0 = time.perf_counter()
-    enc.pack_bits(vals, bits, prefix_bits=3, prefix_val=0b011)
+    packed, _ = enc.pack_bits(vals, bits, prefix_bits=3, prefix_val=0b011)
     out["pack_bits_ms"] = _ms(t0)
+    # deflate_fixed_device stores the data instead when packing is larger.
+    n = len(data)
+    if len(packed) < n + 5 * ((n + 65534) // 65535) and packed != blob:
+        raise AssertionError("the phases do not give deflate_fixed_device's "
+                             "bytes")
     return out
 
 

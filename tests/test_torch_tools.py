@@ -3,9 +3,9 @@ profile_corpus, check_4k_unfilter) and their synthetic inputs
 (debigulator_tpu_torch/tools/inputs.py), on device="cpu" at small sizes:
 each tool's function returns its numbers and passes its own exactness
 check, each main runs once, the inputs keep their pinned bytes, and the
-4096^2 check's image decodes like the JAX package's decoder.  (The
-profile_r3 batch's v13 body is held against the JAX package's in
-tests/test_torch_drivers.py::test_inflate_v13.)"""
+4096^2 check's image decodes like the JAX package's decoder and the
+pixel-stepping unfilter oracle.  (The profile_r3 batch's v13 body is held
+against the JAX package's in tests/test_torch_drivers.py::test_inflate_v13.)"""
 
 import gzip
 import hashlib
@@ -17,6 +17,7 @@ import torch
 
 from debigulator_tpu.models.png_codec import decode_png as ref_decode_png
 from debigulator_tpu_torch.models.pipeline import decode_png_device
+from debigulator_tpu_torch.ops.unfilter import unfilter_image
 from debigulator_tpu_torch.tools import (
     check_4k_unfilter,
     inputs,
@@ -89,9 +90,12 @@ def test_k4_png_shape_and_chunks():
 
 
 def test_k4_png_decodes_like_the_reference():
-    png, _, pix = inputs.k4_png(40, 24)
+    png, raw, pix = inputs.k4_png(40, 24)
     assert np.array_equal(ref_decode_png(png), pix)
-    assert np.array_equal(decode_png_device(png, device="cpu"), pix)
+    got = decode_png_device(png, device="cpu")
+    assert np.array_equal(got, pix)
+    oracle = unfilter_image(np.frombuffer(raw, np.uint8), 40, 24, 4)
+    assert np.array_equal(oracle, got.reshape(40, 24 * 4))
 
 
 def test_trace_v15_on_two_streams():
@@ -153,20 +157,20 @@ def test_profile_corpus_raises_on_wrong_pixels():
         profile_corpus.profile([(png, bad), other], device="cpu")
 
 
-@pytest.mark.parametrize("workers", [1, 2])
-def test_check_4k_unfilter_small(workers):
-    png, raw, pix = inputs.k4_png(40, 24)
-    r = check_4k_unfilter.check(png, raw, pix, device="cpu", workers=workers)
-    assert r["exact"] and r["oracle_bands"] == workers
-    assert r["rgba_bytes"] == 40 * 24 * 4
+@pytest.mark.parametrize("seed", [1, 2])
+def test_check_4k_unfilter_small(seed):
+    png, raw, pix = inputs.k4_png(40, 24, seed)
+    r = check_4k_unfilter.check(png, raw, pix, device="cpu")
+    assert r["exact"] and r["rgba_bytes"] == 40 * 24 * 4
 
 
 def test_check_4k_oracle_sees_a_wrong_row():
-    png, raw, pix = inputs.k4_png(40, 24)
+    _, raw, pix = inputs.k4_png(40, 24)
+    check_4k_unfilter.oracle_check(raw, pix)
     bad = pix.copy()
     bad[30, 5, 2] ^= 1
-    with pytest.raises(AssertionError, match="from the oracle in rows 0-40"):
-        check_4k_unfilter.oracle_check(raw, bad, pix, 1)
+    with pytest.raises(AssertionError, match="from the oracle from row 30 on"):
+        check_4k_unfilter.oracle_check(raw, bad)
 
 
 def _main_args(tool, tmp_path):
@@ -186,7 +190,7 @@ def _main_args(tool, tmp_path):
             files.append(tmp_path / f"{k}.png")
             files[-1].write_bytes(png)
         return [*map(str, files), "--trace"]
-    return ["--side", "24", "--workers", "1"]
+    return ["--side", "24"]
 
 
 #: tool -> a line its main prints on a run that held.
