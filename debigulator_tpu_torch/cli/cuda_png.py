@@ -24,7 +24,7 @@ import numpy as np
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="cuda_png")
     ap.add_argument("-v", "--verbose", action="count", default=0,
-                    help="decode summaries (-v) / phase debug (-vv)")
+                    help="a decode's time by layer (-v) / a line a span (-vv)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     d = sub.add_parser("decode")
     d.add_argument("files", nargs="+")

@@ -39,46 +39,46 @@ from debigulator_tpu_torch.ops.scanner import scan_stream_cells
 from debigulator_tpu_torch.ops.unfilter import unfilter
 from debigulator_tpu_torch.parallel.batch import decode_batch_device
 from debigulator_tpu_torch.parallel.merged import build_merged_plan, decode_merged
-from debigulator_tpu_torch.utils.logging import PhaseLog
 from debigulator_tpu_torch.utils.manifest import JobManifest
+from debigulator_tpu_torch.utils.profiling import named_scope
 
 
 def decode_gzip_device(data, verify: bool = True, device="cuda") -> bytes:
     """gzip decode with all DEFLATE work on the device (multi-member)."""
-    dev = resolve_device(device)
-    data = memoryview(data)
-    n = len(data)
-    if n == 0:
-        raise GzipError("empty input is not a gzip stream")
-    out_parts = []
-    at = 0
-    while at < n:
-        plog = PhaseLog("gzip.decode_device")
-        p, _ = _parse_header(data, at)
-        payload = bytes(data[p:])
-        # One host scan per member: the pass that finds the member's end
-        # also records code lengths and exact cell entries for the plan.
-        scanned = scan_stream_cells(payload, CELL_BITS)
-        blocks = scanned[0]
-        plog.mark("scan")
-        end = p + (blocks[-1].end_bit + 7) // 8
-        if end + 8 > n:
-            raise GzipError("truncated gzip footer")
-        out = inflate_device(payload[: end - p], scanned=scanned, device=dev)
-        plog.mark("inflate")
-        crc, isize = struct.unpack_from("<II", data, end)
-        if verify:
-            if len(out) & 0xFFFFFFFF != isize:
-                raise GzipError(f"ISIZE mismatch: {len(out)} vs {isize}")
-            if ck.crc32(out) != crc:
-                raise GzipError("CRC-32 mismatch")
-            plog.mark("crc")
-        out_parts.append(out)
-        member_start = at
-        at = end + 8
-        plog.done(member_bytes=at - member_start, out_bytes=len(out),
-                  blocks=len(blocks), crc="ok" if verify else "skipped")
-    return b"".join(out_parts)
+    with named_scope("dbg.decode_gzip", request=True):
+        dev = resolve_device(device)
+        data = memoryview(data)
+        n = len(data)
+        if n == 0:
+            raise GzipError("empty input is not a gzip stream")
+        out_parts = []
+        at = 0
+        while at < n:
+            with named_scope("dbg.parse"):
+                p, _ = _parse_header(data, at)
+                payload = bytes(data[p:])
+            # One host scan per member: the pass that finds the member's
+            # end also records code lengths and exact cell entries for the
+            # plan.
+            with named_scope("dbg.scan"):
+                scanned = scan_stream_cells(payload, CELL_BITS)
+            with named_scope("dbg.parse"):
+                end = p + (scanned[0][-1].end_bit + 7) // 8
+                if end + 8 > n:
+                    raise GzipError("truncated gzip footer")
+                crc, isize = struct.unpack_from("<II", data, end)
+                stream = payload[: end - p]
+            out = inflate_device(stream, scanned=scanned, device=dev)
+            if verify:
+                with named_scope("dbg.check"):
+                    if len(out) & 0xFFFFFFFF != isize:
+                        raise GzipError(f"ISIZE mismatch: {len(out)} vs {isize}")
+                    if ck.crc32(out) != crc:
+                        raise GzipError("CRC-32 mismatch")
+            out_parts.append(out)
+            at = end + 8
+        with named_scope("dbg.readback"):
+            return b"".join(out_parts)
 
 
 # ---------------------------------------------------------------------------
@@ -123,26 +123,21 @@ def _to_rgba(pix: torch.Tensor, chunks: png_codec.PngChunks) -> np.ndarray:
 
 
 def _decode_png_pixels(chunks: png_codec.PngChunks, dev: torch.device,
-                       verify_adler: bool, plog: PhaseLog | None = None,
-                       scanned=None) -> torch.Tensor:
+                       verify_adler: bool, scanned=None) -> torch.Tensor:
     """One parsed PNG -> device pixels: inflate, size check, Adler-32,
     unfilter, RGB expansion."""
     info = chunks.info
-    body, out_size = inf.inflate_device_dev(chunks.idat[2:], scanned=scanned,
+    with named_scope("dbg.parse"):
+        stream = chunks.idat[2:]
+    body, out_size = inf.inflate_device_dev(stream, scanned=scanned,
                                             device=dev)
-    if plog:
-        plog.mark("inflate")
-    _check_size(out_size, info)
-    raw = body[:out_size]
-    if verify_adler:
-        if ck.adler32_device(raw) != _idat_adler(chunks):
+    with named_scope("dbg.check"):
+        _check_size(out_size, info)
+        raw = body[:out_size]
+        if verify_adler and ck.adler32_device(raw) != _idat_adler(chunks):
             raise png_codec.PngError("IDAT Adler-32 mismatch")
-        if plog:
-            plog.mark("adler")
-    pix = _reconstruct(raw.to(torch.uint8), info)
-    if plog:
-        plog.mark("unfilter")
-    return pix
+    with named_scope("dbg.unfilter"):
+        return _reconstruct(raw.to(torch.uint8), info)
 
 
 def decode_png_device(data, verify_crc: bool = True, verify_adler: bool = True,
@@ -150,18 +145,14 @@ def decode_png_device(data, verify_crc: bool = True, verify_adler: bool = True,
     """PNG decode with inflate, Adler-32, unfilter and RGB -> RGBA expansion
     on the device; the only transfers are the compressed stream in, the
     Adler word and the final image out.  Returns (h, w, 4) RGBA uint8."""
-    dev = resolve_device(device)
-    plog = PhaseLog("png.decode_device")
-    chunks = png_codec.parse_chunks(data, verify_crc=verify_crc)
-    parse_zlib_header(chunks.idat)
-    plog.mark("chunks")
-    pix = _decode_png_pixels(chunks, dev, verify_adler, plog)
-    rgba = _to_rgba(pix, chunks)
-    info = chunks.info
-    plog.done(w=info.width, h=info.height, color_type=info.color_type,
-              crc="ok" if verify_crc else "skipped",
-              adler="ok" if verify_adler else "skipped")
-    return rgba
+    with named_scope("dbg.decode_png", request=True):
+        dev = resolve_device(device)
+        with named_scope("dbg.parse"):
+            chunks = png_codec.parse_chunks(data, verify_crc=verify_crc)
+            parse_zlib_header(chunks.idat)
+        pix = _decode_png_pixels(chunks, dev, verify_adler)
+        with named_scope("dbg.readback"):
+            return _to_rgba(pix, chunks)
 
 
 def decode_png_corpus_device(datas: list[bytes], verify_crc: bool = True,
@@ -181,42 +172,52 @@ def decode_png_corpus_device(datas: list[bytes], verify_crc: bool = True,
     expansion for palette and gray images): the device-resident timing
     hook.
     """
-    dev = resolve_device(device)
-    plog = PhaseLog("png.decode_corpus_device")
-    parsed = [png_codec.parse_chunks(d, verify_crc=verify_crc) for d in datas]
-    for ch in parsed:
-        parse_zlib_header(ch.idat)
-    streams = [ch.idat[2:] for ch in parsed]
+    with named_scope("dbg.decode_png_corpus", request=True):
+        return _decode_png_corpus(datas, verify_crc, verify_adler, as_numpy,
+                                  resolve_device(device))
+
+
+def _decode_png_corpus(datas, verify_crc, verify_adler, as_numpy, dev):
+    with named_scope("dbg.parse"):
+        parsed = [png_codec.parse_chunks(d, verify_crc=verify_crc)
+                  for d in datas]
+        for ch in parsed:
+            parse_zlib_header(ch.idat)
+        streams = [ch.idat[2:] for ch in parsed]
 
     def scan(s):
         return scan_stream_cells(s, CELL_BITS)
 
-    if len(streams) > 1:
-        get_lib()  # load once before the pool
-        workers = min(len(streams), max(2, os.cpu_count() or 2))
-        with cf.ThreadPoolExecutor(max_workers=workers) as pool:
-            scans = list(pool.map(scan, streams))
-    else:
-        scans = [scan(s) for s in streams]
+    # The scans and the chunks' plans run on worker threads, whose spans a
+    # profiler may not record: the main thread's waits carry their names.
+    with named_scope("dbg.scan"):
+        if len(streams) > 1:
+            get_lib()  # load once before the pool
+            workers = min(len(streams), max(2, os.cpu_count() or 2))
+            with cf.ThreadPoolExecutor(max_workers=workers) as pool:
+                scans = list(pool.map(scan, streams))
+        else:
+            scans = [scan(s) for s in streams]
 
     # Chunk the merged batch under the run-meta literal-row cap; the 2x
     # margin covers the merged plan's pow2 rounding of its bit extent.
-    extents = [scan_extent(sc[0], sc[2]) for sc in scans]
-    alone = [2 * cells * slots // 128 > LIT_ROW_CAP for cells, slots in extents]
-    chunks, cur, cur_cells, cur_slots = [], [], 0, 1
-    for i, (cells_i, slots_i) in enumerate(extents):
-        if alone[i]:
-            continue
-        new_slots = max(cur_slots, slots_i)
-        if cur and 2 * (cur_cells + cells_i) * new_slots // 128 > LIT_ROW_CAP:
+    with named_scope("dbg.plan"):
+        extents = [scan_extent(sc[0], sc[2]) for sc in scans]
+        alone = [2 * cells * slots // 128 > LIT_ROW_CAP
+                 for cells, slots in extents]
+        chunks, cur, cur_cells, cur_slots = [], [], 0, 1
+        for i, (cells_i, slots_i) in enumerate(extents):
+            if alone[i]:
+                continue
+            new_slots = max(cur_slots, slots_i)
+            if cur and 2 * (cur_cells + cells_i) * new_slots // 128 > LIT_ROW_CAP:
+                chunks.append(cur)
+                cur, cur_cells, new_slots = [], 0, slots_i
+            cur.append(i)
+            cur_cells += cells_i
+            cur_slots = new_slots
+        if cur:
             chunks.append(cur)
-            cur, cur_cells, new_slots = [], 0, slots_i
-        cur.append(i)
-        cur_cells += cells_i
-        cur_slots = new_slots
-    if cur:
-        chunks.append(cur)
-    plog.mark("scan")
 
     pix_map: dict[int, torch.Tensor] = {}
     adlers, adler_idx = [], []
@@ -231,45 +232,47 @@ def decode_png_corpus_device(datas: list[bytes], verify_crc: bool = True,
     with cf.ThreadPoolExecutor(1) as pool:
         fut = pool.submit(build, chunks[0]) if chunks else None
         for ci, chunk in enumerate(chunks):
-            mp, staged = fut.result()
-            if ci + 1 < len(chunks):
-                fut = pool.submit(build, chunks[ci + 1])
+            with named_scope("dbg.plan.wait"):
+                mp, staged = fut.result()
+                if ci + 1 < len(chunks):
+                    fut = pool.submit(build, chunks[ci + 1])
             # Bucket the chunk's images by shape: one unfilter launch each.
-            buckets: dict = {}
-            for k, (i, size) in enumerate(zip(chunk, mp.out_sizes)):
-                info = parsed[i].info
-                _check_size(size, info)
-                key = (info.height, info.width, info.bpp, info.color_type)
-                buckets.setdefault(key, []).append((i, mp.out_offsets[k]))
+            with named_scope("dbg.check"):
+                buckets: dict = {}
+                for k, (i, size) in enumerate(zip(chunk, mp.out_sizes)):
+                    info = parsed[i].info
+                    _check_size(size, info)
+                    key = (info.height, info.width, info.bpp, info.color_type)
+                    buckets.setdefault(key, []).append((i, mp.out_offsets[k]))
             body = inf.flagship_body(staged)
             for members in buckets.values():
-                info = parsed[members[0][0]].info
-                size = _expected_size(info)
-                raws = torch.stack([body[off : off + size]
-                                    for _, off in members])
-                if verify_adler:
+                with named_scope("dbg.unfilter"):
+                    info = parsed[members[0][0]].info
+                    size = _expected_size(info)
+                    raws = torch.stack([body[off : off + size]
+                                        for _, off in members])
+                    if verify_adler:
+                        with named_scope("dbg.check"):
+                            for j, (i, _) in enumerate(members):
+                                adlers.append(ck.adler32_tensor(raws[j]))
+                                adler_idx.append(i)
+                    pix = _reconstruct(raws.to(torch.uint8), info)
                     for j, (i, _) in enumerate(members):
-                        adlers.append(ck.adler32_tensor(raws[j]))
-                        adler_idx.append(i)
-                pix = _reconstruct(raws.to(torch.uint8), info)
-                for j, (i, _) in enumerate(members):
-                    pix_map[i] = pix[j]
+                        pix_map[i] = pix[j]
     for i, big in enumerate(alone):
         if big:
             pix_map[i] = _decode_png_pixels(parsed[i], dev, verify_adler,
                                             scanned=scans[i])
-    plog.mark("dispatch")
     if adlers:
-        got = torch.stack(adlers).cpu().tolist()  # one readback for the batch
-        for i, g in zip(adler_idx, got):
-            if g != _idat_adler(parsed[i]):
-                raise png_codec.PngError("IDAT Adler-32 mismatch")
-        plog.mark("adler")
+        with named_scope("dbg.check"):
+            got = torch.stack(adlers).cpu().tolist()  # one readback for the batch
+            for i, g in zip(adler_idx, got):
+                if g != _idat_adler(parsed[i]):
+                    raise png_codec.PngError("IDAT Adler-32 mismatch")
     if not as_numpy:
         return [pix_map[i] for i in range(len(datas))]
-    images = [_to_rgba(pix_map[i], ch) for i, ch in enumerate(parsed)]
-    plog.done(images=len(images))
-    return images
+    with named_scope("dbg.readback"):
+        return [_to_rgba(pix_map[i], ch) for i, ch in enumerate(parsed)]
 
 
 def decode_png_batch(datas: list[bytes], mesh=None, verify_crc: bool = True,

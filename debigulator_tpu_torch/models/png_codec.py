@@ -37,6 +37,7 @@ from debigulator_tpu_torch.models.zlib_codec import (
 from debigulator_tpu_torch.ops import checksum as ck
 from debigulator_tpu_torch.ops import unfilter as uf
 from debigulator_tpu_torch.ops.inflate_ref import inflate as _inflate
+from debigulator_tpu_torch.utils.profiling import named_scope
 
 
 class PngError(ValueError):
@@ -117,10 +118,11 @@ def parse_chunks(data, verify_crc: bool = True) -> PngChunks:
             raise PngError(f"truncated chunk {ctype!r}")
         payload = data[at + 8 : at + 8 + length]
         if verify_crc:
-            (crc,) = struct.unpack_from(">I", data, at + 8 + length)
-            computed = ck.crc32(bytes(data[at + 4 : at + 8 + length]))
-            if crc != computed:
-                raise PngError(f"CRC mismatch in {ctype!r} chunk")
+            with named_scope("dbg.check"):
+                (crc,) = struct.unpack_from(">I", data, at + 8 + length)
+                computed = ck.crc32(bytes(data[at + 4 : at + 8 + length]))
+                if crc != computed:
+                    raise PngError(f"CRC mismatch in {ctype!r} chunk")
         if ctype == b"IHDR":
             pass  # already parsed (re-validated position above)
         elif ctype == b"PLTE":

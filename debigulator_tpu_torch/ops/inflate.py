@@ -98,16 +98,20 @@ def n_segments(out_size: int) -> int:
 def stage_plan(plan: PlanV3, device: torch.device) -> StagedPlan:
     """Stage an exact-entry plan's device inputs (a merged plan's streams
     need no boundaries: the walk resolves them as one)."""
-    return StagedPlan(
-        pa=stage_phase_a_inputs(build_phase_a_inputs(plan), device),
-        stored_pos=torch.from_numpy(
-            np.asarray(plan.stored_pos, np.int32)).to(device),
-        stored_val=torch.from_numpy(
-            np.asarray(plan.stored_val, np.uint8)).to(device),
-        slots=plan.slots,
-        n_seg=n_segments(plan.out_size),
-        slots_exact=plan.slots_exact,
-    )
+    with named_scope("dbg.stage"):
+        with named_scope("dbg.stage.pack"):
+            host = build_phase_a_inputs(plan)
+            stored_pos = np.asarray(plan.stored_pos, np.int32)
+            stored_val = np.asarray(plan.stored_val, np.uint8)
+        with named_scope("dbg.stage.h2d"):
+            return StagedPlan(
+                pa=stage_phase_a_inputs(host, device),
+                stored_pos=torch.from_numpy(stored_pos).to(device),
+                stored_val=torch.from_numpy(stored_val).to(device),
+                slots=plan.slots,
+                n_seg=n_segments(plan.out_size),
+                slots_exact=plan.slots_exact,
+            )
 
 
 def flagship_body(st: StagedPlan, tail0=None) -> torch.Tensor:
@@ -447,12 +451,15 @@ def inflate_device_dev(data: bytes, scanned=None, device="cuda",
     if scanned is not None:
         blocks, lengths, cells = scanned
     else:
-        blocks, lengths, cells = scan_stream_cells(data, CELL_BITS)
-    plan = build_plan_v3(data, blocks, lengths, cells=cells)
+        with named_scope("dbg.scan"):
+            blocks, lengths, cells = scan_stream_cells(data, CELL_BITS)
+    with named_scope("dbg.plan"):
+        plan = build_plan_v3(data, blocks, lengths, cells=cells)
     if plan.first_state == TERMINAL:  # stored-only stream
-        out = np.zeros(plan.out_size, np.int32)
-        out[plan.stored_pos] = plan.stored_val
-        return torch.from_numpy(out).to(dev), plan.out_size
+        with named_scope("dbg.stage"):
+            out = np.zeros(plan.out_size, np.int32)
+            out[plan.stored_pos] = plan.stored_val
+            return torch.from_numpy(out).to(dev), plan.out_size
     exact = plan.exact_entries
     probe = not plan.slots_exact
     n_seg = n_segments(plan.out_size)
@@ -465,8 +472,10 @@ def inflate_device_dev(data: bytes, scanned=None, device="cuda",
                 # One unsplittable block over the cap (a single-block encode
                 # of 16 MB and more): native serial inflate, staged to the
                 # device.
-                out = np.frombuffer(inflate_native(data)[0], np.uint8)
-                return torch.from_numpy(out.astype(np.int32)).to(dev), len(out)
+                with named_scope("dbg.stage"):
+                    out = np.frombuffer(inflate_native(data)[0], np.uint8)
+                    return (torch.from_numpy(out.astype(np.int32)).to(dev),
+                            len(out))
         st = stage_plan(plan, dev)
         if phase_b_generation() != "v13":
             return flagship_body(st), plan.out_size
@@ -475,7 +484,8 @@ def inflate_device_dev(data: bytes, scanned=None, device="cuda",
             lambda k: inflate_v13(st.pa, stored, k, n_seg), plan.slots,
             probe), plan.out_size
 
-    arrays = plan_arrays_v3(plan, dev)
+    with named_scope("dbg.stage"):
+        arrays = plan_arrays_v3(plan, dev)
     if use_kernels and plan.out_size + 512 > lz.OUT_CAP:
         return _retry_on_overflow(
             lambda k: inflate_v5(arrays, plan.n_bits, k, n_seg, exact=exact),
@@ -500,7 +510,8 @@ def inflate_device(data: bytes, scanned=None, device="cuda",
     """Device inflate of one raw DEFLATE stream -> host bytes."""
     body, out_size = inflate_device_dev(data, scanned=scanned, device=device,
                                         use_kernels=use_kernels)
-    return body[:out_size].to(torch.uint8).cpu().numpy().tobytes()
+    with named_scope("dbg.readback"):
+        return body[:out_size].to(torch.uint8).cpu().numpy().tobytes()
 
 
 def inflate_device_long_stream(data: bytes, blocks, lengths, cells,
@@ -513,45 +524,53 @@ def inflate_device_long_stream(data: bytes, blocks, lengths, cells,
     dev = resolve_device(device)
     if cap_rows is None:
         cap_rows = _plan.LIT_ROW_CAP
-    states, pends, mct = cells
-    _, slots_bound = _plan.scan_extent(blocks, cells)
-    cap_cells = (cap_rows * 128 // slots_bound) // (2 * TC) * TC
+    with named_scope("dbg.plan"):
+        states, pends, mct = cells
+        _, slots_bound = _plan.scan_extent(blocks, cells)
+        cap_cells = (cap_rows * 128 // slots_bound) // (2 * TC) * TC
 
-    # Block-aligned chunks: every block is cell-aligned on the virtual
-    # layout, so per-block cell extents are known without decoding.
-    ncells_b = [0 if b.btype == C.BTYPE_STORED else _block_cells(b)
-                for b in blocks]
-    if max(ncells_b, default=0) > cap_cells:
-        raise SingleBlockTooLarge(
-            f"a single block spans {max(ncells_b)} cells (> cap {cap_cells})")
-    chunks = []
-    cur, cur_cells = [], 0
-    for b, nc in enumerate(ncells_b):
-        if cur and cur_cells + nc > cap_cells:
-            chunks.append(cur)
-            cur, cur_cells = [], 0
-        cur.append(b)
-        cur_cells += nc
-    chunks.append(cur)
+        # Block-aligned chunks: every block is cell-aligned on the virtual
+        # layout, so per-block cell extents are known without decoding.
+        ncells_b = [0 if b.btype == C.BTYPE_STORED else _block_cells(b)
+                    for b in blocks]
+        if max(ncells_b, default=0) > cap_cells:
+            raise SingleBlockTooLarge(
+                f"a single block spans {max(ncells_b)} cells (> cap {cap_cells})")
+        chunks = []
+        cur, cur_cells = [], 0
+        for b, nc in enumerate(ncells_b):
+            if cur and cur_cells + nc > cap_cells:
+                chunks.append(cur)
+                cur, cur_cells = [], 0
+            cur.append(b)
+            cur_cells += nc
+        chunks.append(cur)
 
-    tail = torch.zeros(phase_b.WINDOW, dtype=torch.int32, device=dev)
+    with named_scope("dbg.stage"):
+        tail = torch.zeros(phase_b.WINDOW, dtype=torch.int32, device=dev)
     bodies = []
     cell0 = 0
     for chunk in chunks:
-        b0, b1 = chunk[0], chunk[-1] + 1
-        out0 = blocks[b0].out_start
-        sub_blocks = [dataclasses.replace(b, out_start=b.out_start - out0)
-                      for b in blocks[b0:b1]]
-        nchunk_cells = sum(ncells_b[b0:b1])
-        sub_states = states[cell0 : cell0 + nchunk_cells].astype(np.int64)
-        sub_states = np.where(
-            sub_states >= 0, sub_states - 2 * cell0 * CELL_BITS, -1)
-        sub_cells = (sub_states.astype(np.int32),
-                     pends[cell0 : cell0 + nchunk_cells], mct)
-        plan = build_plan_v3(data, sub_blocks, lengths[b0:b1], cells=sub_cells)
+        with named_scope("dbg.plan"):
+            b0, b1 = chunk[0], chunk[-1] + 1
+            out0 = blocks[b0].out_start
+            sub_blocks = [dataclasses.replace(b, out_start=b.out_start - out0)
+                          for b in blocks[b0:b1]]
+            nchunk_cells = sum(ncells_b[b0:b1])
+            sub_states = states[cell0 : cell0 + nchunk_cells].astype(np.int64)
+            sub_states = np.where(
+                sub_states >= 0, sub_states - 2 * cell0 * CELL_BITS, -1)
+            sub_cells = (sub_states.astype(np.int32),
+                         pends[cell0 : cell0 + nchunk_cells], mct)
+            plan = build_plan_v3(data, sub_blocks, lengths[b0:b1],
+                                 cells=sub_cells)
+            cell0 += nchunk_cells
         body = flagship_body(stage_plan(plan, dev), tail0=tail)
-        bodies.append(body[: plan.out_size])
-        tail = torch.cat([tail, body[: plan.out_size]])[-phase_b.WINDOW:]
-        cell0 += nchunk_cells
-    out = torch.cat(bodies)
+        # The next chunk's 32 KiB window, carried on the device: an input
+        # staged for its call.
+        with named_scope("dbg.stage"):
+            bodies.append(body[: plan.out_size])
+            tail = torch.cat([tail, body[: plan.out_size]])[-phase_b.WINDOW:]
+    with named_scope("dbg.stage"):
+        out = torch.cat(bodies)
     return out, int(out.shape[0])

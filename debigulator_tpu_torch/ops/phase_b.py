@@ -199,24 +199,23 @@ def size8(mdst: torch.Tensor, mmeta: torch.Tensor) -> torch.Tensor:
     """Frontier batch sizes: size8[s] = the largest t <= 8 such that every
     record j in [s, s+t) is narrow and has src_j + len_j <= dst_s; 0 marks
     an overlapping (dist < len) or wide record (phase_b_v15.py:931-953)."""
-    with named_scope("v15_size8"):
-        mlen = mmeta >> 16
-        dist = mmeta & 0xFFFF
-        req = mdst - dist + mlen
-        rp = mdst & 127
-        qr = (mdst - dist - rp) & 127
-        narrow = (rp + (mlen & 0x1FF) + qr) <= 2 * 128
-        n = mdst.numel()
-        reqp = torch.cat([req, torch.full((GROUP,), BIG, dtype=req.dtype,
-                                          device=req.device)])
-        nrwp = torch.cat([narrow, torch.ones(GROUP, dtype=torch.bool,
-                                             device=req.device)])
-        acc = torch.ones(n, dtype=torch.bool, device=req.device)
-        out = torch.zeros(n, dtype=torch.int32, device=req.device)
-        for t in range(GROUP):
-            acc &= (reqp[t : t + n] <= mdst) & nrwp[t : t + n]
-            out += acc.to(torch.int32)
-        return out
+    mlen = mmeta >> 16
+    dist = mmeta & 0xFFFF
+    req = mdst - dist + mlen
+    rp = mdst & 127
+    qr = (mdst - dist - rp) & 127
+    narrow = (rp + (mlen & 0x1FF) + qr) <= 2 * 128
+    n = mdst.numel()
+    reqp = torch.cat([req, torch.full((GROUP,), BIG, dtype=req.dtype,
+                                      device=req.device)])
+    nrwp = torch.cat([narrow, torch.ones(GROUP, dtype=torch.bool,
+                                         device=req.device)])
+    acc = torch.ones(n, dtype=torch.bool, device=req.device)
+    out = torch.zeros(n, dtype=torch.int32, device=req.device)
+    for t in range(GROUP):
+        acc &= (reqp[t : t + n] <= mdst) & nrwp[t : t + n]
+        out += acc.to(torch.int32)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,9 @@ Decodes the 16 PNGs of ``tools/inputs.make_corpus()``, or the PNGs given,
 with ``models/pipeline.decode_png_corpus_device``: the first call (its
 seconds), every image checked against its source pixels (a given file
 against the host decode, ``png_codec.decode_png``), then two calls with
-numpy output and two with ``as_numpy=False`` at verbosity 2 (the phase
-log on stderr), each ending in a synchronise: ms and MB/s of RGBA.  With
+numpy output and two with ``as_numpy=False`` at verbosity 2 (a line a
+span on stderr, then the call's summary by layer), each ending in a
+synchronise: ms and MB/s of RGBA.  With
 ``--trace``, a ``torch.profiler`` trace of one ``as_numpy=False`` call,
 written to a new temporary directory: its top 30 ops (events over 100 us
 summed by name) and every CUDA kernel.  Runs on the card; ``--device
