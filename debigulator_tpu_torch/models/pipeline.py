@@ -56,18 +56,18 @@ def decode_gzip_device(data, verify: bool = True, device="cuda") -> bytes:
         while at < n:
             with named_scope("dbg.parse"):
                 p, _ = _parse_header(data, at)
-                payload = bytes(data[p:])
-            # One host scan per member: the pass that finds the member's
-            # end also records code lengths and exact cell entries for the
-            # plan.
+            # One host scan per member, over the rest of the file where it
+            # lies (the scan stops at the member's final block): the pass
+            # that finds the member's end also records code lengths and
+            # exact cell entries for the plan.
             with named_scope("dbg.scan"):
-                scanned = scan_stream_cells(payload, CELL_BITS)
+                scanned = scan_stream_cells(data[p:], CELL_BITS)
             with named_scope("dbg.parse"):
                 end = p + (scanned[0][-1].end_bit + 7) // 8
                 if end + 8 > n:
                     raise GzipError("truncated gzip footer")
                 crc, isize = struct.unpack_from("<II", data, end)
-                stream = payload[: end - p]
+                stream = bytes(data[p:end])
             out = inflate_device(stream, scanned=scanned, device=dev)
             if verify:
                 with named_scope("dbg.check"):

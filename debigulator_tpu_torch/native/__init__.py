@@ -59,7 +59,7 @@ def get_lib() -> ctypes.CDLL:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dbg_scan.restype = ctypes.c_int64
     lib.dbg_scan.argtypes = [
-        ctypes.c_char_p, ctypes.c_uint64,
+        ctypes.c_void_p, ctypes.c_uint64,
         ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_uint64,

@@ -9,9 +9,20 @@ index and code lengths but no per-cell entries (``cells=None``), and the
 decode drivers then find the entries themselves with the speculative
 fixpoint of ops.graph.  Only the variable selects the Python scan; a
 native library that cannot be built raises.
+
+The scans read their stream where it lies: ``data`` may be any contiguous
+buffer (bytes, bytearray, a memoryview slice, a NumPy uint8 array), and
+bytes after the stream's final block are neither copied nor read, so a
+caller may hand in the rest of a file.  ``scan_stream_cells`` counts what
+it is handed and what it reads (the ``.launches`` style):
+``scan_stream_cells.calls``, ``.bytes_given`` (the lengths handed in) and
+``.bytes_read`` (up to each final block's ``end_bit``, rounded up to
+bytes).
 """
 
 from __future__ import annotations
+
+import threading
 
 from debigulator_tpu_torch import constants as C
 from debigulator_tpu_torch import native
@@ -32,7 +43,7 @@ def scan_stream(data) -> tuple[list[BlockInfo], list]:
     """
     if native.disabled():
         return _scan_stream_py(data)
-    return native_scanner.scan_stream(bytes(memoryview(data)))
+    return native_scanner.scan_stream(data)
 
 
 def scan_stream_cells(data, cell_bits: int):
@@ -46,9 +57,22 @@ def scan_stream_cells(data, cell_bits: int):
     """
     if native.disabled():
         blocks, lengths = _scan_stream_py(data)
-        return blocks, lengths, None
-    return native_scanner.scan_stream(bytes(memoryview(data)),
-                                      cell_bits=cell_bits)
+        scanned = blocks, lengths, None
+    else:
+        scanned = native_scanner.scan_stream(data, cell_bits=cell_bits)
+    given = memoryview(data).nbytes
+    read = (scanned[0][-1].end_bit + 7) // 8
+    with _COUNT_LOCK:  # the corpus and merged scans run on worker threads
+        scan_stream_cells.calls += 1
+        scan_stream_cells.bytes_given += given
+        scan_stream_cells.bytes_read += read
+    return scanned
+
+
+_COUNT_LOCK = threading.Lock()
+scan_stream_cells.calls = 0
+scan_stream_cells.bytes_given = 0
+scan_stream_cells.bytes_read = 0
 
 
 def scan_stream_records(data, cell_bits: int):

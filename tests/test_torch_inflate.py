@@ -3,6 +3,7 @@ plain PyTorch versions): a single stream against the JAX flagship and
 zlib, then larger shapes against zlib / gzip only (bit-exact)."""
 
 import gzip
+import struct
 import zlib
 
 import numpy as np
@@ -138,3 +139,78 @@ def test_gzip_corrupt_crc_raises():
     blob[-8] ^= 0xFF
     with pytest.raises(GzipError, match="CRC"):
         decode_gzip_device(bytes(blob), device="cpu")
+
+
+def _bgzf_member(block: bytes, level: int = 6) -> bytes:
+    """A BGZF block (SAM/BAM specification 4.1): a gzip member whose
+    FEXTRA holds the ``BC`` subfield, the member's size less one."""
+    body = _deflate(block, level)
+    extra = b"BC" + struct.pack("<HH", 2, len(body) + 25)
+    return (b"\x1f\x8b\x08\x04\0\0\0\0\0\xff" + struct.pack("<H", len(extra))
+            + extra + body + struct.pack("<II", zlib.crc32(block), len(block)))
+
+
+def _named_member(block: bytes) -> bytes:
+    """A gzip member with FNAME and FCOMMENT."""
+    return (b"\x1f\x8b\x08\x18\0\0\0\0\0\x03" + b"member.obj\0"
+            + b"a comment, then the stream\0" + _deflate(block, 9)
+            + struct.pack("<II", zlib.crc32(block), len(block)))
+
+
+def _gzip_file(kind: str) -> bytes:
+    texts = [_words(1500 + 400 * i, seed=40 + i) for i in range(4)]
+    if kind == "bgzf":
+        return b"".join(map(_bgzf_member, texts + [b""]))  # + the EOF block
+    if kind == "plain":
+        return b"".join(gzip.compress(t, 1 + 2 * i) for i, t in enumerate(texts))
+    return _named_member(texts[0]) + gzip.compress(texts[1])
+
+
+@pytest.mark.parametrize("kind", ["bgzf", "plain", "fname_fcomment"])
+def test_gzip_members_scanned_in_place(kind):
+    """Each member's scan is handed the rest of the file where it lies:
+    the decode is bit-exact, and the scan counters read more bytes handed
+    in than read."""
+    blob = _gzip_file(kind)
+    count = scan_stream_cells
+    calls, given, read = count.calls, count.bytes_given, count.bytes_read
+    assert decode_gzip_device(bytearray(blob), device="cpu") == \
+        gzip.decompress(blob)
+    n = count.calls - calls
+    assert n == {"bgzf": 5, "plain": 4, "fname_fcomment": 2}[kind]
+    assert count.bytes_given - given > count.bytes_read - read + 8 * n
+
+
+def test_scan_counters_on_a_single_member():
+    """One raw stream: handed and read are equal; one gzip member (a
+    10-byte header): they differ by the 8-byte footer behind the stream."""
+    data = _words(3000, seed=50)
+    stream, member = _deflate(data), gzip.compress(data)
+    count = scan_stream_cells
+    for blob, decode, n_given, n_read in [
+            (stream, inf.inflate_device, len(stream), len(stream)),
+            (member, decode_gzip_device, len(member) - 10, len(member) - 18)]:
+        calls, given, read = count.calls, count.bytes_given, count.bytes_read
+        assert decode(blob, device="cpu") == data
+        assert count.calls - calls == 1
+        assert count.bytes_given - given == n_given
+        assert count.bytes_read - read == n_read
+
+
+def _flip(blob: bytes, at: int) -> bytes:
+    return blob[:at] + bytes([blob[at] ^ 1]) + blob[at + 1 :]
+
+
+@pytest.mark.parametrize("kind,fault,match", [
+    ("bgzf", lambda b: b[:-3], "no room for payload\\+footer"),
+    ("plain", lambda b: b[:-3], "truncated gzip footer"),
+    # The EOF member is 28 bytes, so the last data member's footer
+    # (CRC-32, then ISIZE) starts 36 bytes before the file's end.
+    ("bgzf", lambda b: _flip(b, len(b) - 36), "CRC-32 mismatch"),
+    ("plain", lambda b: _flip(b, len(b) - 8), "CRC-32 mismatch"),
+], ids=["bgzf_truncated", "plain_truncated", "bgzf_crc", "plain_crc"])
+def test_gzip_faults_raise(kind, fault, match):
+    """A file cut inside its last footer, or with a data member's CRC-32
+    flipped, raises: the in-place scan checks every member's footer."""
+    with pytest.raises(GzipError, match=match):
+        decode_gzip_device(fault(_gzip_file(kind)), device="cpu")

@@ -4,6 +4,7 @@ package's and zlib; DBG_NO_NATIVE=1 in a subprocess."""
 
 import subprocess
 import sys
+import threading
 import zlib
 
 import numpy as np
@@ -165,3 +166,117 @@ def test_native_is_the_default(monkeypatch):
     assert cells is not None and len(cells) == 3
     monkeypatch.setenv("DBG_NO_NATIVE", "1")  # read at call time
     assert ts.scan_stream_cells(stream, 64)[2] is None
+
+
+def _scan_arrays(scanned):
+    """Every array of a (blocks, lengths, cells) scan."""
+    _, lengths, (states, pend, _) = scanned
+    return [a for pair in lengths if pair is not None for a in pair] + [
+        states, pend]
+
+
+def _assert_same_scan(got, want):
+    assert [vars(b) for b in got[0]] == [vars(b) for b in want[0]]
+    for g, w in zip(got[1], want[1], strict=True):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert all(np.array_equal(a, b) for a, b in zip(g, w, strict=True))
+    (gs, gp, gm), (ws, wp, wm) = got[2], want[2]
+    assert np.array_equal(gs, ws) and np.array_equal(gp, wp) and gm == wm
+
+
+def _in_place_forms(stream: bytes, tail: bytes):
+    """``stream`` with ``tail`` behind it as each buffer the scan takes."""
+    whole = stream + tail
+    return {"bytes": whole, "bytearray": bytearray(whole),
+            "memoryview": memoryview(b"\x1f\x8b\x08" + whole)[3:],
+            "numpy": np.frombuffer(b"\0" * 5 + whole, np.uint8)[5:]}
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_scan_in_place_ignores_what_follows_the_stream(name):
+    """The scan of a stream alone, of the stream with a second member and
+    random bytes behind it, in every buffer form, and the JAX package's
+    scan agree block for block and cell for cell; every array a scan
+    returns is its own, and two scans in a row share no memory."""
+    from debigulator_tpu.ops.scanner import scan_stream_cells as ref_scan
+    from debigulator_tpu_torch.ops.plan import CELL_BITS
+
+    stream = STREAMS[name]()
+    alone = ts.scan_stream_cells(stream, CELL_BITS)
+    _assert_same_scan(alone, ref_scan(stream, CELL_BITS))
+    tail = STREAMS["dynamic"]() + np.random.default_rng(9).integers(
+        0, 256, 50_000, dtype=np.uint8).tobytes()
+    for form, buf in _in_place_forms(stream, tail).items():
+        got = ts.scan_stream_cells(buf, CELL_BITS)
+        _assert_same_scan(got, alone)
+        assert (got[0][-1].end_bit + 7) // 8 == len(stream), form
+    again = ts.scan_stream_cells(stream, CELL_BITS)
+    for a in _scan_arrays(alone):
+        assert a.flags.owndata
+        assert not any(np.shares_memory(a, b) for b in _scan_arrays(again))
+
+
+class _PoisonedEmpty:
+    """numpy with ``empty`` returning 0xA5 bytes in place of whatever
+    memory held before: a scan may read only what the native side wrote,
+    in a fresh scratch as in one a longer scan left behind."""
+
+    def __getattr__(self, name):
+        return getattr(np, name)
+
+    @staticmethod
+    def empty(shape, dtype=float):
+        a = np.zeros(shape, dtype)
+        a.view(np.uint8)[...] = 0xA5
+        return a
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_scan_reads_only_what_the_native_scan_wrote(name, monkeypatch):
+    from debigulator_tpu_torch.native import scanner as ns
+    from debigulator_tpu_torch.ops.plan import CELL_BITS
+
+    stream = STREAMS[name]()
+    want = ts.scan_stream_cells(stream, CELL_BITS)
+    monkeypatch.setattr(ns, "np", _PoisonedEmpty())
+    monkeypatch.setattr(ns, "_SCRATCH", threading.local())
+    _assert_same_scan(ts.scan_stream_cells(stream + b"\xff" * 999, CELL_BITS),
+                      want)
+    ts.scan_stream_cells(STREAMS["flushed"]() + b"\0" * 99_999, CELL_BITS)
+    _assert_same_scan(ts.scan_stream_cells(stream, CELL_BITS), want)
+    out, blocks = ns.inflate_native(stream)
+    assert out == zlib.decompress(stream, -15)
+    assert [vars(b) for b in blocks] == [vars(b) for b in want[0]]
+
+
+def test_many_tiny_blocks_in_place_grow_and_retry(monkeypatch):
+    """A member of hundreds of tiny blocks (a full flush every 3 bytes)
+    with a tail twice its length behind it: the first block buffer, sized
+    by the whole buffer, is too small, and the scan grows it and gives the
+    same index as the member alone and as the JAX package."""
+    from debigulator_tpu.ops.scanner import scan_stream_cells as ref_scan
+    from debigulator_tpu_torch.native import scanner as ns
+    from debigulator_tpu_torch.ops.plan import CELL_BITS
+
+    c = zlib.compressobj(6, zlib.DEFLATED, -15)
+    data = b"tiny blocks, one flush each " * 40
+    member = b"".join(c.compress(data[i : i + 3]) + c.flush(zlib.Z_FULL_FLUSH)
+                      for i in range(0, len(data), 3)) + c.flush()
+    tail = np.random.default_rng(4).integers(
+        0, 256, 2 * len(member), dtype=np.uint8).tobytes()
+    lib = ns.get_lib()
+    codes = []
+
+    class Lib:
+        def dbg_scan(self, *args):
+            codes.append(lib.dbg_scan(*args))
+            return codes[-1]
+
+    monkeypatch.setattr(ns, "get_lib", Lib)
+    got = ts.scan_stream_cells(memoryview(member + tail), CELL_BITS)
+    assert codes[0] == -2 and codes[-1] == len(got[0]) > 64
+    assert len(got[0]) > (len(member) + len(tail)) // 16 + 16
+    _assert_same_scan(got, ts.scan_stream_cells(member, CELL_BITS))
+    _assert_same_scan(got, ref_scan(member, CELL_BITS))
+    assert zlib.decompress(member, -15) == data
